@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Smoke run of horovod_tpu_torch on one NVIDIA GPU (H100): ``python3
+chip_smoke.py``.
+
+Phases, in order; any failure exits nonzero and prints no result:
+
+1. the card's name and power limit (nvidia-smi), TF32 off, and the build of
+   every CUDA kernel from ``horovod_tpu_torch/ops/csrc`` (nvcc, in
+   parallel), with build seconds and ptxas's register/spill report;
+2. each kernel against its plain PyTorch version on the card: at GPT-2
+   medium's attention shapes (B 8, T 1024, H 16, d 64, bf16, causal) and at
+   ragged shapes with key bias, segment ids and ``causal_offset=-1``, each
+   output element by element (tolerances at ``BF16_TOL``/``F32_TOL``); at the
+   main shapes the same check must also catch three planted faults (a scale
+   off by 1 %, a strict causal mask, a dropped last key tile); then median
+   times of each kernel, its plain version, and, as a yardstick only,
+   ``scaled_dot_product_attention`` forward and backward (the port never
+   calls it);
+3. the main path: ``hvd.init()`` (one rank, NCCL), GPT-2 medium at full
+   width and depth with ``attention="flash"``, ``broadcast_parameters``,
+   ``DistributedOptimizer(AdamW)`` for 5 steps on a fixed seeded batch. The
+   loss must be finite and falling and every kernel's launch count must grow
+   by ``num_layers`` a step. A tiny fp32 GPT-2 checks flash against dense
+   attention first.
+
+Before the last line it prints one JSON object ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops
+after the kernel checks.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
+
+# Tolerances of kernel vs plain, (rtol, atol_rms, rel_rms): every element
+# must hold |got - want| <= rtol * |want| + atol_rms * rms(want), and the
+# whole tensor rms(got - want) <= rel_rms * rms(want). Both sides do the same
+# fp32 math, summed in another order, and round the result once.
+BF16_TOL = (2 ** -6, 1e-3, 1e-2)   # two bf16 ulps of each element
+F32_TOL = (1e-5, 1e-4, 1e-5)       # fp32 sums taken in another order
+
+KERNEL_INFO = {
+    "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "horovod_tpu/ops/flash_attention.py:110"),
+    "flash_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "horovod_tpu/ops/flash_attention.py:256"),
+    "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                      "horovod_tpu/ops/flash_attention.py:296"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median device time of ``fn()`` in ms, each call timed with events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------- phase 1
+
+def phase_build():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0].strip()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("tf32: matmul and cudnn off")
+    from horovod_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    secs = _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s wall, per library "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    for name in _build.SOURCES:
+        rep = _build.ptxas_report(name)
+        if rep:
+            log(f"ptxas {name}:\n{rep}")
+    return card
+
+
+# ---------------------------------------------------------------- phase 2
+
+def _inputs(bh, b, tq, tk, d, dtype, seed, bias=False, seg=False):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v, do = rnd(bh, tq, d), rnd(bh, tk, d), rnd(bh, tk, d), \
+        rnd(bh, tq, d)
+    kb = sg = None
+    if bias:
+        kb = torch.randn(b, tk, generator=g, device="cuda")
+        kb[:, -7:] = -1e30                 # padded keys
+        kb[b - 1, :] = -1e30               # a batch row with no visible key
+    if seg:
+        cut = torch.randint(1, tq, (b, 2), generator=g, device="cuda")
+        pos = torch.arange(tq, device="cuda")[None]
+        sg = ((pos >= cut[:, :1]).int() + (pos >= cut[:, 1:]).int())
+        sg = sg.to(torch.int32).contiguous()
+    return q, k, v, do, kb, sg
+
+
+def _visible_pairs(bh, tq, tk, causal, offset, h, bias=None, seg=None):
+    """Visible (q, k) pairs of this run's masks, summed over BH."""
+    import torch
+    qp = torch.arange(tq, device="cuda")[:, None]
+    kp = torch.arange(tk, device="cuda")[None, :]
+    vis = torch.ones(tq, tk, dtype=torch.bool, device="cuda")
+    if causal:
+        vis = qp + offset >= kp
+    vis = vis[None].expand(bh // h, tq, tk)
+    if seg is not None:
+        vis = vis & (seg[:, :, None] == seg[:, None, :])
+    if bias is not None:
+        vis = vis & (bias[:, None, :] > -1e29)
+    return int(vis.sum().item()) * h
+
+
+def _err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _stats(got, want, tol):
+    """(max |err|, max of err / per-element bound, rms(err) / rms(want), ok)
+    of ``got`` against ``want`` under ``tol`` = (rtol, atol_rms, rel_rms)."""
+    rtol, atol_rms, rel_rms = tol
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms_w = w.pow(2).mean().sqrt()
+    bound = rtol * w.abs() + atol_rms * rms_w
+    worst = (err / bound.clamp_min(1e-30)).max().item()
+    rel = (err.pow(2).mean().sqrt() / rms_w.clamp_min(1e-30)).item()
+    ok = bool((err <= bound).all().item()) and rel <= rel_rms
+    return err.max().item(), worst, rel, ok
+
+
+def _check(name, got, want, tol):
+    """Fails unless ``got`` holds ``tol`` against ``want``; returns the max
+    abs error."""
+    err, worst, rel, ok = _stats(got, want, tol)
+    log(f"  {name}: max_abs_err {err:.3e}, max err/bound {worst:.3f}, "
+        f"rms err/rms {rel:.3e} (rtol {tol[0]:.3e}, atol {tol[1]:.0e} rms, "
+        f"rel rms <= {tol[2]:.0e})")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def compare_case(label, b, tq, tk, h, d, dtype, causal, offset, bias, seg,
+                 tol):
+    """Kernel vs plain for the three kernels on one case; returns errors."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    bh = b * h
+    q, k, v, do, kb, sg = _inputs(bh, b, tq, tk, d, dtype, seed=tq + d,
+                                  bias=bias, seg=seg)
+    scale = d ** -0.5
+    log(f"case {label}: B {b} Tq {tq} Tk {tk} H {h} d {d} {dtype} "
+        f"causal {causal} offset {offset} bias {bias} seg {seg}")
+    o, lse = fa.flash_fwd(q, k, v, kb, sg, h, scale, causal, offset)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, kb, sg, h, scale, causal,
+                                    offset)
+    torch.cuda.synchronize()
+    # lse is compared where a row sees any key; rows that see none must
+    # hold -1e30 on both sides.
+    live = lse_p > -1e29
+    if not torch.equal(live, lse > -1e29):
+        fail("kernel and plain disagree on which rows see no key")
+    # lse is fp32 from the same fp32 scores whatever the input type.
+    errs = {"flash_fwd": max(
+        _check("O", o, o_p, tol),
+        _check("lse", lse[live], lse_p[live], F32_TOL))}
+    if bias:
+        masked = lse_p[(b - 1) * h:].max().item()
+        if masked > -1e29 or lse[(b - 1) * h:].max().item() > -1e29:
+            fail("fully masked rows must give lse = -1e30")
+        if o[(b - 1) * h:].abs().max().item() != 0.0:
+            fail("fully masked rows must give O = 0")
+    delta = (do.float() * o_p.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, kb, sg, do, lse_p, delta, h, scale,
+                         causal, offset)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, kb, sg, do, lse_p, delta, h,
+                                 scale, causal, offset)
+    dk, dv, db = fa.flash_bwd_dkv(q, k, v, kb, sg, do, lse_p, delta, h,
+                                  scale, causal, offset)
+    dk_p, dv_p, db_p = fa.flash_bwd_dkv_plain(q, k, v, kb, sg, do, lse_p,
+                                              delta, h, scale, causal,
+                                              offset)
+    torch.cuda.synchronize()
+    errs["flash_bwd_dq"] = _check("dQ", dq, dq_p, tol)
+    e = [_check("dK", dk, dk_p, tol), _check("dV", dv, dv_p, tol)]
+    if bias:
+        e.append(_check("dbias", db, db_p, tol))
+    errs["flash_bwd_dkv"] = max(e)
+    return errs, (q, k, v, do, kb, sg, lse_p, delta, o_p), (o, dq, dk, dv)
+
+
+def planted_faults(inputs, outs, b, h, d, tol):
+    """The check must catch a wrong kernel: the kernels' outputs at the main
+    shapes are held against plain runs with a fault planted, and each fault
+    must fail the check of every kernel. Also prints what a bound of
+    1.6e-2 * max(1, max |want|) would have said."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = inputs[:4]
+    tk = k.shape[1]
+    scale = d ** -0.5
+    drop = torch.zeros(b, tk, device="cuda")
+    drop[:, tk - 64:] = -1e30
+    faults = {
+        "scale x 1.01": (scale * 1.01, 0, None),
+        "strict causal (offset -1)": (scale, -1, None),
+        "last 64-key tile dropped": (scale, 0, drop),
+    }
+    for label, (sc, off, kb) in faults.items():
+        o_f, lse_f = fa.flash_fwd_plain(q, k, v, kb, None, h, sc, True, off)
+        delta_f = (do.float() * o_f.float()).sum(-1)
+        dq_f = fa.flash_bwd_dq_plain(q, k, v, kb, None, do, lse_f, delta_f,
+                                     h, sc, True, off)
+        dk_f, dv_f, _ = fa.flash_bwd_dkv_plain(q, k, v, kb, None, do, lse_f,
+                                               delta_f, h, sc, True, off,
+                                               want_db=False)
+        caught, loose = {}, []
+        for name, got, want in zip(("O", "dQ", "dK", "dV"), outs,
+                                   (o_f, dq_f, dk_f, dv_f)):
+            err, worst, rel, ok = _stats(got, want, tol)
+            caught[name] = not ok
+            if err <= 1.6e-2 * max(1.0, want.float().abs().max().item()):
+                loose.append(name)
+            log(f"  fault {label}: {name} max_abs_err {err:.3e}, max "
+                f"err/bound {worst:.3f}, rms err/rms {rel:.3e} -> "
+                f"{'caught' if not ok else 'MISSED'}")
+        log(f"  fault {label}: a max-relative bound would pass "
+            f"{loose or 'nothing'}")
+        if not (caught["O"] and caught["dQ"]
+                and (caught["dK"] or caught["dV"])):
+            fail(f"the kernel check misses the planted fault {label}")
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, D = 8, 1024, 16, 64
+    errs, main, main_outs = compare_case("main", B, T, T, H, D,
+                                         torch.bfloat16, True, 0, False,
+                                         False, BF16_TOL)
+    planted_faults(main, main_outs, B, H, D, BF16_TOL)
+    del main_outs
+    compare_case("ragged", 2, 200, 200, 4, 64, torch.float32, True, -1,
+                 True, True, F32_TOL)
+    compare_case("cross", 2, 77, 130, 2, 128, torch.float32, False, 0, True,
+                 False, F32_TOL)
+    compare_case("small-head", 2, 50, 50, 3, 24, torch.bfloat16, True, 0,
+                 False, True, BF16_TOL)
+
+    # Times at the main-path shapes.
+    q, k, v, do, _, _, lse, delta, o = main
+    bh, scale = B * H, D ** -0.5
+    t = {}
+    t["flash_fwd"] = cuda_ms(
+        lambda: fa.flash_fwd(q, k, v, None, None, H, scale, True), 20)
+    t["flash_bwd_dq"] = cuda_ms(
+        lambda: fa.flash_bwd_dq(q, k, v, None, None, do, lse, delta, H,
+                                scale, True), 20)
+    t["flash_bwd_dkv"] = cuda_ms(
+        lambda: fa.flash_bwd_dkv(q, k, v, None, None, do, lse, delta, H,
+                                 scale, True), 20)
+    p = {}
+    p["flash_fwd"] = cuda_ms(
+        lambda: fa.flash_fwd_plain(q, k, v, None, None, H, scale, True), 5)
+    p["flash_bwd_dq"] = cuda_ms(
+        lambda: fa.flash_bwd_dq_plain(q, k, v, None, None, do, lse, delta,
+                                      H, scale, True), 5)
+    p["flash_bwd_dkv"] = cuda_ms(
+        lambda: fa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse, delta,
+                                       H, scale, True), 5)
+
+    # Yardstick: SDPA on the same inputs in its (B, H, T, D) layout.
+    def bhtd(x):
+        return x.view(B, H, T, D).detach().clone().requires_grad_(True)
+    sq, sk, sv = bhtd(q), bhtd(k), bhtd(v)
+    sdo = do.view(B, H, T, D)
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=True), 20)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        torch.autograd.grad(out, (sq, sk, sv), sdo)
+    sdpa_fb = cuda_ms(fwd_bwd, 20)
+    # Backward alone: dQ, dK and dV in one call, the work of both backward
+    # kernels together.
+    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        sout, (sq, sk, sv), sdo, retain_graph=True), 20)
+    log(f"times (ms, median) at B {B} T {T} H {H} d {D} bf16 causal:")
+    for name in fa.KERNELS:
+        log(f"  {name}: kernel {t[name]:.4f}  plain {p[name]:.4f}")
+    log(f"  sdpa fwd {sdpa_fwd:.4f}  sdpa bwd {sdpa_bwd:.4f}  sdpa fwd+bwd "
+        f"{sdpa_fb:.4f} (yardstick; the port never calls it); flash_bwd_dq "
+        f"+ flash_bwd_dkv {t['flash_bwd_dq'] + t['flash_bwd_dkv']:.4f}")
+
+    pairs = _visible_pairs(bh, T, T, True, 0, H)
+    el = bh * T * D * 2   # bytes of one (BH, T, D) bf16 tensor
+    row = bh * T * 4      # bytes of one (BH, T) fp32 vector
+    work = {
+        "flash_fwd": (4 * D * pairs, 4 * el + row),
+        "flash_bwd_dq": (6 * D * pairs, 5 * el + 2 * row),
+        "flash_bwd_dkv": (8 * D * pairs, 6 * el + 2 * row),
+    }
+    library = {"flash_fwd": (sdpa_fwd, "scaled_dot_product_attention "
+                             "forward"),
+               "flash_bwd_dq": (None, "no library call computes dQ alone"),
+               "flash_bwd_dkv": (sdpa_bwd, "scaled_dot_product_attention "
+                                 "backward: dQ, dK and dV in one call, the "
+                                 "work of flash_bwd_dq and flash_bwd_dkv "
+                                 "together")}
+    report = {}
+    for name in fa.KERNELS:
+        flops, nbytes = work[name]
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        src, replaces = KERNEL_INFO[name]
+        report[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": errs[name], "ms": t[name], "plain_ms": p[name],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": library[name][0],
+            "library_note": library[name][1],
+            "flops": flops, "bytes": nbytes,
+        }
+    log(json.dumps({"kernel_checks": list(fa.KERNELS),
+                    "launches_in_checks": dict(fa.launches)}))
+    return report
+
+
+# ---------------------------------------------------------------- phase 3
+
+def phase_reference_check():
+    """Tiny fp32 GPT-2 on the card: flash logits == dense logits."""
+    import torch
+    from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
+    tokens = torch.randint(0, 256, (2, 100),
+                           generator=torch.Generator().manual_seed(3))
+    tokens = tokens.cuda()
+    out = {}
+    for impl in ("dense", "flash"):
+        m = GPT2(GPT2Config.tiny(dtype=torch.float32, attention=impl),
+                 torch.Generator().manual_seed(0)).cuda()
+        logits = m(tokens)
+        loss = loss_fn(logits, tokens)
+        loss.backward()
+        out[impl] = (logits.detach(), loss.item(),
+                     m.h[0].attn.qkv.weight.grad.clone())
+    err = _err(out["flash"][0], out["dense"][0])
+    gerr = _err(out["flash"][2], out["dense"][2])
+    log(f"reference check (tiny fp32 GPT-2, flash vs dense): logits "
+        f"max_abs_err {err:.3e}, qkv grad max_abs_err {gerr:.3e}, loss "
+        f"{out['flash'][1]:.6f} vs {out['dense'][1]:.6f}")
+    if out["flash"][0].shape != (2, 100, 256) or \
+            not torch.isfinite(out["flash"][0]).all():
+        fail("tiny GPT-2 logits are not finite or have the wrong shape")
+    if err > 1e-4 or gerr > 1e-4:
+        fail("flash GPT-2 disagrees with dense GPT-2 (tol 1e-4)")
+
+
+def phase_main_path(card):
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    cfg = GPT2Config.medium(attention="flash")
+    B, T, steps = 8, 1024, 5
+    t0 = time.perf_counter()
+    model = GPT2(cfg, torch.Generator().manual_seed(0)).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"GPT-2 medium: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads, vocab {cfg.vocab_size}, {n_params} params, "
+        f"B {B} T {T} {cfg.dtype}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8))
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(0))
+    tokens = tokens.to(dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_s, parts = [], [], []
+    for step in range(steps):
+        before = dict(fa.launches)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        opt.zero_grad()
+        loss = loss_fn(model(tokens), tokens)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()            # fused gradient allreduce, then AdamW
+        ev[3].record()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        losses.append(loss.item())
+        grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
+        log(f"step {step}: loss {losses[-1]:.6f}  {step_s[-1]:.3f} s  "
+            f"forward {parts[-1][0]:.1f} ms  backward {parts[-1][1]:.1f} ms"
+            f"  allreduce+adamw {parts[-1][2]:.1f} ms  launches {grew}")
+        if any(g != cfg.num_layers for g in grew.values()):
+            fail(f"each kernel must launch {cfg.num_layers} times a step, "
+                 f"got {grew}")
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss is not falling: {losses}")
+    steady = step_s[1:]
+    tok_s = B * T * len(steady) / sum(steady)
+    med = [statistics.median(p[i] for p in parts[1:]) for i in range(3)]
+    log(f"main path on {card}: {tok_s:.1f} tokens/s (steps 1-{steps - 1}), "
+        f"step {statistics.median(steady) * 1e3:.1f} ms median (forward "
+        f"{med[0]:.1f}, backward {med[1]:.1f}, allreduce+adamw {med[2]:.1f} "
+        f"ms, device time between events), peak memory "
+        f"{peak / 2**30:.2f} GiB, losses {losses}")
+    hvd.shutdown()
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="1,2,3",
+                    help="comma-separated phases to run (default 1,2,3)")
+    args = ap.parse_args(argv)
+    phases = {int(x) for x in args.phases.split(",")}
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on the GPU")
+    try:
+        import horovod_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"horovod_tpu_torch is not importable ({e}); run from the "
+             "repository root")
+    card = phase_build()
+    report = phase_kernels() if 2 in phases else {}
+    launches = {}
+    if 3 in phases:
+        phase_reference_check()
+        launches = phase_main_path(card)
+    for name, row in report.items():
+        row["launches"] = launches.get(name, 0)
+    print(json.dumps({"kernels": list(report.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
