@@ -6,16 +6,22 @@ Phases, in order; any failure exits nonzero and prints no result:
 
 1. the card's name and power limit (nvidia-smi), TF32 off, and the build of
    every CUDA kernel from ``horovod_tpu_torch/ops/csrc`` (nvcc, in
-   parallel), with build seconds and ptxas's register/spill report;
+   parallel, with the planted-fault builds of ``_build.PLANTED``), with
+   build seconds and ptxas's register/spill report;
 2. each kernel against its plain PyTorch version on the card: at GPT-2
    medium's attention shapes (B 8, T 1024, H 16, d 64, bf16, causal) and at
-   ragged shapes with key bias, segment ids and ``causal_offset=-1``, each
-   output element by element (tolerances at ``BF16_TOL``/``F32_TOL``); at the
-   main shapes the same check must also catch three planted faults (a scale
-   off by 1 %, a strict causal mask, a dropped last key tile); then median
-   times of each kernel, its plain version, and, as a yardstick only,
-   ``scaled_dot_product_attention`` forward and backward (the port never
-   calls it);
+   ragged shapes with key bias, segment ids and ``causal_offset=-1`` and
+   cross-attention shapes at d 128, in bf16 (the tensor-core kernels) and in
+   fp32 (the FMA kernels), and at B 8, T 1024, H 8, d 128 in bf16, each
+   output element by element (tolerances at ``BF16_TOL``/``F32_TOL``; the
+   worst share of the bound is printed); at the main shapes the same check
+   must also catch four planted faults (a scale off by 1 %, a strict causal
+   mask, a dropped last key tile, and kernels built to round P and dS to
+   bf16 once); then median times of each kernel, one call between two
+   events and over 10 back-to-back calls, with its achieved TFLOP/s, its
+   plain version, and, as a yardstick only, ``scaled_dot_product_attention``
+   forward and backward (the port never calls it), at the main shapes and at
+   d 128;
 3. the main path: ``hvd.init()`` (one rank, NCCL), GPT-2 medium at full
    width and depth with ``attention="flash"``, ``broadcast_parameters``,
    ``DistributedOptimizer(AdamW)`` for 5 steps on a fixed seeded batch. The
@@ -33,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -67,8 +74,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms, each call timed with events."""
+def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+    """Device time of one ``fn()`` in ms: the median over ``reps`` runs of
+    ``inner`` back-to-back calls, each run timed with events and divided by
+    ``inner``. With ``inner`` > 1 the host's launch overhead overlaps the
+    previous call's device work instead of being counted."""
     import torch
     for _ in range(warmup):
         fn()
@@ -77,10 +87,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -101,13 +112,29 @@ def phase_build():
     log("tf32: matmul and cudnn off")
     from horovod_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    secs = _build.build()
+    secs = _build.build(list(_build.SOURCES) + list(_build.PLANTED))
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per library "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for name in _build.SOURCES:
         rep = _build.ptxas_report(name)
         if rep:
             log(f"ptxas {name}:\n{rep}")
+        # The tensor-core kernels must keep everything in registers.
+        entry = ""
+        for line in rep.splitlines():
+            if "Compiling entry" in line:
+                entry = line
+            elif "_wg_kernel" in entry and re.search(
+                    r"[1-9]\d* bytes spill (stores|loads)", line):
+                fail(f"a wgmma kernel spills: {entry}: {line}")
+    # The tensor-core kernels take all their shared memory dynamically, so
+    # ptxas's lines above show none for them.
+    fwd, bwd = _build.load("flash_fwd"), _build.load("flash_bwd")
+    log("dynamic shared memory per block (bytes) of the bf16 wgmma kernels, "
+        "head dim <= 64 / 128: forward "
+        + " / ".join(str(fwd.hvd_flash_fwd_smem(d)) for d in (64, 128))
+        + ", dK/dV "
+        + " / ".join(str(bwd.hvd_flash_bwd_dkv_smem(d)) for d in (64, 128)))
     return card
 
 
@@ -169,10 +196,15 @@ def _stats(got, want, tol):
     return err.max().item(), worst, rel, ok
 
 
+# Worst share of the per-element bound seen by _check, per tolerance.
+WORST = {BF16_TOL: 0.0, F32_TOL: 0.0}
+
+
 def _check(name, got, want, tol):
     """Fails unless ``got`` holds ``tol`` against ``want``; returns the max
     abs error."""
     err, worst, rel, ok = _stats(got, want, tol)
+    WORST[tol] = max(WORST[tol], worst)
     log(f"  {name}: max_abs_err {err:.3e}, max err/bound {worst:.3f}, "
         f"rms err/rms {rel:.3e} (rtol {tol[0]:.3e}, atol {tol[1]:.0e} rms, "
         f"rel rms <= {tol[2]:.0e})")
@@ -272,9 +304,79 @@ def planted_faults(inputs, outs, b, h, d, tol):
             fail(f"the kernel check misses the planted fault {label}")
 
 
-def phase_kernels():
+def planted_rounding(inputs, h, d, tol):
+    """The check must catch kernels that round P and dS to bf16 once instead
+    of splitting them into hi + lo (``_build.PLANTED``): their O, dK and dV
+    at the main shapes are held against the plain versions, and each must
+    fail. These launches go through the libraries directly and count
+    nowhere."""
+    import torch
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, _, _, lse_p, delta, o_p = inputs
+    scale = d ** -0.5
+    dk_p, dv_p, _ = fa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse_p,
+                                           delta, h, scale, True,
+                                           want_db=False)
+    st = torch.cuda.current_stream().cuda_stream
+    o, lse = torch.empty_like(q), torch.empty(q.shape[:2], device="cuda")
+    fa.launch_fwd(_build.load("flash_fwd_one_rounding"), q, k, v, None, None,
+                  o, lse, h, scale, True, 0, st)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fa.launch_bwd_dkv(_build.load("flash_bwd_one_rounding"), q, k, v, None,
+                      None, do, lse_p, delta, dk, dv, None, h, scale, True, 0,
+                      st)
+    torch.cuda.synchronize()
+    for name, got, want in (("O", o, o_p), ("dK", dk, dk_p), ("dV", dv, dv_p)):
+        err, worst, rel, ok = _stats(got, want, tol)
+        log(f"  fault P and dS rounded to bf16 once: {name} max_abs_err "
+            f"{err:.3e}, max err/bound {worst:.3f}, rms err/rms {rel:.3e} -> "
+            f"{'MISSED' if ok else 'caught'}")
+        if ok:
+            fail(f"the kernel check misses one bf16 rounding of P/dS on "
+                 f"{name}")
+
+
+def kernel_times(case, b, h, d):
+    """Median ms of each kernel and of SDPA forward and backward (the
+    yardstick) on one case's inputs (causal): ({kernel: one call},
+    {kernel: per call of 10 back-to-back}, (sdpa one call, sdpa 10))."""
     import torch
     import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, _, _, lse, delta, _ = case
+    t_ = q.shape[1]
+    scale = d ** -0.5
+    runs = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, None, None, h, scale,
+                                          True),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, None, None, do, lse,
+                                                delta, h, scale, True),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, None, None, do,
+                                                  lse, delta, h, scale, True),
+    }
+
+    # SDPA on the same inputs in its (B, H, T, D) layout; its backward alone
+    # computes dQ, dK and dV in one call, the work of both backward kernels.
+    def bhtd(x):
+        return x.view(b, h, t_, d).detach().clone().requires_grad_(True)
+    sq, sk, sv = bhtd(q), bhtd(k), bhtd(v)
+    sdo = do.view(b, h, t_, d)
+    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    runs["fwd"] = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                         is_causal=True)
+    runs["bwd"] = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
+                                              retain_graph=True)
+    one = {n: cuda_ms(f, 20) for n, f in runs.items()}
+    ten = {n: cuda_ms(f, 20, inner=10) for n, f in runs.items()}
+    pick = lambda x: ({n: x[n] for n in fa.KERNELS},
+                      {n: x[n] for n in ("fwd", "bwd")})
+    (k1, s1), (k10, s10) = pick(one), pick(ten)
+    return k1, k10, (s1, s10)
+
+
+def phase_kernels():
+    import torch
     from horovod_tpu_torch.ops import flash_attention as fa
 
     B, T, H, D = 8, 1024, 16, 64
@@ -282,26 +384,27 @@ def phase_kernels():
                                          torch.bfloat16, True, 0, False,
                                          False, BF16_TOL)
     planted_faults(main, main_outs, B, H, D, BF16_TOL)
+    planted_rounding(main, H, D, BF16_TOL)
     del main_outs
-    compare_case("ragged", 2, 200, 200, 4, 64, torch.float32, True, -1,
-                 True, True, F32_TOL)
-    compare_case("cross", 2, 77, 130, 2, 128, torch.float32, False, 0, True,
-                 False, F32_TOL)
+    for dtype, tol, tag in ((torch.bfloat16, BF16_TOL, "bf16"),
+                            (torch.float32, F32_TOL, "fp32")):
+        compare_case(f"ragged-{tag}", 2, 200, 200, 4, 64, dtype, True, -1,
+                     True, True, tol)
+        compare_case(f"cross-{tag}", 2, 77, 130, 2, 128, dtype, False, 0,
+                     True, False, tol)
     compare_case("small-head", 2, 50, 50, 3, 24, torch.bfloat16, True, 0,
                  False, True, BF16_TOL)
+    _, wide, _ = compare_case("d128", 8, 1024, 1024, 8, 128, torch.bfloat16,
+                              True, 0, False, False, BF16_TOL)
+    log(f"worst max err/bound: bf16 outputs {WORST[BF16_TOL]:.3f}, fp32 "
+        f"outputs and lse {WORST[F32_TOL]:.3f} (fails above 1)")
 
-    # Times at the main-path shapes.
+    # Times at the main-path shapes: one call between two events (the
+    # kernels line's ms), and per call over 10 back-to-back calls, which
+    # leaves the wrapper's host time out.
     q, k, v, do, _, _, lse, delta, o = main
     bh, scale = B * H, D ** -0.5
-    t = {}
-    t["flash_fwd"] = cuda_ms(
-        lambda: fa.flash_fwd(q, k, v, None, None, H, scale, True), 20)
-    t["flash_bwd_dq"] = cuda_ms(
-        lambda: fa.flash_bwd_dq(q, k, v, None, None, do, lse, delta, H,
-                                scale, True), 20)
-    t["flash_bwd_dkv"] = cuda_ms(
-        lambda: fa.flash_bwd_dkv(q, k, v, None, None, do, lse, delta, H,
-                                 scale, True), 20)
+    t, t10, (sdpa, sdpa10) = kernel_times(main, B, H, D)
     p = {}
     p["flash_fwd"] = cuda_ms(
         lambda: fa.flash_fwd_plain(q, k, v, None, None, H, scale, True), 5)
@@ -311,30 +414,26 @@ def phase_kernels():
     p["flash_bwd_dkv"] = cuda_ms(
         lambda: fa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse, delta,
                                        H, scale, True), 5)
-
-    # Yardstick: SDPA on the same inputs in its (B, H, T, D) layout.
-    def bhtd(x):
-        return x.view(B, H, T, D).detach().clone().requires_grad_(True)
-    sq, sk, sv = bhtd(q), bhtd(k), bhtd(v)
-    sdo = do.view(B, H, T, D)
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-        sq, sk, sv, is_causal=True), 20)
-
-    def fwd_bwd():
-        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-        torch.autograd.grad(out, (sq, sk, sv), sdo)
-    sdpa_fb = cuda_ms(fwd_bwd, 20)
-    # Backward alone: dQ, dK and dV in one call, the work of both backward
-    # kernels together.
-    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        sout, (sq, sk, sv), sdo, retain_graph=True), 20)
-    log(f"times (ms, median) at B {B} T {T} H {H} d {D} bf16 causal:")
+    log(f"times (ms; median of 20 single calls / of 20 runs of 10 "
+        f"back-to-back calls; 5 single calls for the plain versions) at B {B} "
+        f"T {T} H {H} d {D} bf16 causal:")
     for name in fa.KERNELS:
-        log(f"  {name}: kernel {t[name]:.4f}  plain {p[name]:.4f}")
-    log(f"  sdpa fwd {sdpa_fwd:.4f}  sdpa bwd {sdpa_bwd:.4f}  sdpa fwd+bwd "
-        f"{sdpa_fb:.4f} (yardstick; the port never calls it); flash_bwd_dq "
-        f"+ flash_bwd_dkv {t['flash_bwd_dq'] + t['flash_bwd_dkv']:.4f}")
+        log(f"  {name}: kernel {t[name]:.4f} / {t10[name]:.4f}  plain "
+            f"{p[name]:.4f}")
+    log(f"  sdpa fwd {sdpa['fwd']:.4f} / {sdpa10['fwd']:.4f}  sdpa bwd "
+        f"{sdpa['bwd']:.4f} / {sdpa10['bwd']:.4f} (yardstick; the port never "
+        f"calls it); flash_bwd_dq + flash_bwd_dkv "
+        f"{t['flash_bwd_dq'] + t['flash_bwd_dkv']:.4f} / "
+        f"{t10['flash_bwd_dq'] + t10['flash_bwd_dkv']:.4f}")
+    wt, wt10, (wsdpa, wsdpa10) = kernel_times(wide, 8, 8, 128)
+    log(f"times (ms, the same two ways) at B 8 T 1024 H 8 d 128 bf16 causal: "
+        f"flash_fwd {wt['flash_fwd']:.4f} / {wt10['flash_fwd']:.4f}, "
+        f"flash_bwd_dkv {wt['flash_bwd_dkv']:.4f} / "
+        f"{wt10['flash_bwd_dkv']:.4f}, flash_bwd_dq {wt['flash_bwd_dq']:.4f} "
+        f"/ {wt10['flash_bwd_dq']:.4f}; sdpa fwd {wsdpa['fwd']:.4f} / "
+        f"{wsdpa10['fwd']:.4f}, bwd {wsdpa['bwd']:.4f} / "
+        f"{wsdpa10['bwd']:.4f}")
+    del wide
 
     pairs = _visible_pairs(bh, T, T, True, 0, H)
     el = bh * T * D * 2   # bytes of one (BH, T, D) bf16 tensor
@@ -344,10 +443,10 @@ def phase_kernels():
         "flash_bwd_dq": (6 * D * pairs, 5 * el + 2 * row),
         "flash_bwd_dkv": (8 * D * pairs, 6 * el + 2 * row),
     }
-    library = {"flash_fwd": (sdpa_fwd, "scaled_dot_product_attention "
+    library = {"flash_fwd": (sdpa["fwd"], "scaled_dot_product_attention "
                              "forward"),
                "flash_bwd_dq": (None, "no library call computes dQ alone"),
-               "flash_bwd_dkv": (sdpa_bwd, "scaled_dot_product_attention "
+               "flash_bwd_dkv": (sdpa["bwd"], "scaled_dot_product_attention "
                                  "backward: dQ, dK and dV in one call, the "
                                  "work of flash_bwd_dq and flash_bwd_dkv "
                                  "together")}
@@ -356,16 +455,26 @@ def phase_kernels():
         flops, nbytes = work[name]
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        log(f"  {name}: {flops / t[name] / 1e9:.1f} TFLOP/s one call at a "
+            f"time, {flops / t10[name] / 1e9:.1f} back to back, on the "
+            f"function's {flops / 1e9:.2f} GFLOP ({flops // (D * pairs)}·d "
+            f"per visible pair)")
         src, replaces = KERNEL_INFO[name]
         report[name] = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": 0,
-            "max_abs_err": errs[name], "ms": t[name], "plain_ms": p[name],
+            "max_abs_err": errs[name], "ms": t[name],
+            "ms_back_to_back": t10[name], "plain_ms": p[name],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": library[name][0],
+            "library_ms_back_to_back": {"flash_fwd": sdpa10["fwd"],
+                                        "flash_bwd_dkv": sdpa10["bwd"]}.get(
+                                            name),
             "library_note": library[name][1],
             "flops": flops, "bytes": nbytes,
+            "tflops": flops / t[name] / 1e9,
+            "tflops_back_to_back": flops / t10[name] / 1e9,
         }
     log(json.dumps({"kernel_checks": list(fa.KERNELS),
                     "launches_in_checks": dict(fa.launches)}))

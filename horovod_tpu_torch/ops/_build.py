@@ -7,8 +7,10 @@ use, never at import, into ``build/kernels/`` at the repository root (listed
 in ``.gitignore``; ``HOROVOD_TORCH_BUILD_DIR`` overrides it). A library's
 file name carries a hash of its sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. :func:`build` compiles every
-missing library at once, one ``nvcc`` process per source, all started
-together.
+missing library at once, one ``nvcc`` process per library, all started
+together. The libraries of :data:`PLANTED` are the same sources with a fault
+planted by a define; they are built only when named, and only
+``chip_smoke.py`` loads them, to show that its check catches the fault.
 """
 
 from __future__ import annotations
@@ -23,16 +25,24 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "build", "load", "built", "build_dir", "nvcc_path",
-           "ptxas_report"]
+__all__ = ["SOURCES", "PLANTED", "build", "load", "built", "build_dir",
+           "nvcc_path", "ptxas_report"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("flash_common.cuh",)
+_HEADERS = ("flash_common.cuh", "flash_mma.cuh")
 
 # library name -> its one source file
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
+}
+
+# library name -> (its source file, the defines that plant its fault)
+PLANTED = {
+    # P and dS rounded to bf16 once before the tensor-core products
+    # (flash_mma.cuh), instead of the hi + lo split.
+    "flash_fwd_one_rounding": ("flash_fwd.cu", ("-DHVD_FLASH_ONE_ROUNDING",)),
+    "flash_bwd_one_rounding": ("flash_bwd.cu", ("-DHVD_FLASH_ONE_ROUNDING",)),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,11 +71,17 @@ def nvcc_path() -> str:
         "port's CUDA kernels are built from source at first use")
 
 
+def _spec(name: str):
+    """(source file, extra nvcc flags) of library ``name``."""
+    return PLANTED[name] if name in PLANTED else (SOURCES[name], ())
+
+
 def _digest(name: str) -> str:
+    src, defines = _spec(name)
     h = hashlib.sha256()
-    for f in (SOURCES[name],) + _HEADERS:
+    for f in (src,) + _HEADERS:
         h.update((_CSRC / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + list(defines)).encode())
     return h.hexdigest()[:16]
 
 
@@ -81,7 +97,7 @@ def built(names: Optional[Iterable[str]] = None) -> bool:
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every missing library among ``names`` (default: all), one
-    ``nvcc`` per source, concurrently. Returns seconds per library built
+    ``nvcc`` per library, concurrently. Returns seconds per library built
     (0.0 for one already present). Raises with nvcc's output on failure."""
     names = list(names or SOURCES)
     out_dir = build_dir()
@@ -93,8 +109,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if dst.exists():
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, f"-I{_CSRC}", "-o", str(tmp),
-               str(_CSRC / SOURCES[n])]
+        src, defines = _spec(n)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, f"-I{_CSRC}", "-o",
+               str(tmp), str(_CSRC / src)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, dst, time.perf_counter())
@@ -104,7 +121,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         secs[n] = time.perf_counter() - t0
         (out_dir / f"lib{n}.log").write_text(log)
         if p.returncode != 0:
-            errors.append(f"nvcc failed for {SOURCES[n]} "
+            errors.append(f"nvcc failed for {n} ({_spec(n)[0]}) "
                           f"(rc {p.returncode}):\n{log[-6000:]}")
             continue
         os.replace(tmp, dst)   # atomic: a concurrent loader never sees half
@@ -127,24 +144,26 @@ def ptxas_report(name: str) -> str:
 
 _C_INT, _C_FLOAT, _C_PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
-# argtypes of every C entry point, by library
+# argtypes of every C entry point, by source file
 _SIGNATURES = {
-    "flash_fwd": {
+    "flash_fwd.cu": {
         "hvd_flash_fwd": [_C_PTR] * 7 + [_C_INT] * 5 + [_C_FLOAT]
         + [_C_INT] * 3 + [_C_PTR],
+        "hvd_flash_fwd_smem": [_C_INT],
     },
-    "flash_bwd": {
+    "flash_bwd.cu": {
         "hvd_flash_bwd_dq": [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT]
         + [_C_INT] * 3 + [_C_PTR],
         "hvd_flash_bwd_dkv": [_C_PTR] * 11 + [_C_INT] * 5 + [_C_FLOAT]
         + [_C_INT] * 3 + [_C_PTR],
+        "hvd_flash_bwd_dkv_smem": [_C_INT],
     },
 }
 
 
 def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Set argtypes/restype of library ``name``'s entry points on ``lib``."""
-    for fn, argtypes in _SIGNATURES[name].items():
+    for fn, argtypes in _SIGNATURES[_spec(name)[0]].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = _C_INT

@@ -13,18 +13,33 @@
 //
 // What bounds them on an H100: at GPT-2 medium's shapes (BH 128, T 1024,
 // d 64, causal) the dQ kernel does ~25.8 GFLOP over ~85 MB and the dK/dV
-// kernel ~34.4 GFLOP over ~102 MB, so even with tensor cores (989 TFLOP/s
-// bf16, 3.35 TB/s) both would be bound by the operations (~26 and ~35 us;
-// the bytes alone take ~25 and ~30 us). This first version multiplies with
-// fp32 FMAs on the CUDA cores, so FMA issue and shared-memory reads bound it:
-// the tile a block walks over (K and V for dQ, Q and dO for dK/dV) is staged
-// once in shared memory and reused by every row of the block, while each
-// lane keeps its own row's operands and accumulators in registers.
+// kernel ~34.4 GFLOP over ~102 MB, so with tensor cores (989 TFLOP/s bf16,
+// 3.35 TB/s) both are bound by the operations (~26 and ~35 us; the bytes
+// alone take ~25 and ~30 us).
+//
+// - dK/dV in bf16, flash_bwd_dkv_wg_kernel<HD> (HD 64 for d <= 64, the
+//   training path's 64; HD 128 above): all four products on the tensor
+//   cores as warpgroup wgmma's (fp32 accumulators; see flash_mma.cuh). One
+//   block of four warps per (bh, 64-key tile), each warp owning 16 key rows
+//   of the m64 products. It walks the q tiles of 64 from the first one that
+//   sees a key of the block; K and V, and double-buffered Q and dO tiles,
+//   stay bf16 in shared memory in the 128B-swizzle layout (cp.async), the
+//   lse / delta rows beside them. Per q tile: S^T = K Q^T and dP^T = V dO^T
+//   from shared memory; P^T and dS^T computed in registers; dV += P^T dO and
+//   dK += dS^T Q with P and dS as register hi + lo bf16 parts (two products
+//   each), which keeps dK and dV within two bf16 ulps of the fp32 plain
+//   version. The grid starts with the first k tiles, which under the causal
+//   mask walk the most q tiles.
+// - dQ (both types) and dK/dV in fp32: the first port's fp32 FMAs on the
+//   CUDA cores. The tile a block walks over (K and V for dQ, Q and dO for
+//   dK/dV) is staged once in shared memory and reused by every row of the
+//   block, while each lane keeps its own row's operands and accumulators in
+//   registers.
 //
 // Masked entries give P == 0 and dS == 0 exactly, whatever the other terms
 // hold, as in the reference (0 * garbage must never reach an accumulator).
 
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace hvdflash {
 
@@ -229,6 +244,278 @@ static void launch_dkv_hd(const FlashArgs& a, int bh, cudaStream_t st) {
   }
 }
 
+// ---------------------------------------------------------------- dK/dV bf16
+
+// Start the copies of the q and dO rows [q0, q0 + BQ) into the swizzled
+// tiles Qb and Db, and stage their lse * log2(e), delta and segment ids in
+// Lb, Dlb and Sqb.
+template <int BQ, int NH>
+__device__ __forceinline__ void stage_q(const FlashArgs& a, const bf16* qh,
+                                        const bf16* doh, int bh, int b,
+                                        int q0, unsigned char* Qb,
+                                        unsigned char* Db, float* Lb,
+                                        float* Dlb, int* Sqb) {
+  load_tile_sw128_async<BQ, NH>(Qb, qh, q0, a.tq, a.d);
+  load_tile_sw128_async<BQ, NH>(Db, doh, q0, a.tq, a.d);
+  for (int i = threadIdx.x; i < BQ; i += kThreads) {
+    const int qp = q0 + i;
+    const bool ok = qp < a.tq;
+    Lb[i] = ok ? a.lse_in[(size_t)bh * a.tq + qp] * kLog2e : 0.f;
+    Dlb[i] = ok ? a.delta[(size_t)bh * a.tq + qp] : 0.f;
+    Sqb[i] = (a.seg != nullptr && ok) ? a.seg[(size_t)b * a.tq + qp] : 0;
+  }
+}
+
+// The key bias (times log2(e)) and segment ids of the block's keys
+// [k0, k0 + BK), into Kb and Sk.
+template <int BK>
+__device__ __forceinline__ void stage_keys(const FlashArgs& a, int b, int k0,
+                                           float* Kb, int* Sk) {
+  for (int j = threadIdx.x; j < BK; j += kThreads) {
+    const int kp = k0 + j;
+    const bool ok = kp < a.tk;
+    Kb[j] = (a.bias != nullptr && ok)
+                ? a.bias[(size_t)b * a.tk + kp] * kLog2e
+                : 0.f;
+    Sk[j] = (a.seg != nullptr && ok) ? a.seg[(size_t)b * a.tk + kp] : 0;
+  }
+}
+
+// P^T = 2^(S^T - lse) and dS^T = P^T (dP^T - delta), in place, on this
+// lane's accumulators of a 16-key warp tile (tile rows kr0 and kr0 + 8 of
+// keys [k0, ...)) over queries q0 + qc + [0, 8 NS): s holds the raw S^T
+// scores and becomes P^T, dp holds dP^T and becomes dS^T, and db gains the
+// row sums of dS^T (d(score)/d(bias) = 1: dbias_k = sum_q dS). Scores are in
+// log2 units, as in the forward kernel; masked entries give exactly 0.
+// `full`: the tile pair has a masked entry.
+template <int NS>
+__device__ __forceinline__ void probs_and_ds(
+    const FlashArgs& a, float (&s)[NS][4], float (&dp)[NS][4], float (&db)[2],
+    const float* lt, const float* dlt, const int* sqt, const float* Kb,
+    const int* Sk, bool full, int q0, int qc, int k0, int kr0, int t2) {
+  const float sl = a.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, col = qc + j * 8 + t2 + (e & 1);
+      const float x = s[j][e] * sl;
+      float p, ds;
+      if (full) {
+        const int kr = kr0 + 8 * r;
+        const float xm = mask_score(
+            x, a.bias != nullptr, Kb[kr], a.seg != nullptr, sqt[col], Sk[kr],
+            visible(q0 + col, k0 + kr, a.tq, a.tk, a.causal, a.offset));
+        p = xm > kNegInf * 0.5f ? ex2(xm - lt[col]) : 0.f;
+        ds = p > 0.f ? p * (dp[j][e] - dlt[col]) : 0.f;
+      } else {
+        p = ex2(x - lt[col]);
+        ds = p * (dp[j][e] - dlt[col]);
+      }
+      s[j][e] = p;
+      dp[j][e] = ds;
+      db[r] += ds;
+    }
+  }
+}
+
+// Writes this lane's rows kp0 and kp0 + 8 of dK (times scale: dK =
+// dS^T (q * scale), the scale applied once, here), dV and dbias.
+template <int NO>
+__device__ __forceinline__ void store_dk_dv(const FlashArgs& a,
+                                            const float (&dk)[NO][4],
+                                            const float (&dv)[NO][4],
+                                            const float (&db)[2], int bh,
+                                            int kp0, int t2) {
+  const size_t koff = (size_t)bh * a.tk * a.d;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float dbr = quad_sum(db[r]);
+    const int kp = kp0 + 8 * r;
+    if (kp < a.tk) {
+      bf16* dkrow = static_cast<bf16*>(a.dk) + koff + (size_t)kp * a.d;
+      bf16* dvrow = static_cast<bf16*>(a.dv) + koff + (size_t)kp * a.d;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const int col = j * 8 + t2;
+        if (col < a.d) {
+          *reinterpret_cast<__nv_bfloat162*>(dkrow + col) =
+              __floats2bfloat162_rn(dk[j][2 * r] * a.scale,
+                                    dk[j][2 * r + 1] * a.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvrow + col) =
+              __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
+        }
+      }
+      if (a.dbias != nullptr && t2 == 0)
+        a.dbias[(size_t)bh * a.tk + kp] = dbr;
+    }
+  }
+}
+
+// The wgmma kernel at head dims up to HD (64 or 128; columns past d are
+// zero). S^T and dP^T read both operands from shared memory; dV and dK take
+// P^T and dS^T from registers and dO and Q through transposed (MN-major)
+// descriptors, one 64-column part of dV and dK at a time.
+template <int HD>
+struct WgDkvTiles {
+  static constexpr int BK = 64, BQ = 64;
+  static constexpr int NH = HD / 64;        // 64-column parts
+  static constexpr int TILE = NH * kPart;   // bytes of one K, V, Q or dO tile
+  // Queries per pass of the products: at d 128 the dK and dV accumulators
+  // alone take 128 registers, so S^T and dP^T are taken 32 queries at a
+  // time (wgmma n32) to keep everything in registers.
+  static constexpr int QC = HD <= 64 ? 64 : 32;
+  // alignment slack | K | V | Q[2] | dO[2] | lse * log2(e) [2] | delta [2]
+  // | q segment ids [2] | key bias * log2(e) | key segment ids
+  static constexpr int SMEM = 1024 + 6 * TILE + 2 * BQ * 12 + BK * 8;
+  // Blocks per SM the registers are held to (at most 168 a thread at d 64,
+  // where shared memory would allow 4); at 2 blocks the kernel takes ~28 %
+  // longer.
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 3 : 2;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, WgDkvTiles<HD>::MIN_BLOCKS)
+    flash_bwd_dkv_wg_kernel(FlashArgs a) {
+  using Tl = WgDkvTiles<HD>;
+  constexpr int BK = Tl::BK, BQ = Tl::BQ, NH = Tl::NH, TILE = Tl::TILE;
+  constexpr int QC = Tl::QC, NS = QC / 8, NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // The swizzle pattern is a function of the address: tiles start on
+  // 1024-byte boundaries.
+  const uint32_t raw = smem_u32(smem), base = (raw + 1023) & ~1023u;
+  unsigned char* Ks = smem + (base - raw);
+  unsigned char* Vs = Ks + TILE;
+  unsigned char* Qs = Vs + TILE;
+  unsigned char* Ds = Qs + 2 * TILE;
+  float* Ls = reinterpret_cast<float*>(Ds + 2 * TILE);
+  float* Dl = Ls + 2 * BQ;
+  int* Sq = reinterpret_cast<int*>(Dl + 2 * BQ);
+  float* Kb = reinterpret_cast<float*>(Sq + 2 * BQ);
+  int* Sk = reinterpret_cast<int*>(Kb + BK);
+
+  const int bh = blockIdx.x, b = bh / a.heads, k0 = blockIdx.y * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Tile row of accumulator entries 0, 1; entries 2, 3 are kr0 + 8.
+  const int kr0 = warp * 16 + (lane >> 2), t2 = (lane & 3) * 2;
+  const int tq = a.tq, tk = a.tk, d = a.d;
+  const size_t qoff = (size_t)bh * tq * d, koff = (size_t)bh * tk * d;
+  const bf16* qh = static_cast<const bf16*>(a.q) + qoff;
+  const bf16* doh = static_cast<const bf16*>(a.dout) + qoff;
+
+  const int qt0 = first_q_tile(k0, BQ, a.causal, a.offset);
+  const int nqt = (tq + BQ - 1) / BQ;
+  load_tile_sw128_async<BK, NH>(Ks, static_cast<const bf16*>(a.k) + koff,
+                                k0, tk, d);
+  load_tile_sw128_async<BK, NH>(Vs, static_cast<const bf16*>(a.v) + koff,
+                                k0, tk, d);
+  if (qt0 < nqt)
+    stage_q<BQ, NH>(a, qh, doh, bh, b, qt0 * BQ, Qs, Ds, Ls, Dl, Sq);
+  cp_async_commit();
+  stage_keys<BK>(a, b, k0, Kb, Sk);
+
+  float dk[NO][4], dv[NO][4], db[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[j][e] = 0.f;
+      dv[j][e] = 0.f;
+    }
+  const uint64_t kdesc = sw128_desc(base), vdesc = sw128_desc(base + TILE);
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int buf = (qt - qt0) & 1, q0 = qt * BQ;
+    if (qt + 1 < nqt)
+      stage_q<BQ, NH>(a, qh, doh, bh, b, q0 + BQ, Qs + (buf ^ 1) * TILE,
+                      Ds + (buf ^ 1) * TILE, Ls + (buf ^ 1) * BQ,
+                      Dl + (buf ^ 1) * BQ, Sq + (buf ^ 1) * BQ);
+    cp_async_commit();
+    cp_async_wait<1>();  // q tile qt (and K, V) have landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint64_t qdesc = sw128_desc(base + (2 + buf) * TILE);
+    const uint64_t odesc = sw128_desc(base + (4 + buf) * TILE);
+    const bool full = tile_has_mask(a, q0, BQ, k0, BK);
+
+#pragma unroll 1
+    for (int qc = 0; qc < BQ; qc += QC) {
+      // S^T = K Q^T and dP^T = V dO^T (fp32) over queries [qc, qc + QC):
+      // HD / 16 k16 steps along the head dim; query row qc starts qc * 128
+      // bytes into each part.
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+      const int row = qc * 128 >> 4;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) {
+        wgmma_ss(reinterpret_cast<float(&)[NS * 4]>(s),
+                 kmajor_step(kdesc, kc), kmajor_step(qdesc, kc) + row);
+        wgmma_ss(reinterpret_cast<float(&)[NS * 4]>(dp),
+                 kmajor_step(vdesc, kc), kmajor_step(odesc, kc) + row);
+      }
+      wgmma_commit_wait();
+      probs_and_ds(a, s, dp, db, Ls + buf * BQ, Dl + buf * BQ,
+                   Sq + buf * BQ, Kb, Sk, full, q0, qc, k0, kr0, t2);
+
+      // dV += P^T dO and dK += dS^T Q, P and dS as hi + lo: k16 steps of
+      // 16 queries, 2048 bytes apart, into each 64-column part.
+      uint32_t ph[QC / 16][4], pl[QC / 16][4], sh[QC / 16][4],
+          slo[QC / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < QC / 16; ++kc) {
+        acc_to_a_split(s[2 * kc], s[2 * kc + 1], ph[kc], pl[kc]);
+        acc_to_a_split(dp[2 * kc], dp[2 * kc + 1], sh[kc], slo[kc]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < QC / 16; ++kc) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const int step = h * (kPart >> 4) + 128 * (qc / 16 + kc);
+          wgmma_rs_t(reinterpret_cast<float(&)[32]>(dv[8 * h]), ph[kc],
+                     odesc + step);
+          wgmma_rs_t(reinterpret_cast<float(&)[32]>(dv[8 * h]), pl[kc],
+                     odesc + step);
+          wgmma_rs_t(reinterpret_cast<float(&)[32]>(dk[8 * h]), sh[kc],
+                     qdesc + step);
+          wgmma_rs_t(reinterpret_cast<float(&)[32]>(dk[8 * h]), slo[kc],
+                     qdesc + step);
+        }
+      }
+      wgmma_commit_wait();
+    }
+    __syncthreads();  // every warp is done with buffer buf
+  }
+  cp_async_wait<0>();
+  store_dk_dv(a, dk, dv, db, bh, k0 + kr0, t2);
+}
+
+template <int HD>
+static cudaError_t launch_dkv_wg(const FlashArgs& a, int bh,
+                                 cudaStream_t st) {
+  using Tl = WgDkvTiles<HD>;
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(
+      reinterpret_cast<const void*>(flash_bwd_dkv_wg_kernel<HD>), Tl::SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(bh, (a.tk + Tl::BK - 1) / Tl::BK);
+  flash_bwd_dkv_wg_kernel<HD><<<grid, kThreads, Tl::SMEM, st>>>(a);
+  return cudaSuccess;
+}
+
+static cudaError_t launch_dkv_bf16(const FlashArgs& a, int bh,
+                                   cudaStream_t st) {
+  return a.d <= 64 ? launch_dkv_wg<64>(a, bh, st)
+                   : launch_dkv_wg<128>(a, bh, st);
+}
+
 static bool bad_shape(int bh, int tq, int tk, int d, int heads, int dtype) {
   return bh <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 || d % 8 != 0 ||
          heads <= 0 || bh % heads != 0 || (dtype != 0 && dtype != 1) ||
@@ -261,8 +548,9 @@ static FlashArgs make_args(const void* q, const void* k, const void* v,
 
 }  // namespace hvdflash
 
-// C interface, loaded with ctypes. dtype: 0 = fp32, 1 = bf16. Each returns
-// the cudaError_t of its launch (0 on success).
+// C interface, loaded with ctypes. dtype: 0 = fp32, 1 = bf16 (dK/dV on the
+// tensor-core kernel). Each returns the cudaError_t of its launch (0 on
+// success).
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* bias, const void* seg,
                                 const void* dout, const void* lse,
@@ -302,9 +590,17 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.dbias = static_cast<float*>(dbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    launch_dkv_hd<__nv_bfloat16>(a, bh, st);
+    const cudaError_t e = launch_dkv_bf16(a, bh, st);
+    if (e != cudaSuccess) return (int)e;
   } else {
     launch_dkv_hd<float>(a, bh, st);
   }
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory, in bytes, of one block of the bf16 dK/dV kernel at
+// head dim d (ptxas reports none for it).
+extern "C" int hvd_flash_bwd_dkv_smem(int d) {
+  using namespace hvdflash;
+  return d <= 64 ? WgDkvTiles<64>::SMEM : WgDkvTiles<128>::SMEM;
 }

@@ -16,8 +16,11 @@ function beside it:
 * ``flash_bwd_dkv`` -> ``csrc/flash_bwd.cu``  (TPU ``_bwd_dkv_kernel``)
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel on the current stream, or raises; there is no
-fallback. Each wrapper counts its kernel launches in :data:`launches`.
+tensors it launches its kernel on the current stream of the inputs' own
+device, or raises; there is no fallback. Each wrapper counts its kernel
+launches in :data:`launches`. For bf16 inputs the forward and dK/dV kernels
+run their products on the tensor cores; fp32 inputs take FMA kernels that
+keep full fp32 products (see the sources).
 
 ``block_q``/``block_k`` (and ``_bwd``) tile the plain versions only. The
 CUDA kernels' tiles are compiled in and follow from the head dim (see the
@@ -240,6 +243,12 @@ def _check_kernel_inputs(q, k, v, bias, seg, *extra):
     for t in (q, k, v, bias, seg) + extra:
         if t is not None and not t.is_contiguous():
             raise ValueError("flash kernels need contiguous inputs")
+    if q.dtype == torch.bfloat16:
+        # The tensor-core kernels copy q/k/v/dO rows in 16-byte chunks.
+        for t in (q, k, v) + extra[:1]:
+            if t.data_ptr() % 16:
+                raise ValueError("bf16 flash kernels need 16-byte aligned "
+                                 "q, k, v and dO")
     if bias is not None and bias.dtype != torch.float32:
         raise TypeError("key_bias must be float32 at the kernel")
     if seg is not None and seg.dtype != torch.int32:
@@ -296,8 +305,8 @@ def launch_bwd_dkv(lib, q, k, v, bias, seg, do, lse, delta, dk, dv, db, h,
     _raise_on_error(rc, "flash_bwd_dkv")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _lib(name: str):
@@ -315,8 +324,9 @@ def flash_fwd(q, k, v, bias, seg, h, scale, causal, offset=0, block_q=None,
     _check_kernel_inputs(q, k, v, bias, seg)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    launch_fwd(_lib("flash_fwd"), q, k, v, bias, seg, o, lse, h, scale,
-               causal, offset, _stream())
+    with torch.cuda.device(q.device):
+        launch_fwd(_lib("flash_fwd"), q, k, v, bias, seg, o, lse, h, scale,
+                   causal, offset, _stream(q.device))
     launches["flash_fwd"] += 1
     return o, lse
 
@@ -331,8 +341,9 @@ def flash_bwd_dq(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
     _refuse_blocks(block_q, block_k)
     _check_kernel_inputs(q, k, v, bias, seg, do, lse, delta)
     dq = torch.empty_like(q)
-    launch_bwd_dq(_lib("flash_bwd"), q, k, v, bias, seg, do, lse, delta, dq,
-                  h, scale, causal, offset, _stream())
+    with torch.cuda.device(q.device):
+        launch_bwd_dq(_lib("flash_bwd"), q, k, v, bias, seg, do, lse, delta,
+                      dq, h, scale, causal, offset, _stream(q.device))
     launches["flash_bwd_dq"] += 1
     return dq
 
@@ -350,8 +361,10 @@ def flash_bwd_dkv(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
     dv = torch.empty_like(v)
     db = (torch.empty(k.shape[:2], dtype=torch.float32, device=k.device)
           if bias is not None and want_db else None)
-    launch_bwd_dkv(_lib("flash_bwd"), q, k, v, bias, seg, do, lse, delta, dk,
-                   dv, db, h, scale, causal, offset, _stream())
+    with torch.cuda.device(q.device):
+        launch_bwd_dkv(_lib("flash_bwd"), q, k, v, bias, seg, do, lse, delta,
+                       dk, dv, db, h, scale, causal, offset,
+                       _stream(q.device))
     launches["flash_bwd_dkv"] += 1
     return dk, dv, db
 

@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain versions, on the card only.
+
+Each test needs an NVIDIA GPU and nvcc (the kernels are built at first use)
+and skips without them; the device test needs two cards. The file imports
+nothing of JAX, so it runs where only the port's dependencies are installed:
+
+    python -m pytest tests/test_torch_port_card.py -q
+
+Tolerances: the fp32 cases (FMA kernels) hold rtol = atol = 1e-5, the same
+fp32 sums taken in another order. The bf16 cases (tensor-core kernels for the
+forward and dK/dV) hold ``chip_smoke``'s bound: every element within
+``BF16_TOL`` (2^-6 of itself + 1e-3 of the rms) and the rms error within
+1e-2 of the rms; lse, fp32 whatever the input type, at ``F32_TOL``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from horovod_tpu_torch.ops import flash_attention as pfa
+
+# name -> (B, Tq, Tk, H, D, causal, offset, bias, seg, dtype)
+CASES = {
+    "causal": (2, 32, 32, 2, 8, True, 0, False, False, torch.float32),
+    "everything": (2, 19, 19, 2, 8, True, -1, True, True, torch.float32),
+    "ragged_cross": (1, 20, 28, 2, 8, False, 0, False, False,
+                     torch.float32),
+    "causal-bf16": (2, 128, 128, 2, 64, True, 0, False, False,
+                    torch.bfloat16),
+    "everything-bf16": (2, 150, 150, 2, 64, True, -1, True, True,
+                        torch.bfloat16),
+    "cross-bf16": (2, 77, 130, 2, 128, False, 0, True, False,
+                   torch.bfloat16),
+}
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(case, seed=0):
+    """Packed (BH, T, D) q, k, v, dO, key bias and segment ids, from numpy."""
+    b, tq, tk, h, d, causal, offset, bias, seg, dtype = CASES[case]
+    g = np.random.default_rng(seed)
+    q = g.standard_normal((b, tq, h, d)).astype(np.float32)
+    k = g.standard_normal((b, tk, h, d)).astype(np.float32)
+    v = g.standard_normal((b, tk, h, d)).astype(np.float32)
+    do = g.standard_normal((b, tq, h, d)).astype(np.float32)
+    kb = sg = None
+    if bias:
+        kb = g.standard_normal((b, tk)).astype(np.float32)
+        kb[:, -3:] = -1e30                      # padded keys
+        kb[-1, :] = -1e30                       # every key of a row masked
+    if seg:
+        sg = np.sort(g.integers(0, 3, (b, tq)), axis=1).astype(np.int32)
+
+    def pack(x):
+        return torch.tensor(x).permute(0, 2, 1, 3).reshape(
+            -1, x.shape[1], x.shape[3]).contiguous().to(dtype)
+
+    return (pack(q), pack(k), pack(v), pack(do),
+            None if kb is None else torch.tensor(kb),
+            None if sg is None else torch.tensor(sg))
+
+
+def _check_case(case, device):
+    """Runs the three kernels and their plain versions on ``device`` and
+    asserts that they agree."""
+    b, tq, tk, h, d, causal, offset, bias, seg, dtype = CASES[case]
+    q, k, v, do, kb, sg = (None if x is None else x.to(device)
+                           for x in _inputs(case))
+    scale = d ** -0.5
+    o, lse = pfa.flash_fwd(q, k, v, kb, sg, h, scale, causal, offset)
+    o_p, lse_p = pfa.flash_fwd_plain(q, k, v, kb, sg, h, scale, causal,
+                                     offset)
+    delta = (do.float() * o_p.float()).sum(-1)
+    dq = pfa.flash_bwd_dq(q, k, v, kb, sg, do, lse_p, delta, h, scale,
+                          causal, offset)
+    dq_p = pfa.flash_bwd_dq_plain(q, k, v, kb, sg, do, lse_p, delta, h,
+                                  scale, causal, offset)
+    dkv = pfa.flash_bwd_dkv(q, k, v, kb, sg, do, lse_p, delta, h, scale,
+                            causal, offset)
+    dkv_p = pfa.flash_bwd_dkv_plain(q, k, v, kb, sg, do, lse_p, delta, h,
+                                    scale, causal, offset)
+    torch.cuda.synchronize(device)
+    for x in (o, lse, dq) + tuple(t for t in dkv if t is not None):
+        assert x.device == q.device
+    if dtype == torch.float32:
+        pairs = [(o, o_p), (lse, lse_p), (dq, dq_p)] + list(zip(dkv, dkv_p))
+        for a, want in pairs:
+            if a is None:
+                assert want is None
+                continue
+            np.testing.assert_allclose(a.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)
+        return
+    live = lse_p > -1e29
+    assert torch.equal(live, lse > -1e29)
+    checks = [("O", o, o_p, chip_smoke.BF16_TOL),
+              ("lse", lse[live], lse_p[live], chip_smoke.F32_TOL),
+              ("dQ", dq, dq_p, chip_smoke.BF16_TOL),
+              ("dK", dkv[0], dkv_p[0], chip_smoke.BF16_TOL),
+              ("dV", dkv[1], dkv_p[1], chip_smoke.BF16_TOL)]
+    if bias:
+        checks.append(("dbias", dkv[2], dkv_p[2], chip_smoke.BF16_TOL))
+        # The last batch row sees no key: O = 0 and lse = -1e30 exactly.
+        assert o[(b - 1) * h:].abs().max().item() == 0.0
+        assert lse[(b - 1) * h:].max().item() <= -1e29
+    for name, got, want, tol in checks:
+        err, worst, rel, ok = chip_smoke._stats(got, want, tol)
+        assert ok, (f"{case} {name}: max err {err:.3e}, max err/bound "
+                    f"{worst:.3f}, rms err/rms {rel:.3e}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_match_plain_on_card(cuda_card, case):
+    _check_case(case, cuda_card)
+
+
+def test_kernels_launch_on_the_inputs_device():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    before = dict(pfa.launches)
+    with torch.cuda.device(0):
+        _check_case("everything-bf16", torch.device("cuda:1"))
+        _check_case("everything", torch.device("cuda:1"))
+        assert torch.cuda.current_device() == 0
+    assert all(pfa.launches[k] == before[k] + 2 for k in pfa.KERNELS)
+
+
+def test_kernels_refuse_plain_tiles_on_card(cuda_card):
+    q = torch.zeros((1, 16, 2, 8), device=cuda_card)
+    with pytest.raises(ValueError, match="tile only the plain versions"):
+        pfa.flash_attention(q, q, q, block_q=8)
+    with pytest.raises(ValueError, match="tile only the plain versions"):
+        pfa.flash_attention(q, q, q, block_k_bwd=8)
+
+
+def test_bf16_kernels_refuse_misaligned_inputs(cuda_card):
+    q = torch.zeros((2, 16, 8), dtype=torch.bfloat16, device=cuda_card)
+    off = torch.zeros(2 * 16 * 8 + 1, dtype=torch.bfloat16,
+                      device=cuda_card)[1:].view(2, 16, 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pfa.flash_fwd(off, q, q, None, None, 1, 1.0, False)

@@ -220,49 +220,5 @@ def test_packed_positions_match_jax():
         np.asarray(jax_packed(jnp.asarray(seg))))
 
 
-# ------------------------------------------------------ on the card
-
-@pytest.fixture
-def cuda_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.parametrize("case", ["causal", "everything", "ragged_cross"])
-def test_kernels_match_plain_on_card(cuda_card, case):
-    q, k, v, tgt, kb, sg = _inputs(case)
-    h = q.shape[2]
-    causal, offset = CASES[case][5], CASES[case][6]
-    pack = lambda x: torch.tensor(x).permute(0, 2, 1, 3).reshape(
-        -1, x.shape[1], x.shape[3]).contiguous().to(cuda_card)
-    qc, kc, vc, doc = pack(q), pack(k), pack(v), pack(tgt)
-    kbc = None if kb is None else torch.tensor(kb, device=cuda_card)
-    sgc = None if sg is None else torch.tensor(sg, device=cuda_card)
-    scale = q.shape[-1] ** -0.5
-    o, lse = pfa.flash_fwd(qc, kc, vc, kbc, sgc, h, scale, causal, offset)
-    o_p, lse_p = pfa.flash_fwd_plain(qc, kc, vc, kbc, sgc, h, scale,
-                                     causal, offset)
-    delta = (doc * o_p).sum(-1)
-    dq = pfa.flash_bwd_dq(qc, kc, vc, kbc, sgc, doc, lse_p, delta, h,
-                          scale, causal, offset)
-    dq_p = pfa.flash_bwd_dq_plain(qc, kc, vc, kbc, sgc, doc, lse_p, delta,
-                                  h, scale, causal, offset)
-    dkv = pfa.flash_bwd_dkv(qc, kc, vc, kbc, sgc, doc, lse_p, delta, h,
-                            scale, causal, offset)
-    dkv_p = pfa.flash_bwd_dkv_plain(qc, kc, vc, kbc, sgc, doc, lse_p, delta,
-                                    h, scale, causal, offset)
-    for a, b in [(o, o_p), (lse, lse_p), (dq, dq_p)] + list(zip(dkv, dkv_p)):
-        if a is None:
-            assert b is None
-            continue
-        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
-                                   rtol=1e-5, atol=1e-5)
-
-
-def test_kernels_refuse_plain_tiles_on_card(cuda_card):
-    q = torch.zeros((1, 16, 2, 8), device=cuda_card)
-    with pytest.raises(ValueError, match="tile only the plain versions"):
-        pfa.flash_attention(q, q, q, block_q=8)
-    with pytest.raises(ValueError, match="tile only the plain versions"):
-        pfa.flash_attention(q, q, q, block_k_bwd=8)
+# The kernels themselves (CUDA only) are checked against these plain versions
+# on the card by tests/test_torch_port_card.py, which imports no JAX.
