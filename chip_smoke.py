@@ -11,13 +11,15 @@ Phases, in order; any failure exits nonzero and prints no result:
 2. each kernel against its plain PyTorch version on the card: at GPT-2
    medium's attention shapes (B 8, T 1024, H 16, d 64, bf16, causal) and at
    ragged shapes with key bias, segment ids and ``causal_offset=-1`` and
-   cross-attention shapes at d 128, in bf16 (the tensor-core kernels) and in
-   fp32 (the FMA kernels), and at B 8, T 1024, H 8, d 128 in bf16, each
+   cross-attention shapes at d 128, in bf16 (all three kernels on the tensor
+   cores: forward, dQ and dK/dV) and in fp32 (the FMA kernels), and at B 8,
+   T 1024, H 8, d 128 in bf16, each
    output element by element (tolerances at ``BF16_TOL``/``F32_TOL``; the
    worst share of the bound is printed); at the main shapes the same check
    must also catch four planted faults (a scale off by 1 %, a strict causal
    mask, a dropped last key tile, and kernels built to round P and dS to
-   bf16 once); then median times of each kernel, one call between two
+   bf16 once, caught on O, dQ, dK and dV); then median times of each
+   kernel, one call between two
    events and over 10 back-to-back calls, with its achieved TFLOP/s, its
    plain version, and, as a yardstick only, ``scaled_dot_product_attention``
    forward and backward (the port never calls it), at the main shapes and at
@@ -74,11 +76,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# Cycles the card sleeps before a run of back-to-back calls (~2.5 ms): the
+# host queues the whole run meanwhile, so its speed never shows in the time.
+QUEUE_SLEEP_CYCLES = 5_000_000
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
     """Device time of one ``fn()`` in ms: the median over ``reps`` runs of
     ``inner`` back-to-back calls, each run timed with events and divided by
-    ``inner``. With ``inner`` > 1 the host's launch overhead overlaps the
-    previous call's device work instead of being counted."""
+    ``inner``. With ``inner`` > 1 the card first sleeps while the host
+    queues the run, so the calls follow each other on the card and the
+    host's time per call is not counted even on a slow host."""
     import torch
     for _ in range(warmup):
         fn()
@@ -86,6 +94,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if inner > 1:
+            torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         a.record()
         for _ in range(inner):
             fn()
@@ -130,11 +140,11 @@ def phase_build():
     # The tensor-core kernels take all their shared memory dynamically, so
     # ptxas's lines above show none for them.
     fwd, bwd = _build.load("flash_fwd"), _build.load("flash_bwd")
+    smem = {"forward": fwd.hvd_flash_fwd_smem, "dQ": bwd.hvd_flash_bwd_dq_smem,
+            "dK/dV": bwd.hvd_flash_bwd_dkv_smem}
     log("dynamic shared memory per block (bytes) of the bf16 wgmma kernels, "
-        "head dim <= 64 / 128: forward "
-        + " / ".join(str(fwd.hvd_flash_fwd_smem(d)) for d in (64, 128))
-        + ", dK/dV "
-        + " / ".join(str(bwd.hvd_flash_bwd_dkv_smem(d)) for d in (64, 128)))
+        "head dim <= 64 / 128: " + ", ".join(
+            f"{k} {f(64)} / {f(128)}" for k, f in smem.items()))
     return card
 
 
@@ -306,8 +316,8 @@ def planted_faults(inputs, outs, b, h, d, tol):
 
 def planted_rounding(inputs, h, d, tol):
     """The check must catch kernels that round P and dS to bf16 once instead
-    of splitting them into hi + lo (``_build.PLANTED``): their O, dK and dV
-    at the main shapes are held against the plain versions, and each must
+    of splitting them into hi + lo (``_build.PLANTED``): their O, dQ, dK and
+    dV at the main shapes are held against the plain versions, and each must
     fail. These launches go through the libraries directly and count
     nowhere."""
     import torch
@@ -315,6 +325,8 @@ def planted_rounding(inputs, h, d, tol):
     from horovod_tpu_torch.ops import flash_attention as fa
     q, k, v, do, _, _, lse_p, delta, o_p = inputs
     scale = d ** -0.5
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, None, None, do, lse_p, delta, h,
+                                 scale, True)
     dk_p, dv_p, _ = fa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse_p,
                                            delta, h, scale, True,
                                            want_db=False)
@@ -322,12 +334,16 @@ def planted_rounding(inputs, h, d, tol):
     o, lse = torch.empty_like(q), torch.empty(q.shape[:2], device="cuda")
     fa.launch_fwd(_build.load("flash_fwd_one_rounding"), q, k, v, None, None,
                   o, lse, h, scale, True, 0, st)
+    bwd = _build.load("flash_bwd_one_rounding")
+    dq = torch.empty_like(q)
+    fa.launch_bwd_dq(bwd, q, k, v, None, None, do, lse_p, delta, dq, h, scale,
+                     True, 0, st)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fa.launch_bwd_dkv(_build.load("flash_bwd_one_rounding"), q, k, v, None,
-                      None, do, lse_p, delta, dk, dv, None, h, scale, True, 0,
-                      st)
+    fa.launch_bwd_dkv(bwd, q, k, v, None, None, do, lse_p, delta, dk, dv,
+                      None, h, scale, True, 0, st)
     torch.cuda.synchronize()
-    for name, got, want in (("O", o, o_p), ("dK", dk, dk_p), ("dV", dv, dv_p)):
+    for name, got, want in (("O", o, o_p), ("dQ", dq, dq_p), ("dK", dk, dk_p),
+                            ("dV", dv, dv_p)):
         err, worst, rel, ok = _stats(got, want, tol)
         log(f"  fault P and dS rounded to bf16 once: {name} max_abs_err "
             f"{err:.3e}, max err/bound {worst:.3f}, rms err/rms {rel:.3e} -> "
@@ -373,6 +389,21 @@ def kernel_times(case, b, h, d):
                       {n: x[n] for n in ("fwd", "bwd")})
     (k1, s1), (k10, s10) = pick(one), pick(ten)
     return k1, k10, (s1, s10)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Median host time of one ``fn()`` in us: the wrapper's Python and the
+    launch, not the kernel (the card runs it behind the host's back)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def phase_kernels():
@@ -425,6 +456,14 @@ def phase_kernels():
         f"calls it); flash_bwd_dq + flash_bwd_dkv "
         f"{t['flash_bwd_dq'] + t['flash_bwd_dkv']:.4f} / "
         f"{t10['flash_bwd_dq'] + t10['flash_bwd_dkv']:.4f}")
+    host = {
+        "flash_fwd": host_us(lambda: fa.flash_fwd(q, k, v, None, None, H,
+                                                  scale, True)),
+        "flash_bwd_dq": host_us(lambda: fa.flash_bwd_dq(
+            q, k, v, None, None, do, lse, delta, H, scale, True)),
+    }
+    log("wrapper host time per call (us, median of 200; the kernel runs "
+        "behind it): " + ", ".join(f"{n} {us:.1f}" for n, us in host.items()))
     wt, wt10, (wsdpa, wsdpa10) = kernel_times(wide, 8, 8, 128)
     log(f"times (ms, the same two ways) at B 8 T 1024 H 8 d 128 bf16 causal: "
         f"flash_fwd {wt['flash_fwd']:.4f} / {wt10['flash_fwd']:.4f}, "

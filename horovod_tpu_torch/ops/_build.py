@@ -131,13 +131,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def ptxas_report(name: str) -> str:
-    """The register / shared-memory / spill lines ptxas printed for the last
-    build of library ``name`` ('' when it was not built by this process's
-    build directory)."""
+    """The register / shared-memory / spill lines, and any warning about
+    serialized wgmma's, that ptxas printed for the last build of library
+    ``name`` ('' when it was not built by this process's build directory)."""
     log = build_dir() / f"lib{name}.log"
     if not log.exists():
         return ""
-    keep = ("Compiling entry", "registers", "spill")
+    keep = ("Compiling entry", "registers", "spill", "wgmma")
     return "\n".join(l.strip() for l in log.read_text().splitlines()
                      if any(k in l for k in keep))
 
@@ -156,6 +156,7 @@ _SIGNATURES = {
         + [_C_INT] * 3 + [_C_PTR],
         "hvd_flash_bwd_dkv": [_C_PTR] * 11 + [_C_INT] * 5 + [_C_FLOAT]
         + [_C_INT] * 3 + [_C_PTR],
+        "hvd_flash_bwd_dq_smem": [_C_INT],
         "hvd_flash_bwd_dkv_smem": [_C_INT],
     },
 }

@@ -6,10 +6,9 @@
 // logsumexp instead of storing P, and dS = P * (dO V^T - delta) with
 // delta = rowsum(dO * O) computed outside (plain torch, as in the
 // reference). On the TPU the innermost grid axis runs in order and carries
-// the accumulators in VMEM; here the dQ kernel gives one block to each
-// (bh, q tile) and loops over k tiles, and the dK/dV kernel gives one block
-// to each (bh, k tile) and loops over q tiles, so each output row is owned by
-// exactly one block and needs no atomics.
+// the accumulators in VMEM; here the dQ kernels give one block to each
+// (bh, q tile) and loop over k tiles, and the dK/dV kernels give one block
+// to each (bh, k tile) and loop over q tiles.
 //
 // What bounds them on an H100: at GPT-2 medium's shapes (BH 128, T 1024,
 // d 64, causal) the dQ kernel does ~25.8 GFLOP over ~85 MB and the dK/dV
@@ -17,24 +16,38 @@
 // 3.35 TB/s) both are bound by the operations (~26 and ~35 us; the bytes
 // alone take ~25 and ~30 us).
 //
-// - dK/dV in bf16, flash_bwd_dkv_wg_kernel<HD> (HD 64 for d <= 64, the
-//   training path's 64; HD 128 above): all four products on the tensor
-//   cores as warpgroup wgmma's (fp32 accumulators; see flash_mma.cuh). One
-//   block of four warps per (bh, 64-key tile), each warp owning 16 key rows
-//   of the m64 products. It walks the q tiles of 64 from the first one that
-//   sees a key of the block; K and V, and double-buffered Q and dO tiles,
-//   stay bf16 in shared memory in the 128B-swizzle layout (cp.async), the
-//   lse / delta rows beside them. Per q tile: S^T = K Q^T and dP^T = V dO^T
-//   from shared memory; P^T and dS^T computed in registers; dV += P^T dO and
-//   dK += dS^T Q with P and dS as register hi + lo bf16 parts (two products
-//   each), which keeps dK and dV within two bf16 ulps of the fp32 plain
-//   version. The grid starts with the first k tiles, which under the causal
-//   mask walk the most q tiles.
-// - dQ (both types) and dK/dV in fp32: the first port's fp32 FMAs on the
-//   CUDA cores. The tile a block walks over (K and V for dQ, Q and dO for
-//   dK/dV) is staged once in shared memory and reused by every row of the
-//   block, while each lane keeps its own row's operands and accumulators in
-//   registers.
+// - bf16, both kernels on the tensor cores as warpgroup wgmma's (fp32
+//   accumulators; see flash_mma.cuh), HD 64 for d <= 64 (the training
+//   path's 64) and HD 128 above. One block of four warps (one warpgroup) per
+//   64-row tile, each warp owning 16 rows of the m64 products; the tiles stay
+//   bf16 in shared memory in the 128B-swizzle layout (cp.async), the walked
+//   ones double-buffered.
+//   - dQ, flash_bwd_dq_wg_kernel<HD>: one block per (bh, 64-query tile),
+//     walking the k tiles of 64 up to the causal diagonal, as the forward
+//     kernel does. Q and dO are loaded once; K and V (with the key bias and
+//     segment ids) along the walk; each lane keeps its two rows' lse and
+//     delta in registers. Per k tile: S = Q K^T and dP = dO V^T from shared
+//     memory, P and dS in registers, dQ += dS K with dS as register hi + lo
+//     bf16 parts (two products) and K through a transposed descriptor. At
+//     d 128 dQ alone holds 64 registers, so S and dP go 32 keys at a time.
+//     The grid starts with the last q tiles, which walk the most k tiles.
+//   - dK/dV, flash_bwd_dkv_wg_kernel<HD>: one block per (bh, 64-key tile),
+//     walking the q tiles of 64 from the first one that sees a key of the
+//     block, the lse / delta rows staged beside Q and dO. Per q tile:
+//     S^T = K Q^T and dP^T = V dO^T from shared memory; P^T and dS^T in
+//     registers; dV += P^T dO and dK += dS^T Q with P and dS as hi + lo. The
+//     grid starts with the first k tiles, which walk the most q tiles.
+//   The hi + lo split keeps every output within two bf16 ulps of the fp32
+//   plain version; one rounding would not.
+// - fp32: the first port's fp32 FMAs on the CUDA cores (TF32 tensor cores
+//   would keep only ~3 digits). The tile a block walks over (K and V for dQ,
+//   Q and dO for dK/dV) is staged once in shared memory and reused by every
+//   row of the block, while each lane keeps its own row's operands and
+//   accumulators in registers.
+//
+// The split into a dQ pass and a dK/dV pass is the reference's: each output
+// row is owned by exactly one block, so neither kernel needs atomics or fp32
+// scratch, and dQ is deterministic.
 //
 // Masked entries give P == 0 and dS == 0 exactly, whatever the other terms
 // hold, as in the reference (0 * garbage must never reach an accumulator).
@@ -516,6 +529,230 @@ static cudaError_t launch_dkv_bf16(const FlashArgs& a, int bh,
                    : launch_dkv_wg<128>(a, bh, st);
 }
 
+// ---------------------------------------------------------------- dQ bf16
+
+// Start the copies of the K and V rows [k0, k0 + BK) into the swizzled
+// tiles Kb and Vb, and stage their key bias (times log2(e)) and segment ids
+// in Bb and Sb.
+template <int BK, int NH>
+__device__ __forceinline__ void stage_kv(const FlashArgs& a, const bf16* kh,
+                                         const bf16* vh, int b, int k0,
+                                         unsigned char* Kb, unsigned char* Vb,
+                                         float* Bb, int* Sb) {
+  load_tile_sw128_async<BK, NH>(Kb, kh, k0, a.tk, a.d);
+  load_tile_sw128_async<BK, NH>(Vb, vh, k0, a.tk, a.d);
+  for (int j = threadIdx.x; j < BK; j += kThreads) {
+    const int kp = k0 + j;
+    const bool ok = kp < a.tk;
+    Bb[j] = (a.bias != nullptr && ok)
+                ? a.bias[(size_t)b * a.tk + kp] * kLog2e
+                : 0.f;
+    Sb[j] = (a.seg != nullptr && ok) ? a.seg[(size_t)b * a.tk + kp] : 0;
+  }
+}
+
+// P = 2^(S - lse) and dS = P (dP - delta), in place, on this lane's
+// accumulators of a 16-query warp tile (rows qp0 and qp0 + 8) over keys
+// k0 + kc + [0, 8 NS): s holds the raw S scores and becomes P, dp holds dP
+// and becomes dS. Scores are in log2 units, lse2 is lse * log2(e); masked
+// entries give exactly 0. `full`: the tile pair has a masked entry.
+template <int NS>
+__device__ __forceinline__ void probs_and_ds_rows(
+    const FlashArgs& a, float (&s)[NS][4], float (&dp)[NS][4],
+    const float (&lse2)[2], const float (&dl)[2], const int (&sq)[2],
+    const float* Bt, const int* St, bool full, int qp0, int k0, int kc,
+    int t2) {
+  const float sl = a.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, col = kc + j * 8 + t2 + (e & 1);
+      const float x = s[j][e] * sl;
+      float p, ds;
+      if (full) {
+        const float xm = mask_score(
+            x, a.bias != nullptr, Bt[col], a.seg != nullptr, sq[r], St[col],
+            visible(qp0 + 8 * r, k0 + col, a.tq, a.tk, a.causal, a.offset));
+        p = xm > kNegInf * 0.5f ? ex2(xm - lse2[r]) : 0.f;
+        ds = p > 0.f ? p * (dp[j][e] - dl[r]) : 0.f;
+      } else {
+        p = ex2(x - lse2[r]);
+        ds = p * (dp[j][e] - dl[r]);
+      }
+      s[j][e] = p;
+      dp[j][e] = ds;
+    }
+  }
+}
+
+// The wgmma kernel at head dims up to HD (64 or 128; columns past d are
+// zero). S = Q K^T and dP = dO V^T read both operands from shared memory;
+// dQ += dS K takes dS from registers and K through a transposed (MN-major)
+// descriptor, one 64-column part of dQ at a time, exactly as the forward
+// kernel's O += P V takes V.
+template <int HD>
+struct WgDqTiles {
+  static constexpr int BQ = 64, BK = 64;
+  static constexpr int NH = HD / 64;        // 64-column parts
+  static constexpr int TILE = NH * kPart;   // bytes of one Q, dO, K or V tile
+  // Keys per pass of the products: at d 128 dQ alone takes 64 registers, so
+  // S and dP are taken 32 keys at a time (wgmma n32) to keep everything in
+  // registers.
+  static constexpr int KC = HD <= 64 ? 64 : 32;
+  // alignment slack | Q | dO | K[2] | V[2] | key bias * log2(e) [2] | key
+  // segment ids [2]
+  static constexpr int SMEM = 1024 + 6 * TILE + 2 * BK * 8;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wg_kernel(
+    FlashArgs a) {
+  using Tl = WgDqTiles<HD>;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, NH = Tl::NH, TILE = Tl::TILE;
+  constexpr int KC = Tl::KC, NS = KC / 8, NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // The swizzle pattern is a function of the address: tiles start on
+  // 1024-byte boundaries.
+  const uint32_t raw = smem_u32(smem), base = (raw + 1023) & ~1023u;
+  unsigned char* Qs = smem + (base - raw);
+  unsigned char* Ds = Qs + TILE;
+  unsigned char* Ks = Ds + TILE;
+  unsigned char* Vs = Ks + 2 * TILE;
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * TILE);
+  int* Ss = reinterpret_cast<int*>(Bs + 2 * BK);
+
+  const int bh = blockIdx.x, b = bh / a.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qp0 = q0 + warp * 16 + (lane >> 2), t2 = (lane & 3) * 2;
+  const int tq = a.tq, tk = a.tk, d = a.d;
+  const size_t qoff = (size_t)bh * tq * d, koff = (size_t)bh * tk * d;
+  const bf16* kh = static_cast<const bf16*>(a.k) + koff;
+  const bf16* vh = static_cast<const bf16*>(a.v) + koff;
+
+  const int nkt = k_tiles_needed(q0, BQ, BK, tk, a.causal, a.offset);
+  load_tile_sw128_async<BQ, NH>(Qs, static_cast<const bf16*>(a.q) + qoff, q0,
+                                tq, d);
+  load_tile_sw128_async<BQ, NH>(Ds, static_cast<const bf16*>(a.dout) + qoff,
+                                q0, tq, d);
+  if (nkt > 0) stage_kv<BK, NH>(a, kh, vh, b, 0, Ks, Vs, Bs, Ss);
+  cp_async_commit();
+
+  int sq[2];
+  load_row_segs(a, b, qp0, sq);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qp0 + 8 * r;
+    const bool ok = qp < tq;
+    lse2[r] = ok ? a.lse_in[(size_t)bh * tq + qp] * kLog2e : 0.f;
+    dl[r] = ok ? a.delta[(size_t)bh * tq + qp] : 0.f;
+  }
+  float dq[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  const uint64_t qdesc = sw128_desc(base), odesc = sw128_desc(base + TILE);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int buf = kt & 1, k0 = kt * BK;
+    if (kt + 1 < nkt)
+      stage_kv<BK, NH>(a, kh, vh, b, k0 + BK, Ks + (buf ^ 1) * TILE,
+                       Vs + (buf ^ 1) * TILE, Bs + (buf ^ 1) * BK,
+                       Ss + (buf ^ 1) * BK);
+    cp_async_commit();
+    cp_async_wait<1>();  // k tile kt (and Q, dO) have landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint64_t kdesc = sw128_desc(base + (2 + buf) * TILE);
+    const uint64_t vdesc = sw128_desc(base + (4 + buf) * TILE);
+    const bool full = tile_has_mask(a, q0, BQ, k0, BK);
+
+#pragma unroll 1
+    for (int kc = 0; kc < BK; kc += KC) {
+      // S = Q K^T and dP = dO V^T (fp32) over keys [kc, kc + KC): HD / 16
+      // k16 steps along the head dim; key row kc starts kc * 128 bytes into
+      // each part.
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+      const int row = kc * 128 >> 4;
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {
+        wgmma_ss(reinterpret_cast<float(&)[NS * 4]>(s), kmajor_step(qdesc, c),
+                 kmajor_step(kdesc, c) + row);
+        wgmma_ss(reinterpret_cast<float(&)[NS * 4]>(dp),
+                 kmajor_step(odesc, c), kmajor_step(vdesc, c) + row);
+      }
+      wgmma_commit_wait();
+      probs_and_ds_rows(a, s, dp, lse2, dl, sq, Bs + buf * BK, Ss + buf * BK,
+                        full, qp0, k0, kc, t2);
+
+      // dQ += dS K, dS as hi + lo: k16 steps of 16 keys, 2048 bytes apart,
+      // into each 64-column part.
+      uint32_t sh[KC / 16][4], slo[KC / 16][4];
+#pragma unroll
+      for (int c = 0; c < KC / 16; ++c)
+        acc_to_a_split(dp[2 * c], dp[2 * c + 1], sh[c], slo[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < KC / 16; ++c) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const uint64_t kd = kdesc + h * (kPart >> 4) + 128 * (kc / 16 + c);
+          wgmma_rs_t(reinterpret_cast<float(&)[32]>(dq[8 * h]), sh[c], kd);
+          wgmma_rs_t(reinterpret_cast<float(&)[32]>(dq[8 * h]), slo[c], kd);
+        }
+      }
+      wgmma_commit_wait();
+    }
+    __syncthreads();  // every warp is done with buffer buf
+  }
+  cp_async_wait<0>();
+
+  // dQ = scale * sum_k dS K, as the reference scales it once at the end.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qp0 + 8 * r;
+    if (qp < tq) {
+      bf16* row = static_cast<bf16*>(a.dq) + qoff + (size_t)qp * d;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const int col = j * 8 + t2;
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(row + col) =
+              __floats2bfloat162_rn(dq[j][2 * r] * a.scale,
+                                    dq[j][2 * r + 1] * a.scale);
+      }
+    }
+  }
+}
+
+template <int HD>
+static cudaError_t launch_dq_wg(const FlashArgs& a, int bh, cudaStream_t st) {
+  using Tl = WgDqTiles<HD>;
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(
+      reinterpret_cast<const void*>(flash_bwd_dq_wg_kernel<HD>), Tl::SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(bh, (a.tq + Tl::BQ - 1) / Tl::BQ);
+  flash_bwd_dq_wg_kernel<HD><<<grid, kThreads, Tl::SMEM, st>>>(a);
+  return cudaSuccess;
+}
+
+static cudaError_t launch_dq_bf16(const FlashArgs& a, int bh,
+                                  cudaStream_t st) {
+  return a.d <= 64 ? launch_dq_wg<64>(a, bh, st) : launch_dq_wg<128>(a, bh, st);
+}
+
 static bool bad_shape(int bh, int tq, int tk, int d, int heads, int dtype) {
   return bh <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 || d % 8 != 0 ||
          heads <= 0 || bh % heads != 0 || (dtype != 0 && dtype != 1) ||
@@ -548,8 +785,8 @@ static FlashArgs make_args(const void* q, const void* k, const void* v,
 
 }  // namespace hvdflash
 
-// C interface, loaded with ctypes. dtype: 0 = fp32, 1 = bf16 (dK/dV on the
-// tensor-core kernel). Each returns the cudaError_t of its launch (0 on
+// C interface, loaded with ctypes. dtype: 0 = fp32 (FMA kernels), 1 = bf16
+// (tensor-core kernels). Each returns the cudaError_t of its launch (0 on
 // success).
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* bias, const void* seg,
@@ -566,7 +803,8 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.dq = dq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    launch_dq_hd<__nv_bfloat16>(a, bh, st);
+    const cudaError_t e = launch_dq_bf16(a, bh, st);
+    if (e != cudaSuccess) return (int)e;
   } else {
     launch_dq_hd<float>(a, bh, st);
   }
@@ -598,8 +836,13 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory, in bytes, of one block of the bf16 dK/dV kernel at
-// head dim d (ptxas reports none for it).
+// Dynamic shared memory, in bytes, of one block of the bf16 dQ and dK/dV
+// kernels at head dim d (ptxas reports none for them).
+extern "C" int hvd_flash_bwd_dq_smem(int d) {
+  using namespace hvdflash;
+  return d <= 64 ? WgDqTiles<64>::SMEM : WgDqTiles<128>::SMEM;
+}
+
 extern "C" int hvd_flash_bwd_dkv_smem(int d) {
   using namespace hvdflash;
   return d <= 64 ? WgDkvTiles<64>::SMEM : WgDkvTiles<128>::SMEM;

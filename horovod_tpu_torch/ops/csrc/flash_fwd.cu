@@ -14,17 +14,20 @@
 //
 // - bf16, flash_fwd_wg_kernel<HD> (HD 64 for d <= 64, the training path's
 //   64; HD 128 above): both products on the tensor cores as warpgroup
-//   wgmma's (fp32 accumulators; see flash_mma.cuh). One block of four warps
-//   per (bh, 64-query tile), each warp owning 16 query rows of the m64
-//   products. Q, and K and V tiles of 64 keys, stay bf16 in shared memory in
-//   the 128B-swizzle layout wgmma reads (one 64-column part per 64 columns
-//   of the head dim), K and V double-buffered with cp.async so that the next
-//   tile is in flight while this one computes. S = Q K^T lands in registers, is scaled,
-//   masked and exponentiated there (row max and sum over the four lanes of a
-//   quad), and becomes the register A operand of O += P V. P goes in as
-//   hi + lo bf16 parts (two products), which keeps O within two bf16 ulps of
-//   the fp32 plain version; one rounding of P would not. The grid starts
-//   with the last q tiles, which under the causal mask walk the most k tiles.
+//   wgmma's (fp32 accumulators; see flash_mma.cuh), warp-specialised. One
+//   block per (bh, 128-query tile): a producer warp loads Q and a 2-stage
+//   ring of K/V tiles by TMA (mbarriers report the bytes), two consumer
+//   warpgroups of 64 query rows each share every K/V tile, and setmaxnreg
+//   hands the producer warpgroup's registers to them. Tiles stay bf16 in
+//   shared memory in the 128B-swizzle layout wgmma reads (one 64-column part
+//   per 64 columns of the head dim), which TMA writes directly. S = Q K^T
+//   lands in registers, is scaled, masked and exponentiated there (row max
+//   and sum over the four lanes of a quad), and becomes the register A
+//   operand of O += P V. Tiles with no masked entry take a softmax without
+//   any mask code. P goes in as hi + lo bf16 parts (two products), which
+//   keeps O within two bf16 ulps of the fp32 plain version; one rounding of
+//   P would not. The grid starts with the last q tiles, which under the
+//   causal mask walk the most k tiles.
 // - fp32, flash_fwd_kernel: the first port's fp32 FMAs on the CUDA cores
 //   (TF32 tensor cores would keep only ~3 digits). A lane group of NS =
 //   HD / 32 lanes owns a query row; k tiles of BK rows of K and V are staged
@@ -143,55 +146,49 @@ static void launch_fwd_hd(const FlashArgs& a, int bh, cudaStream_t st) {
 
 // ---------------------------------------------------------------- bf16
 
-// Start the copies of the K and V rows [k0, k0 + BK) into the swizzled
-// tiles Kb and Vb, and stage their key bias (times log2(e)) and segment ids
-// in Bb and Sb.
-template <int BK, int NH>
-__device__ __forceinline__ void stage_kv(const FlashArgs& a, const bf16* kh,
-                                         const bf16* vh, int b, int k0,
-                                         unsigned char* Kb, unsigned char* Vb,
-                                         float* Bb, int* Sb) {
-  load_tile_sw128_async<BK, NH>(Kb, kh, k0, a.tk, a.d);
-  load_tile_sw128_async<BK, NH>(Vb, vh, k0, a.tk, a.d);
-  for (int j = threadIdx.x; j < BK; j += kThreads) {
-    const int kp = k0 + j;
-    const bool ok = kp < a.tk;
-    Bb[j] = (a.bias != nullptr && ok)
-                ? a.bias[(size_t)b * a.tk + kp] * kLog2e
-                : 0.f;
-    Sb[j] = (a.seg != nullptr && ok) ? a.seg[(size_t)b * a.tk + kp] : 0;
-  }
-}
-
 // One k tile of the online softmax, on this lane's accumulators of a 16-row
-// warp tile (rows qp0 and qp0 + 8 of the sequence): scale the raw scores s
-// to log2 units, apply the bias / segment / position masks when the tile
-// has any masked entry (`full`: the diagonal and ragged tiles, or every
-// tile under a bias or segment ids), update the running max m and this
-// lane's part of the running sum l, rescale O, and leave P = 2^(s - m) in s.
-// A row with no visible key yet keeps m == kNegInf; its masked entries must
-// give exactly 0, not 2^0.
-template <int NS, int NO>
-__device__ __forceinline__ void softmax_tile(
-    const FlashArgs& a, float (&s)[NS][4], float (&o)[NO][4], float (&m)[2],
-    float (&l)[2], const int (&sq)[2], const float* Bt, const int* St,
-    bool full, int qp0, int k0, int t2) {
+// warp tile (rows qp0 and qp0 + 8 of the sequence): update the running max
+// m and this lane's part of the running sum l, rescale O, and leave P =
+// 2^(s * scale * log2(e) - m) in s, scores in log2 units. MASKED (the
+// diagonal and ragged tiles, or every tile under a bias or segment ids)
+// applies the bias / segment / position masks; a row with no visible key yet
+// keeps m == kNegInf, and its masked entries must give exactly 0, not 2^0.
+// The other tiles take the max of the raw scores and one FFMA per exponent's
+// argument; the kernel sends a tile here only when the scale is positive, so
+// that max is the max of the scaled scores, bit for bit.
+template <bool MASKED, int NS, int NO>
+__device__ __forceinline__ void softmax_tile(const FlashArgs& a,
+                                             float (&s)[NS][4],
+                                             float (&o)[NO][4], float (&m)[2],
+                                             float (&l)[2], const float* Bt,
+                                             const int* St, int b, int qp0,
+                                             int k0, int t2) {
   const float sl = a.scale * kLog2e;
   float mx[2] = {m[0], m[1]};
+  if (MASKED) {
+    int sq[2];
+    load_row_segs(a, b, qp0, sq);
 #pragma unroll
-  for (int j = 0; j < NS; ++j) {
+    for (int j = 0; j < NS; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1, col = j * 8 + t2 + (e & 1);
-      float x = s[j][e] * sl;
-      if (full)
-        x = mask_score(x, a.bias != nullptr, Bt[col], a.seg != nullptr,
-                       sq[r], St[col],
-                       visible(qp0 + 8 * r, k0 + col, a.tq, a.tk, a.causal,
-                               a.offset));
-      s[j][e] = x;
-      mx[r] = fmaxf(mx[r], x);
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = j * 8 + t2 + (e & 1);
+        const float x = mask_score(
+            s[j][e] * sl, a.bias != nullptr, Bt[col], a.seg != nullptr,
+            sq[r], St[col],
+            visible(qp0 + 8 * r, k0 + col, a.tq, a.tk, a.causal, a.offset));
+        s[j][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
     }
+  } else {
+    float raw[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) raw[e >> 1] = fmaxf(raw[e >> 1], s[j][e]);
+    mx[0] = fmaxf(mx[0], raw[0] * sl);
+    mx[1] = fmaxf(mx[1], raw[1] * sl);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -211,7 +208,8 @@ __device__ __forceinline__ void softmax_tile(
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
       const float x = s[j][e];
-      const float p = (!full || x > kNegInf * 0.5f) ? ex2(x - m[r]) : 0.f;
+      const float p = MASKED ? (x > kNegInf * 0.5f ? ex2(x - m[r]) : 0.f)
+                             : ex2(fmaf(x, sl, -m[r]));
       s[j][e] = p;
       l[r] += p;
     }
@@ -247,121 +245,212 @@ __device__ __forceinline__ void store_o_lse(const FlashArgs& a,
   }
 }
 
-// The lane's two query rows' segment ids (0 without segment ids).
-__device__ __forceinline__ void load_row_segs(const FlashArgs& a, int b,
-                                              int qp0, int (&sq)[2]) {
+// One BK-key tile of a consumer warpgroup: S = Q K^T (fp32) in HD / 16
+// k16 steps with both operands from shared memory, the online softmax, and O += P V with P as hi + lo
+// register fragments and V through a transposed (MN-major) descriptor,
+// BK / 16 k16 steps of 16 keys (2048 bytes apart) into each 64-column part
+// of O.
+template <bool MASKED, int HD, int BK>
+__device__ __forceinline__ void fwd_tile(const FlashArgs& a,
+                                         float (&o)[HD / 8][4], float (&m)[2],
+                                         float (&l)[2], uint64_t qdesc,
+                                         uint64_t kdesc, uint64_t vdesc,
+                                         const float* Bt, const int* St,
+                                         int b, int qp0, int k0, int t2) {
+  float s[BK / 8][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = qp0 + 8 * r;
-    sq[r] = (a.seg != nullptr && qp < a.tq) ? a.seg[(size_t)b * a.tq + qp]
-                                            : 0;
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc)
+    wgmma_ss(reinterpret_cast<float(&)[BK / 2]>(s), kmajor_step(qdesc, kc),
+             kmajor_step(kdesc, kc));
+  wgmma_commit_wait();
+  softmax_tile<MASKED>(a, s, o, m, l, Bt, St, b, qp0, k0, t2);
+
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc)
+    acc_to_a_split(s[2 * kc], s[2 * kc + 1], ph[kc], pl[kc]);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+    for (int h = 0; h < HD / 64; ++h) {
+      const uint64_t vd = vdesc + h * (BK * 128 >> 4) + 128 * kc;
+      wgmma_rs_t(reinterpret_cast<float(&)[32]>(o[8 * h]), ph[kc], vd);
+      wgmma_rs_t(reinterpret_cast<float(&)[32]>(o[8 * h]), pl[kc], vd);
+    }
   }
+  wgmma_commit_wait();
 }
 
 // The wgmma kernel at head dims up to HD (64 or 128; columns past d are
-// zero). S = Q K^T reads both operands from shared memory; O += P V takes P
-// from registers and V through a transposed (MN-major) descriptor, one
-// 64-column part of O at a time.
+// zero). Three warpgroups: a producer, whose first warp loads every tile by
+// TMA, and two consumers, each with its own 64 query rows of the block's
+// 128, sharing each K and V tile. The K/V tiles go through a ring of STAGES
+// buffers, each with a `full` mbarrier (the producer's 32 lanes arrive once
+// they staged the tile's key bias and segment ids; the TMA bytes complete
+// it) and an `empty` one (every consumer thread arrives when its products
+// have read the tile). The producer hands its registers to the consumers
+// (setmaxnreg): at d <= 64 two blocks share an SM, 104 registers a consumer
+// thread, so that one block's first loads and last stores overlap the
+// other's products, and 32-key tiles keep S and P small enough for those
+// registers; at d 128, where O alone holds 64 registers, one block with 240
+// and 64-key tiles.
 template <int HD>
 struct WgFwdTiles {
-  static constexpr int BQ = 64, BK = 64;
-  static constexpr int NH = HD / 64;          // 64-column parts
-  static constexpr int TILE = NH * kPart;     // bytes of one Q, K or V tile
-  // alignment slack | Q | K[2] | V[2] | key bias * log2(e) [2] | key
-  // segment ids [2]
-  static constexpr int SMEM = 1024 + 5 * TILE + 2 * BK * 8;
+  static constexpr int NWG = 2;                 // consumers, 64 rows each
+  static constexpr int THREADS = (NWG + 1) * kThreads;
+  static constexpr int BQ = 64 * NWG, BK = HD <= 64 ? 32 : 64, STAGES = 2;
+  static constexpr int NH = HD / 64;            // 64-column parts
+  static constexpr int TILE = NH * kPart;       // bytes of a Q tile
+  static constexpr int KVT = NH * BK * 128;     // bytes of a K or V tile
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;  // per SM
+  // ptxas holds every thread to KERNEL_REGS; the producer drops to
+  // PRODUCER_REGS and the consumers take what it frees.
+  static constexpr int KERNEL_REGS = (65536 / (THREADS * MIN_BLOCKS)) & ~7;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS =
+      ((KERNEL_REGS * THREADS - PRODUCER_REGS * kThreads) /
+       (NWG * kThreads)) & ~7;
+  // alignment slack | Q[NWG] | {K, V}[STAGES] | key bias * log2(e)
+  // [STAGES] | key segment ids [STAGES] | mbarriers: Q, full[STAGES],
+  // empty[STAGES]
+  static constexpr int SMEM = 1024 + NWG * TILE + 2 * STAGES * KVT +
+                              STAGES * BK * 8 + 8 * (1 + 2 * STAGES);
+  // The budgets after setmaxnreg: producer 24, consumers 104 at d <= 64
+  // (80 at launch) and 240 at d 128 (168 at launch).
+  static_assert(CONSUMER_REGS == (HD <= 64 ? 104 : 240),
+                "setmaxnreg budget");
+  static_assert(64 / BK <= STAGES, "a skipped tile's stage is reused");
+  static_assert(NH == 1 || BK * 128 == kPart, "K's parts are kPart apart");
 };
 
-// At d 64 ptxas gives it 127 registers a thread, 4 blocks per SM (shared
-// memory would allow 5). Holding it to 128 with __launch_bounds__ makes
-// ptxas spill instead; at 134 (one block per SM fewer) it took ~13 % longer.
+struct FwdMaps {
+  CUtensorMap q, k, v;  // boxes of 64 (q) or BK rows, see make_tile_map
+};
+
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_wg_kernel(FlashArgs a) {
+__global__ void __launch_bounds__(WgFwdTiles<HD>::THREADS,
+                                  WgFwdTiles<HD>::MIN_BLOCKS)
+    flash_fwd_wg_kernel(const __grid_constant__ FwdMaps maps, FlashArgs a) {
   using Tl = WgFwdTiles<HD>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, NH = Tl::NH, TILE = Tl::TILE;
-  constexpr int NS = BK / 8, NO = HD / 8;
+  constexpr int NWG = Tl::NWG, STAGES = Tl::STAGES, KVT = Tl::KVT;
   extern __shared__ __align__(16) unsigned char smem[];
   // The swizzle pattern is a function of the address: tiles start on
   // 1024-byte boundaries.
   const uint32_t raw = smem_u32(smem), base = (raw + 1023) & ~1023u;
-  unsigned char* Qs = smem + (base - raw);
-  unsigned char* Ks = Qs + TILE;
-  unsigned char* Vs = Ks + 2 * TILE;
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * TILE);
-  int* Ss = reinterpret_cast<int*>(Bs + 2 * BK);
+  const uint32_t kv0 = base + NWG * TILE;  // stage s: K at kv0 + 2 s KVT
+  float* Bs = reinterpret_cast<float*>(smem + (base - raw) + NWG * TILE +
+                                       2 * STAGES * KVT);
+  int* Ss = reinterpret_cast<int*>(Bs + STAGES * BK);
+  const uint32_t qbar = smem_u32(Ss + STAGES * BK);
+  const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * STAGES;
 
   const int bh = blockIdx.x, b = bh / a.heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qp0 = q0 + warp * 16 + (lane >> 2), t2 = (lane & 3) * 2;
-  const int tq = a.tq, tk = a.tk, d = a.d;
-  const bf16* qh = static_cast<const bf16*>(a.q) + (size_t)bh * tq * d;
-  const bf16* kh = static_cast<const bf16*>(a.k) + (size_t)bh * tk * d;
-  const bf16* vh = static_cast<const bf16*>(a.v) + (size_t)bh * tk * d;
-
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int tq = a.tq, tk = a.tk;
+  // The block walks the k tiles its last rows need.
   const int nkt = k_tiles_needed(q0, BQ, BK, tk, a.causal, a.offset);
-  load_tile_sw128_async<BQ, NH>(Qs, qh, q0, tq, d);
-  if (nkt > 0) stage_kv<BK, NH>(a, kh, vh, b, 0, Ks, Vs, Bs, Ss);
-  cp_async_commit();
 
-  int sq[2];
-  load_row_segs(a, b, qp0, sq);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  const uint64_t qdesc = sw128_desc(base);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 32);
+      mbar_init(empty0 + 8 * st, NWG * kThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int buf = kt & 1, k0 = kt * BK;
-    if (kt + 1 < nkt)
-      stage_kv<BK, NH>(a, kh, vh, b, k0 + BK, Ks + (buf ^ 1) * TILE,
-                       Vs + (buf ^ 1) * TILE, Bs + (buf ^ 1) * BK,
-                       Ss + (buf ^ 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile kt (and Q) have landed
-    fence_proxy_async();
-    __syncthreads();
-    const uint64_t kdesc = sw128_desc(base + (1 + buf) * TILE);
-    const uint64_t vdesc = sw128_desc(base + (3 + buf) * TILE);
-
-    // S = Q K^T (fp32): HD / 16 k16 steps along the head dim.
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc)
-      wgmma_ss(reinterpret_cast<float(&)[32]>(s), kmajor_step(qdesc, kc),
-               kmajor_step(kdesc, kc));
-    wgmma_commit_wait();
-    softmax_tile(a, s, o, m, l, sq, Bs + buf * BK, Ss + buf * BK,
-                 tile_has_mask(a, q0, BQ, k0, BK), qp0, k0, t2);
-
-    // O += P V, P as hi + lo: four k16 steps of 16 keys, 2048 bytes apart,
-    // into each 64-column part of O.
-    uint32_t ph[4][4], pl[4][4];
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      acc_to_a_split(s[2 * kc], s[2 * kc + 1], ph[kc], pl[kc]);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const uint64_t vd = vdesc + h * (kPart >> 4) + 128 * kc;
-        wgmma_rs_t(reinterpret_cast<float(&)[32]>(o[8 * h]), ph[kc], vd);
-        wgmma_rs_t(reinterpret_cast<float(&)[32]>(o[8 * h]), pl[kc], vd);
+  if (wg == NWG) {  // the producer
+    setmaxnreg_dec<Tl::PRODUCER_REGS>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, NWG * TILE);
+      for (int w = 0; w < NWG; ++w)
+        for (int h = 0; h < NH; ++h)
+          tma_load_3d(base + w * TILE + h * kPart, &maps.q, qbar, 64 * h,
+                      q0 + 64 * w, bh);
+    }
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int st = kt % STAGES, k0 = kt * BK;
+      // Stage st was last read by tile kt - STAGES.
+      if (kt >= STAGES) mbar_wait(empty0 + 8 * st, (kt / STAGES - 1) & 1);
+      for (int j = lane; j < BK; j += 32) {
+        const int kp = k0 + j;
+        const bool ok = kp < tk;
+        Bs[st * BK + j] = (a.bias != nullptr && ok)
+                              ? a.bias[(size_t)b * tk + kp] * kLog2e
+                              : 0.f;
+        Ss[st * BK + j] =
+            (a.seg != nullptr && ok) ? a.seg[(size_t)b * tk + kp] : 0;
+      }
+      const uint32_t full = full0 + 8 * st;
+      if (lane == 0) {
+        mbar_arrive_tx(full, 2 * KVT);
+        const uint32_t kdst = kv0 + 2 * st * KVT;
+        for (int h = 0; h < NH; ++h) {
+          tma_load_3d(kdst + h * BK * 128, &maps.k, full, 64 * h, k0, bh);
+          tma_load_3d(kdst + KVT + h * BK * 128, &maps.v, full, 64 * h, k0,
+                      bh);
+        }
+      } else {
+        mbar_arrive(full);
       }
     }
-    wgmma_commit_wait();
-    __syncthreads();  // every warp is done with buffer buf
+    return;
   }
-  cp_async_wait<0>();
+
+  // A consumer.
+  setmaxnreg_inc<Tl::CONSUMER_REGS>();
+  const int qw = q0 + 64 * wg;  // this warpgroup's first query
+  const int qp0 = qw + warp * 16 + (lane >> 2), t2 = (lane & 3) * 2;
+  // Under the causal mask the first warpgroup may need fewer k tiles than
+  // the block: it skips the last 64 keys at most. A skipped tile's stage is
+  // never reused (64 / BK <= STAGES), so no empty barrier waits on it.
+  const int my_nkt = k_tiles_needed(qw, 64, BK, tk, a.causal, a.offset);
+  // The tiles without a masked entry (tile_has_mask false) come first:
+  // whole tiles of keys below the diagonal, with no bias, no segment ids
+  // and no rows past tq. Their softmax needs a positive scale.
+  int n_plain = 0;
+  if (a.bias == nullptr && a.seg == nullptr && qw + 64 <= tq &&
+      a.scale > 0.f) {
+    n_plain = tk / BK;
+    if (a.causal) {
+      const int lim = qw + a.offset + 1;  // k_pos < lim for every row
+      n_plain = min(n_plain, lim <= 0 ? 0 : lim / BK);
+    }
+    n_plain = min(n_plain, my_nkt);
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  const uint64_t qdesc = sw128_desc(base + wg * TILE);
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < my_nkt; ++kt) {
+    const int st = kt % STAGES;
+    mbar_wait(full0 + 8 * st, (kt / STAGES) & 1);
+    const uint64_t kdesc = sw128_desc(kv0 + 2 * st * KVT);
+    const uint64_t vdesc = sw128_desc(kv0 + (2 * st + 1) * KVT);
+    if (kt < n_plain)
+      fwd_tile<false, HD, BK>(a, o, m, l, qdesc, kdesc, vdesc, nullptr,
+                              nullptr, b, qp0, kt * BK, t2);
+    else
+      fwd_tile<true, HD, BK>(a, o, m, l, qdesc, kdesc, vdesc, Bs + st * BK,
+                             Ss + st * BK, b, qp0, kt * BK, t2);
+    mbar_arrive(empty0 + 8 * st);  // this thread's products are done
+  }
   store_o_lse(a, o, m, l, bh, qp0, t2);
 }
 
@@ -373,8 +462,13 @@ static cudaError_t launch_fwd_wg(const FlashArgs& a, int bh,
   const cudaError_t e = limit.raise(
       reinterpret_cast<const void*>(flash_fwd_wg_kernel<HD>), Tl::SMEM);
   if (e != cudaSuccess) return e;
+  FwdMaps maps;
+  if (!make_tile_map(&maps.q, a.q, bh, a.tq, a.d, 64) ||
+      !make_tile_map(&maps.k, a.k, bh, a.tk, a.d, Tl::BK) ||
+      !make_tile_map(&maps.v, a.v, bh, a.tk, a.d, Tl::BK))
+    return cudaErrorInvalidValue;
   dim3 grid(bh, (a.tq + Tl::BQ - 1) / Tl::BQ);
-  flash_fwd_wg_kernel<HD><<<grid, kThreads, Tl::SMEM, st>>>(a);
+  flash_fwd_wg_kernel<HD><<<grid, Tl::THREADS, Tl::SMEM, st>>>(maps, a);
   return cudaSuccess;
 }
 

@@ -1,7 +1,7 @@
 // Tensor-core pieces of the bf16 flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): warpgroup wgmma m64nNk16 bf16 -> fp32 with shared-memory
-// descriptors, cp.async into 128B-swizzled tiles, and the hi/lo split of fp32
-// operands.
+// descriptors, cp.async or TMA (with mbarriers) into 128B-swizzled tiles,
+// setmaxnreg, and the hi/lo split of fp32 operands.
 //
 // Register layouts (PTX ISA, g = lane / 4, t = lane % 4): a warp's part of a
 // wgmma accumulator is that of mma.m16n8k16 over its 16 rows, n tile j (8
@@ -23,6 +23,8 @@
 // planted fault its check must catch, and tests/test_torch_port_precision.py
 // pins the rule on the CPU.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
 
 #include "flash_common.cuh"
 
@@ -239,6 +241,87 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ------------------------------------------------- TMA and mbarriers
+//
+// A tensor map (cuTensorMapEncodeTiled, see make_tile_map) describes a
+// (d, t, bh) bf16 tensor in boxes of 64 columns (128 bytes) by ROWS rows of
+// one head, 128B-swizzled: a box lands in shared memory exactly as
+// load_tile_sw128_async lays out one 64-column part, and reads past t or d
+// fill zeros. One thread starts the copy; the hardware reports its bytes to
+// an mbarrier, on which the consumers wait by phase parity.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised mbarriers visible to the other threads and to TMA.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrives and adds `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "HVD_MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra HVD_MBAR_WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Copies the box at element coordinates (c0, c1, c2) of `map` to shared
+// address dst, reporting its bytes to the mbarrier at bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Hands registers between warpgroups: every warp of the warpgroup executes
+// it, N a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The lane's two query rows' segment ids (0 without segment ids).
+__device__ __forceinline__ void load_row_segs(const FlashArgs& a, int b,
+                                              int qp0, int (&sq)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qp0 + 8 * r;
+    sq[r] = (a.seg != nullptr && qp < a.tq) ? a.seg[(size_t)b * a.tq + qp]
+                                            : 0;
+  }
+}
+
 // Raises one kernel's dynamic shared-memory limit once per device and keeps
 // the result, instead of a driver call at every launch. One instance per
 // kernel (a function-local static of its launcher).
@@ -260,5 +343,47 @@ struct SmemLimit {
     return (cudaError_t)(state[dev] - 1);
   }
 };
+
+// cuTensorMapEncodeTiled is a driver function: it is looked up once through
+// the runtime, so that the library links no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a (bh, t, d) row-major bf16 tensor at p, as tma_load_3d
+// reads it: dims (d, t, bh), boxes of 64 columns by `rows` rows of one head,
+// 128B swizzle, zeros past t and d. The row stride d * 2 bytes is a
+// multiple of 16 for every d the kernels take (d % 8 == 0), as TMA needs,
+// and p is 16-byte aligned (checked by the wrappers). False if the driver
+// refuses it.
+static bool make_tile_map(CUtensorMap* m, const void* p, int bh, int t,
+                          int d, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace hvdflash

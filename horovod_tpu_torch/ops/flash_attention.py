@@ -18,9 +18,9 @@ function beside it:
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel on the current stream of the inputs' own
 device, or raises; there is no fallback. Each wrapper counts its kernel
-launches in :data:`launches`. For bf16 inputs the forward and dK/dV kernels
-run their products on the tensor cores; fp32 inputs take FMA kernels that
-keep full fp32 products (see the sources).
+launches in :data:`launches`. For bf16 inputs all three kernels run their
+products on the tensor cores; fp32 inputs take FMA kernels that keep full
+fp32 products (see the sources).
 
 ``block_q``/``block_k`` (and ``_bwd``) tile the plain versions only. The
 CUDA kernels' tiles are compiled in and follow from the head dim (see the
@@ -305,13 +305,12 @@ def launch_bwd_dkv(lib, q, k, v, bias, seg, do, lse, delta, dk, dv, db, h,
     _raise_on_error(rc, "flash_bwd_dkv")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _lib(name: str):
+def _launch(device: torch.device, launch, lib_name: str, *args) -> None:
+    """``launch(lib, *args, stream)`` on ``device`` and its current stream."""
     from horovod_tpu_torch.ops import _build
-    return _build.load(name)
+    with torch.cuda.device(device):
+        launch(_build.load(lib_name), *args,
+               torch.cuda.current_stream(device).cuda_stream)
 
 
 def flash_fwd(q, k, v, bias, seg, h, scale, causal, offset=0, block_q=None,
@@ -324,9 +323,8 @@ def flash_fwd(q, k, v, bias, seg, h, scale, causal, offset=0, block_q=None,
     _check_kernel_inputs(q, k, v, bias, seg)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        launch_fwd(_lib("flash_fwd"), q, k, v, bias, seg, o, lse, h, scale,
-                   causal, offset, _stream(q.device))
+    _launch(q.device, launch_fwd, "flash_fwd", q, k, v, bias, seg, o, lse, h,
+            scale, causal, offset)
     launches["flash_fwd"] += 1
     return o, lse
 
@@ -341,9 +339,8 @@ def flash_bwd_dq(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
     _refuse_blocks(block_q, block_k)
     _check_kernel_inputs(q, k, v, bias, seg, do, lse, delta)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        launch_bwd_dq(_lib("flash_bwd"), q, k, v, bias, seg, do, lse, delta,
-                      dq, h, scale, causal, offset, _stream(q.device))
+    _launch(q.device, launch_bwd_dq, "flash_bwd", q, k, v, bias, seg, do, lse,
+            delta, dq, h, scale, causal, offset)
     launches["flash_bwd_dq"] += 1
     return dq
 
@@ -361,10 +358,8 @@ def flash_bwd_dkv(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
     dv = torch.empty_like(v)
     db = (torch.empty(k.shape[:2], dtype=torch.float32, device=k.device)
           if bias is not None and want_db else None)
-    with torch.cuda.device(q.device):
-        launch_bwd_dkv(_lib("flash_bwd"), q, k, v, bias, seg, do, lse, delta,
-                       dk, dv, db, h, scale, causal, offset,
-                       _stream(q.device))
+    _launch(q.device, launch_bwd_dkv, "flash_bwd", q, k, v, bias, seg, do,
+            lse, delta, dk, dv, db, h, scale, causal, offset)
     launches["flash_bwd_dkv"] += 1
     return dk, dv, db
 

@@ -8,7 +8,7 @@ nothing of JAX, so it runs where only the port's dependencies are installed:
 
 Tolerances: the fp32 cases (FMA kernels) hold rtol = atol = 1e-5, the same
 fp32 sums taken in another order. The bf16 cases (tensor-core kernels for the
-forward and dK/dV) hold ``chip_smoke``'s bound: every element within
+forward, dQ and dK/dV) hold ``chip_smoke``'s bound: every element within
 ``BF16_TOL`` (2^-6 of itself + 1e-3 of the rms) and the rms error within
 1e-2 of the rms; lse, fp32 whatever the input type, at ``F32_TOL``.
 """
@@ -32,7 +32,18 @@ CASES = {
                         torch.bfloat16),
     "cross-bf16": (2, 77, 130, 2, 128, False, 0, True, False,
                    torch.bfloat16),
+    # d 128 where the causal diagonal cuts the tiles: the 32-key passes of
+    # the dQ kernel and the d-128 forward.
+    "causal-d128-bf16": (2, 256, 256, 2, 128, True, 0, False, False,
+                         torch.bfloat16),
+    # A negative scale whose scores spread over more than 128 in log2 units:
+    # the forward's unmasked softmax (max of the raw scores) would overflow.
+    "negative-scale-bf16": (2, 256, 256, 2, 64, True, 0, False, False,
+                            torch.bfloat16),
 }
+
+# Logit scale of a case, where it is not d ** -0.5.
+SCALES = {"negative-scale-bf16": -4.0}
 
 
 @pytest.fixture
@@ -73,7 +84,7 @@ def _check_case(case, device):
     b, tq, tk, h, d, causal, offset, bias, seg, dtype = CASES[case]
     q, k, v, do, kb, sg = (None if x is None else x.to(device)
                            for x in _inputs(case))
-    scale = d ** -0.5
+    scale = SCALES.get(case, d ** -0.5)
     o, lse = pfa.flash_fwd(q, k, v, kb, sg, h, scale, causal, offset)
     o_p, lse_p = pfa.flash_fwd_plain(q, k, v, kb, sg, h, scale, causal,
                                      offset)

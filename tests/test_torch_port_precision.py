@@ -1,14 +1,14 @@
 """The precision rule of the bf16 tensor-core flash kernels, pinned on the CPU.
 
 The tensor cores multiply bf16 operands. Q, K, V and dO are bf16 already, but
-P (forward and dV) and dS (dK) are fp32. The kernels feed each of them as two
-bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and sum both products in fp32.
-This test emulates both choices in plain PyTorch, fp32 products of the bf16
-operands, and holds each against the plain version of the kernels with
+P (forward and dV) and dS (dQ and dK) are fp32. The kernels feed each of them
+as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and sum both products
+in fp32. This test emulates both choices in plain PyTorch, fp32 products of
+the bf16 operands, and holds each against the plain version of the kernels with
 ``chip_smoke``'s own check (``_stats`` at ``BF16_TOL``, the bound the kernels
-meet on the card): rounding P and dS to bf16 once must fail it on O, dK and
-dV, and the hi/lo split must pass it. A later change that rounds once to save
-the second product breaks this test.
+meet on the card): rounding P and dS to bf16 once must fail it on O, dQ, dK
+and dV, and the hi/lo split must pass it. A later change that rounds once to
+save the second product breaks this test.
 
 Shape: BH 4 (B 1, H 4), T 256, d 64, causal, bf16 inputs from a numpy seed.
 """
@@ -46,7 +46,7 @@ def _product(a, b, split):
 
 
 def _emulate(q, k, v, do, lse, delta, scale, split):
-    """O, dK and dV as the kernels compute them, with P and dS rounded as
+    """O, dK, dV and dQ as the kernels compute them, with P and dS rounded as
     ``split`` says; every other step in fp32."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = (qf @ kf.transpose(1, 2)) * scale
@@ -60,7 +60,8 @@ def _emulate(q, k, v, do, lse, delta, scale, split):
     ds = p * (dof @ vf.transpose(1, 2) - delta[..., None])
     dv = _product(p.transpose(1, 2), dof, split)
     dk = _product(ds.transpose(1, 2), qf, split) * scale
-    return [x.to(torch.bfloat16) for x in (o, dk, dv)]
+    dq = _product(ds, kf, split) * scale
+    return [x.to(torch.bfloat16) for x in (o, dk, dv, dq)]
 
 
 @pytest.fixture(scope="module")
@@ -71,13 +72,16 @@ def outputs():
     delta = (do.float() * o.float()).sum(-1)
     dk, dv, _ = pfa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse, delta,
                                         H, scale, True)
-    plain = (o, dk, dv)
+    dq = pfa.flash_bwd_dq_plain(q, k, v, None, None, do, lse, delta, H,
+                                scale, True)
+    plain = (o, dk, dv, dq)
     got = {split: _emulate(q, k, v, do, lse, delta, scale, split)
            for split in (False, True)}
     return plain, got
 
 
-@pytest.mark.parametrize("index,name", [(0, "O"), (1, "dK"), (2, "dV")])
+@pytest.mark.parametrize("index,name", [(0, "O"), (1, "dK"), (2, "dV"),
+                                        (3, "dQ")])
 def test_one_bf16_rounding_fails_the_kernel_check(outputs, index, name):
     plain, got = outputs
     err, worst, rel, ok = chip_smoke._stats(got[False][index], plain[index],
@@ -87,7 +91,8 @@ def test_one_bf16_rounding_fails_the_kernel_check(outputs, index, name):
     assert worst > 2.0, f"{name}: max err/bound only {worst:.3f}"
 
 
-@pytest.mark.parametrize("index,name", [(0, "O"), (1, "dK"), (2, "dV")])
+@pytest.mark.parametrize("index,name", [(0, "O"), (1, "dK"), (2, "dV"),
+                                        (3, "dQ")])
 def test_hi_lo_split_passes_the_kernel_check(outputs, index, name):
     plain, got = outputs
     err, worst, rel, ok = chip_smoke._stats(got[True][index], plain[index],
