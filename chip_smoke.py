@@ -30,6 +30,20 @@ Phases, in order; any failure exits nonzero and prints no result:
    loss must be finite and falling and every kernel's launch count must grow
    by ``num_layers`` a step. A tiny fp32 GPT-2 checks flash against dense
    attention first.
+4. the reference's headline models and the rest of the collective API, on
+   a new one-rank NCCL world: a tiny fp32 ResNet on the card against the
+   same on the CPU (logits, a gradient), with cross-replica BN, and its
+   space-to-depth stem against the conv stem; ResNet-50 at the bench's
+   shape (``bench.py:186-235``: B 128, 224x224, bf16, 1000 classes,
+   ``channels_last``, local BN) through ``broadcast_parameters`` and
+   ``DistributedOptimizer(SGD(0.1, momentum 0.9))`` for 5 steps on a
+   seeded fixed batch (loss finite and falling, running statistics finite
+   and moved; images/s, the step split, peak memory and the share of the
+   tensor-core bound printed); one step with bf16 BN statistics and the
+   s2d stem; the MNIST CNN at the bench's shape (B 512, fp32, 5 steps); and
+   every new collective once on NCCL with card tensors. This path runs no
+   kernel of the port's own (the reference computes it outside Pallas), so
+   no kernel may launch in it.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops
@@ -623,10 +637,379 @@ def phase_main_path(card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 4
+
+# The CPU tests' tolerances (tests/test_torch_port_resnet.py): fp32 logits
+# and gradients, plus BN_SCALE of the tensor's largest element for what
+# passes through a stack of BNs.
+LOGIT_TOL = (1e-4, 1e-5)
+GRAD_TOL = (1e-3, 1e-6)
+BN_SCALE = 1e-4
+
+
+def _close(name, got, want, tol):
+    """Fails unless every element of ``got`` is within rtol·|want| + atol
+    (atol at least BN_SCALE of max |want|) of ``want``."""
+    import torch
+    rtol, atol = tol
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    atol = max(atol, BN_SCALE * w.abs().max().item())
+    err = (g - w).abs()
+    worst = (err / (rtol * w.abs() + atol)).max().item()
+    log(f"  {name}: max_abs_err {err.max().item():.3e}, max err/bound "
+        f"{worst:.3f}")
+    if not torch.isfinite(g).all() or worst > 1.0:
+        fail(f"{name} disagrees (tol rtol {rtol}, atol {atol:.2e})")
+
+
+def _tiny_resnet(block, stem, **kw):
+    import torch
+    from horovod_tpu_torch.models import resnet
+    return resnet.ResNet(stage_sizes=[1, 1, 1, 1],
+                         block_cls=getattr(resnet, block), num_classes=10,
+                         num_filters=8, dtype=torch.float32, stem=stem,
+                         generator=torch.Generator().manual_seed(0), **kw)
+
+
+def _train_pass(model, x, y):
+    import torch.nn.functional as F
+    logits = model(x)
+    F.cross_entropy(logits, y).backward()
+    return logits, model.conv_init.weight.grad
+
+
+def phase_resnet_reference(dev):
+    """Tiny fp32 ResNets: the card against the CPU (train mode: logits,
+    the stem's gradient, the running statistics), cross-replica BN over the
+    one-rank NCCL set against local BN, and the s2d stem with converted
+    weights against the conv stem."""
+    import copy
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 3, 32, 32, generator=g)
+    y = torch.randint(0, 10, (8,), generator=g)
+    xd, yd = x.to(dev), y.to(dev)
+    for block in ("BasicBlock", "BottleneckBlock"):
+        cpu = _tiny_resnet(block, "conv")
+        card = copy.deepcopy(cpu).to(dev)
+        cross = _tiny_resnet(block, "conv",
+                             bn_cross_replica=hvd.global_process_set())
+        cross.load_state_dict(cpu.state_dict())
+        cross = cross.to(dev)
+        want = _train_pass(cpu, x, y)
+        log(f"tiny fp32 ResNet ({block}), card against CPU:")
+        for tag, m in (("local BN", card), ("cross-replica BN", cross)):
+            got = _train_pass(m, xd, yd)
+            _close(f"{tag} logits", got[0], want[0], LOGIT_TOL)
+            _close(f"{tag} conv_init grad", got[1], want[1], GRAD_TOL)
+            _close(f"{tag} running_var", m.blocks[0].bn0.running_var,
+                   cpu.blocks[0].bn0.running_var, LOGIT_TOL)
+    conv = _tiny_resnet("BottleneckBlock", "conv").to(dev)
+    s2d = _tiny_resnet("BottleneckBlock", "s2d")
+    sd = {k: v.cpu() for k, v in conv.state_dict().items()}
+    w = sd["conv_init.weight"].permute(2, 3, 1, 0).numpy()
+    sd["conv_init.weight"] = torch.tensor(
+        resnet.convert_stem_weights(w).transpose(3, 2, 0, 1).copy())
+    s2d.load_state_dict(sd)
+    s2d = s2d.to(dev)
+    log("tiny fp32 ResNet, s2d stem with convert_stem_weights against the "
+        "conv stem, on the card:")
+    with torch.no_grad():
+        _close("s2d logits", s2d(xd), conv(xd), LOGIT_TOL)
+
+
+def _conv_macs(model, x):
+    """Multiply-adds of one forward of ``model`` on ``x``: every conv and
+    dense layer, counted from the shapes this run gives them."""
+    import torch
+    from horovod_tpu_torch.models.gpt2 import Dense
+    from horovod_tpu_torch.models.resnet import Conv
+    macs = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, Conv):
+            macs[0] += out.numel() * mod.weight[0].numel()
+        else:
+            macs[0] += out.numel() * mod.weight.shape[1]
+    hs = [m.register_forward_hook(hook) for m in model.modules()
+          if isinstance(m, (Conv, Dense))]
+    with torch.no_grad():
+        model(x)
+    for h in hs:
+        h.remove()
+    return macs[0]
+
+
+def _train_steps(model, opt, x, y, steps, tag, generator=None):
+    """``steps`` SGD steps on one fixed batch: per step the loss, the wall
+    seconds and the device ms of forward + loss, backward and the
+    optimizer (fused allreduce + SGD), from CUDA events. These paths have
+    no kernel of the port's: the launch counts, zeroed just before, must
+    still be 0 just after."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+    fa.reset_launches()
+    losses, wall, parts = [], [], []
+    for step in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        opt.zero_grad()
+        logits = (model(x) if generator is None else model(x, generator))
+        loss = F.cross_entropy(logits, y)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        losses.append(loss.item())
+        log(f"{tag} step {step}: loss {losses[-1]:.6f}  {wall[-1]:.3f} s  "
+            f"forward {parts[-1][0]:.1f} ms  backward {parts[-1][1]:.1f} ms"
+            f"  allreduce+sgd {parts[-1][2]:.1f} ms")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite loss: {losses}")
+    if any(fa.launches.values()):
+        fail(f"{tag}: a flash kernel launched: {fa.launches}")
+    return losses, wall, parts
+
+
+def phase_resnet50(card, dev):
+    """ResNet-50 at the bench's shape through the port's training path."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    B, S, steps = 128, 224, 5
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         generator=g)
+    model = model.to(memory_format=torch.channels_last)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"ResNet-50: 16 bottleneck blocks, {n_params} params, B {B} {S}x{S} "
+        f"bf16 channels_last, local BN, built on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1, momentum=0.9))
+    x = torch.randn(B, 3, S, S, generator=g, device=dev).to(
+        memory_format=torch.channels_last)
+    y = torch.randint(0, 1000, (B,), generator=g, device=dev)
+    macs = _conv_macs(model, x)
+    flops = 3 * 2 * macs            # forward, and twice it backward
+    bn = [m for m in model.modules() if hasattr(m, "running_var")]
+    before = [(m.running_mean.clone(), m.running_var.clone()) for m in bn]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall, parts = _train_steps(model, opt, x, y, steps, "resnet50")
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0]:
+        fail(f"ResNet-50 loss is not falling: {losses}")
+    stats = [(m.running_mean, m.running_var) for m in bn]
+    if not all(torch.isfinite(t).all() for pair in stats for t in pair):
+        fail("ResNet-50 running statistics are not finite")
+    moved = sum(not torch.equal(a, c) or not torch.equal(b, d)
+                for (a, b), (c, d) in zip(stats, before))
+    if moved != len(bn):
+        fail(f"only {moved} of {len(bn)} BNs moved their running stats")
+    steady = wall[1:]
+    med = [statistics.median(p[i] for p in parts[1:]) for i in range(3)]
+    step_ms = statistics.median(steady) * 1e3
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    out = {"images_per_s": B * len(steady) / sum(steady),
+           "step_ms_median": step_ms, "forward_ms": med[0],
+           "backward_ms": med[1], "allreduce_sgd_ms": med[2],
+           "peak_gib": peak / 2 ** 30, "gmac_per_image": macs / B / 1e9,
+           "step_tflop": flops / 1e12, "bound_ms": bound_ms,
+           "share_of_bound": bound_ms / step_ms, "losses": losses,
+           "bns_moved": moved}
+    log(f"ResNet-50 on {card}: {out['images_per_s']:.1f} images/s (steps "
+        f"1-{steps - 1}, wall), step {step_ms:.1f} ms median (forward "
+        f"{med[0]:.1f}, backward {med[1]:.1f}, allreduce+sgd {med[2]:.1f} "
+        f"ms, device time between events), peak memory "
+        f"{out['peak_gib']:.2f} GiB; {macs / B / 1e9:.3f} GMAC an image, "
+        f"{flops / 1e12:.3f} TFLOP a step, tensor-core bound {bound_ms:.3f}"
+        f" ms at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{out['share_of_bound']:.4f} of the step; running stats moved in "
+        f"{moved} of {len(bn)} BNs; losses {losses}")
+    del model, opt, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet50_s2d_bf16_stats(dev):
+    """One step of ResNet-50 with bf16 BN statistics and the s2d stem."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    g = torch.Generator(device=dev).manual_seed(2)
+    with torch.device(dev):
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         bn_stats_dtype=torch.bfloat16, stem="s2d",
+                         generator=g)
+    model = model.to(memory_format=torch.channels_last)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1, momentum=0.9))
+    x = torch.randn(128, 3, 224, 224, generator=g, device=dev).to(
+        memory_format=torch.channels_last)
+    y = torch.randint(0, 1000, (128,), generator=g, device=dev)
+    _train_steps(model, opt, x, y, 1, "resnet50 s2d + bf16 BN stats")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        fail("ResNet-50 (s2d, bf16 BN statistics): non-finite parameters")
+    del model, opt, x, y
+    torch.cuda.empty_cache()
+
+
+def phase_mnist(card, dev):
+    """The MNIST CNN at the bench's shape (``bench.py:356-385``)."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.mnist import MnistCNN
+    B, steps = 512, 5
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        model = MnistCNN(generator=g)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1, momentum=0.9))
+    x = torch.randn(B, 1, 28, 28, generator=g, device=dev)
+    y = torch.randint(0, 10, (B,), generator=g, device=dev)
+
+    def eval_loss():
+        model.eval()
+        with torch.no_grad():
+            v = F.cross_entropy(model(x), y).item()
+        model.train()
+        return v
+    first = eval_loss()
+    losses, wall, parts = _train_steps(model, opt, x, y, steps, "mnist",
+                                       generator=g)
+    last = eval_loss()
+    if not last < first:
+        fail(f"MNIST loss (eval mode, the same batch) is not falling: "
+             f"{first} -> {last}")
+    steady = wall[1:]
+    out = {"images_per_s": B * len(steady) / sum(steady),
+           "step_ms_median": statistics.median(steady) * 1e3,
+           "losses": losses, "eval_loss": [first, last]}
+    log(f"MNIST on {card}: {out['images_per_s']:.1f} images/s (steps "
+        f"1-{steps - 1}, wall), step {out['step_ms_median']:.2f} ms median;"
+        f" train losses {losses}; eval loss {first:.6f} -> {last:.6f}")
+    return out
+
+
+def phase_collectives(dev):
+    """Every collective of the port once on NCCL (one rank), card tensors:
+    each result against what a one-rank world must give."""
+    import torch
+    import horovod_tpu_torch as hvd
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(4, 3, generator=g, device=dev)
+    xb = x.to(torch.bfloat16)
+    xi = torch.randint(-9, 9, (4, 2), generator=g, device=dev,
+                       dtype=torch.int32)
+    checks = {}
+
+    def same(name, got, want):
+        ok = (got.device == want.device and got.dtype == want.dtype
+              and torch.equal(got, want))
+        checks[name] = ok
+        if not ok:
+            fail(f"collective {name} on NCCL: got {got} want {want}")
+
+    y = x.clone()
+    same("allreduce_", hvd.allreduce_(y, op=hvd.Sum), x)
+    same("allreduce bf16", hvd.allreduce(xb), xb)
+    same("allreduce int32 average", hvd.allreduce(xi), xi)
+    handles = {
+        "allreduce_async": (hvd.allreduce_async(x), x),
+        "allreduce_async_": (hvd.allreduce_async_(x.clone()), x),
+        "broadcast_async": (hvd.broadcast_async(x, 0), x),
+        "broadcast_async_": (hvd.broadcast_async_(x.clone(), 0), x),
+        "allgather_async": (hvd.allgather_async(xb), xb),
+        "alltoall_async": (hvd.alltoall_async(x), x),
+        "reducescatter_async": (hvd.reducescatter_async(x, op=hvd.Sum), x),
+    }
+    grouped = {
+        "grouped_allreduce_async": (hvd.grouped_allreduce_async([x, xb]),
+                                    [x, xb]),
+        "grouped_allgather_async": (hvd.grouped_allgather_async([x, xi]),
+                                    [x, xi]),
+        "grouped_reducescatter_async": (hvd.grouped_reducescatter_async(
+            [x, xb], op=hvd.Average), [x, xb]),
+    }
+    # Synchronized in the reverse of their issue order.
+    for name in reversed(list(grouped)):
+        h, wants = grouped[name]
+        for i, (got, want) in enumerate(zip(hvd.synchronize(h), wants)):
+            same(f"{name}[{i}]", got, want)
+    for name in reversed(list(handles)):
+        h, want = handles[name]
+        same(name, hvd.synchronize(h), want)
+        checks[name + " poll"] = hvd.poll(h)
+    same("grouped_allgather", hvd.grouped_allgather([x])[0], x)
+    same("grouped_reducescatter",
+         hvd.grouped_reducescatter([x], op=hvd.Sum)[0], x)
+    same("reducescatter", hvd.reducescatter(x), x)
+    same("alltoall", hvd.alltoall(x), x)
+    recv, rsplits = hvd.alltoall(x[:3], splits=[3])
+    same("alltoall splits", recv, x[:3])
+    checks["alltoall received splits"] = rsplits.tolist() == [3]
+    same("ragged_allgather", hvd.ragged_allgather(x[:3]), x[:3])
+    checks["allgather_object"] = hvd.allgather_object({"r": 0}) == [{"r": 0}]
+    ps = hvd.add_process_set([0])
+    same("allreduce on an added set", hvd.allreduce(x, process_set=ps), x)
+    checks["process sets"] = (hvd.get_process_set_ids_and_ranks()
+                              == {0: None, 1: [0]}
+                              and hvd.remove_process_set(ps))
+    sbn = hvd.SyncBatchNorm(3).to(dev)
+    t = torch.randn(8, 3, 5, 5, generator=g, device=dev, requires_grad=True)
+    w = torch.randn(8, 3, 5, 5, generator=g, device=dev)
+    ref = torch.nn.BatchNorm2d(3).to(dev)
+    tr = t.detach().clone().requires_grad_(True)
+    (sbn(t) * w).sum().backward()
+    (ref(tr) * w).sum().backward()
+    log("hvd.SyncBatchNorm on NCCL against torch's BatchNorm2d:")
+    _close("SyncBatchNorm input grad", t.grad, tr.grad, GRAD_TOL)
+    hvd.barrier()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"collectives on NCCL failed: {bad}")
+    log(f"collectives on NCCL (one rank, card tensors): {len(checks)} "
+        f"checks passed: {', '.join(checks)}")
+    return len(checks)
+
+
+def phase_models(card):
+    import torch
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    phase_resnet_reference(dev)
+    resnet50 = phase_resnet50(card, dev)
+    phase_resnet50_s2d_bf16_stats(dev)
+    mnist = phase_mnist(card, dev)
+    n_checks = phase_collectives(dev)
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    return {"resnet50": resnet50, "mnist": mnist,
+            "collective_checks": n_checks}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3",
-                    help="comma-separated phases to run (default 1,2,3)")
+    ap.add_argument("--phases", default="1,2,3,4",
+                    help="comma-separated phases to run (default 1,2,3,4)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -644,6 +1027,8 @@ def main(argv=None) -> int:
     if 3 in phases:
         phase_reference_check()
         launches = phase_main_path(card)
+    if 4 in phases:
+        print(json.dumps({"models": phase_models(card)}), flush=True)
     for name, row in report.items():
         row["launches"] = launches.get(name, 0)
     print(json.dumps({"kernels": list(report.values())}), flush=True)

@@ -139,7 +139,11 @@ def fuse(tensors: Sequence[torch.Tensor],
                ) -> List[torch.Tensor]:
         dst = ([torch.empty_like(t) for t in tensors] if out is None
                else list(out))
-        dst_flat = [d.view(-1) for d in dst]
+        # Buckets hold each tensor in its logical (row-major) order; a
+        # destination in another memory format (a channels_last conv's
+        # gradient) is filled through a row-major staging copy.
+        dst_flat = [d.view(-1) if d.is_contiguous()
+                    else d.new_empty(d.numel()) for d in dst]
         for b, segs in enumerate(plan.buckets):
             buf = new_buckets[b]
             off = 0
@@ -147,6 +151,9 @@ def fuse(tensors: Sequence[torch.Tensor],
                 i, start, n = plan.segments[s]
                 dst_flat[i][start:start + n].copy_(buf[off:off + n])
                 off += plan.padded_len(s)
+        for d, flat in zip(dst, dst_flat):
+            if not d.is_contiguous():
+                d.copy_(flat.view(d.shape))
         return dst
 
     return buckets, unpack

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels against their plain versions, on the card only.
+"""The port's CUDA kernels against their plain versions, and its models
+and collectives on the card, on the card only.
 
 Each test needs an NVIDIA GPU and nvcc (the kernels are built at first use)
-and skips without them; the device test needs two cards. The file imports
+and skips without them; the device tests need two cards. The file imports
 nothing of JAX, so it runs where only the port's dependencies are installed:
 
     python -m pytest tests/test_torch_port_card.py -q
@@ -13,12 +14,22 @@ forward, dQ and dK/dV) hold ``chip_smoke``'s bound: every element within
 1e-2 of the rms; lse, fp32 whatever the input type, at ``F32_TOL``.
 """
 
+import copy
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import chip_smoke
 from horovod_tpu_torch.ops import flash_attention as pfa
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 # name -> (B, Tq, Tk, H, D, causal, offset, bias, seg, dtype)
 CASES = {
@@ -157,3 +168,96 @@ def test_bf16_kernels_refuse_misaligned_inputs(cuda_card):
                       device=cuda_card)[1:].view(2, 16, 8)
     with pytest.raises(ValueError, match="16-byte aligned"):
         pfa.flash_fwd(off, q, q, None, None, 1, 1.0, False)
+
+
+# --------------------------------------------------- models and collectives
+
+def _assert_bn_close(got, want, tol):
+    """The CPU tests' tolerance for what passes through BNs: ``tol`` =
+    (rtol, atol), atol at least ``chip_smoke.BN_SCALE`` of max |want|."""
+    g, w = got.detach().float().cpu().numpy(), want.detach().float().numpy()
+    atol = max(tol[1], chip_smoke.BN_SCALE * np.abs(w).max())
+    np.testing.assert_allclose(g, w, rtol=tol[0], atol=atol)
+
+
+@pytest.mark.parametrize("block", ["BasicBlock", "BottleneckBlock"])
+@pytest.mark.parametrize("stem", ["conv", "s2d"])
+def test_tiny_resnet_on_card_matches_cpu(cuda_card, block, stem):
+    """A tiny fp32 ResNet (TF32 off) on the card against the same on the
+    CPU: logits, every gradient and the running statistics, in train
+    mode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = chip_smoke._tiny_resnet(block, stem)
+    card = copy.deepcopy(cpu).to(cuda_card).to(
+        memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 3, 32, 32, generator=g)
+    y = torch.randint(0, 10, (8,), generator=g)
+    want = cpu(x)
+    F.cross_entropy(want, y).backward()
+    got = card(x.to(cuda_card).to(memory_format=torch.channels_last))
+    F.cross_entropy(got, y.to(cuda_card)).backward()
+    _assert_bn_close(got, want, chip_smoke.LOGIT_TOL)
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        _assert_bn_close(p.grad, q.grad, chip_smoke.GRAD_TOL)
+    for a, b in zip(card.buffers(), cpu.buffers()):
+        _assert_bn_close(a, b, chip_smoke.LOGIT_TOL)
+
+
+_SBN_WORKER = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    hvd.init()                                   # this rank's card, NCCL
+    r, n = hvd.rank(), hvd.size()
+    data = np.load(sys.argv[2])
+    h = data["x"].shape[0] // n
+    x = torch.tensor(data["x"][r * h:(r + 1) * h], device=hvd.device(),
+                     requires_grad=True)
+    w = torch.tensor(data["w"][r * h:(r + 1) * h], device=hvd.device())
+    sbn = hvd.SyncBatchNorm(3, momentum=0.1).to(hvd.device())
+    y = sbn(x)
+    (y * w).sum().backward()
+    np.savez(sys.argv[3] + f".rank{r}.npz", y=y.detach().cpu().numpy(),
+             dx=x.grad.cpu().numpy(),
+             running_var=sbn.running_var.cpu().numpy())
+    hvd.shutdown()
+""")
+
+
+def test_sync_batch_norm_on_two_cards(tmp_path):
+    """hvd.SyncBatchNorm over two ranks on two cards (NCCL) == torch's
+    BatchNorm2d over the whole batch on the CPU."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    g = np.random.default_rng(0)
+    x = (g.standard_normal((8, 3, 6, 6)) * 1.5 + 0.3).astype(np.float32)
+    w = g.standard_normal((8, 3, 6, 6)).astype(np.float32)
+    script = tmp_path / "worker.py"
+    script.write_text(_SBN_WORKER)
+    np.savez(tmp_path / "data.npz", x=x, w=w)
+    out = tmp_path / "out"
+    r = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+         "--timeout", "240", str(script), str(REPO),
+         str(tmp_path / "data.npz"), str(out)], cwd=REPO,
+        env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    xt = torch.tensor(x, requires_grad=True)
+    bn = torch.nn.BatchNorm2d(3, momentum=0.1)
+    yt = bn(xt)
+    (yt * torch.tensor(w)).sum().backward()
+    for rank in range(2):
+        res = np.load(f"{out}.rank{rank}.npz")
+        rows = slice(4 * rank, 4 * rank + 4)
+        np.testing.assert_allclose(res["y"], yt[rows].detach().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(res["dx"], xt.grad[rows].numpy(),
+                                   rtol=1e-3, atol=1e-5)
+        np.testing.assert_allclose(res["running_var"],
+                                   bn.running_var.numpy(), rtol=1e-4,
+                                   atol=1e-5)

@@ -160,3 +160,23 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_get_model_builds_ported_names_and_points_to_roadmap():
+    from horovod_tpu_torch.models import PORTED, get_model
+    from horovod_tpu_torch.models.gpt2 import GPT2
+    from horovod_tpu_torch.models.mnist import MnistCNN
+    from horovod_tpu_torch.models.resnet import ResNet
+    assert PORTED == ("mnist", "resnet18", "resnet50", "gpt2_medium")
+    with torch.device("meta"):          # shapes only, no CPU init
+        assert isinstance(get_model("mnist"), MnistCNN)
+        r18 = get_model("resnet18", num_classes=10)
+        assert len(get_model("ResNet50").blocks) == 16
+        g = get_model("gpt2-medium", attention="flash")
+    assert isinstance(r18, ResNet) and len(r18.blocks) == 8
+    assert isinstance(g, GPT2) and g.cfg.num_layers == 24
+    assert g.cfg.attention == "flash"
+    for name in ("bert_large", "vit_b16", "llama", "t5_small", "gpt2",
+                 "alexnet"):
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            get_model(name)
