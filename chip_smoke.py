@@ -44,10 +44,29 @@ Phases, in order; any failure exits nonzero and prints no result:
    every new collective once on NCCL with card tensors. This path runs no
    kernel of the port's own (the reference computes it outside Pallas), so
    no kernel may launch in it.
+5. the reference's BERT-large, ViT-B/16 and Llama-340M on the flash
+   kernels, Adasum and the join mask, on a new one-rank NCCL world: the
+   three kernels against their plain versions at each model's attention
+   shape (``PATHS``: BERT B 8, T 512, non-causal with a zero key bias, and
+   once with the last 64 keys of two rows padded; ViT B 128, T 197,
+   non-causal; Llama B 4, T 2048, causal, K and V expanded from 4 heads;
+   all bf16, d 64), with their times, bounds, plain times and SDPA with the
+   same mask; tiny fp32 BERT, ViT and Llama on the card against the CPU
+   (logits, a gradient) and flash against dense; each model trained at
+   full width for 5 steps through ``broadcast_parameters`` and
+   ``DistributedOptimizer(AdamW(1e-4))`` (BERT with ``op=Adasum``), the
+   loss finite and falling and each kernel launched ``num_layers`` times a
+   step, with tokens or images per second, the step split, peak memory
+   and the share of the tensor-core bound; Adasum on the card (the
+   identity on one rank, its arithmetic against float64 on the CPU) and
+   the join mask (``alive``).
 
-Before the last line it prints one JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops
-after the kernel checks.
+Before the last line it prints one JSON object ``{"kernels": [...]}``: each
+kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
+BERT, ViT, Llama, each counted from 0 just before the path and read just
+after) and their sum, and its numbers at each new path's shape. The last
+line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops after
+the kernel checks.
 """
 
 from __future__ import annotations
@@ -239,15 +258,25 @@ def _check(name, got, want, tol):
 
 def compare_case(label, b, tq, tk, h, d, dtype, causal, offset, bias, seg,
                  tol):
-    """Kernel vs plain for the three kernels on one case; returns errors."""
-    import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
+    """Kernel vs plain for the three kernels on one case of ``_inputs``;
+    returns errors, the inputs and plain residuals, and the outputs."""
     bh = b * h
-    q, k, v, do, kb, sg = _inputs(bh, b, tq, tk, d, dtype, seed=tq + d,
-                                  bias=bias, seg=seg)
-    scale = d ** -0.5
+    inputs = _inputs(bh, b, tq, tk, d, dtype, seed=tq + d, bias=bias,
+                     seg=seg)
     log(f"case {label}: B {b} Tq {tq} Tk {tk} H {h} d {d} {dtype} "
         f"causal {causal} offset {offset} bias {bias} seg {seg}")
+    return compare_kernels(inputs, b, h, d, causal, offset, tol,
+                           dead_row=bias)
+
+
+def compare_kernels(inputs, b, h, d, causal, offset, tol, dead_row=False):
+    """The three kernels against their plain versions on packed ``inputs``
+    (q, k, v, dO, key bias, segment ids); with ``dead_row`` the last batch
+    row sees no key and must give O = 0 and lse = -1e30."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, kb, sg = inputs
+    scale = d ** -0.5
     o, lse = fa.flash_fwd(q, k, v, kb, sg, h, scale, causal, offset)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, kb, sg, h, scale, causal,
                                     offset)
@@ -261,7 +290,7 @@ def compare_case(label, b, tq, tk, h, d, dtype, causal, offset, bias, seg,
     errs = {"flash_fwd": max(
         _check("O", o, o_p, tol),
         _check("lse", lse[live], lse_p[live], F32_TOL))}
-    if bias:
+    if dead_row:
         masked = lse_p[(b - 1) * h:].max().item()
         if masked > -1e29 or lse[(b - 1) * h:].max().item() > -1e29:
             fail("fully masked rows must give lse = -1e30")
@@ -280,7 +309,7 @@ def compare_case(label, b, tq, tk, h, d, dtype, causal, offset, bias, seg,
     torch.cuda.synchronize()
     errs["flash_bwd_dq"] = _check("dQ", dq, dq_p, tol)
     e = [_check("dK", dk, dk_p, tol), _check("dV", dv, dv_p, tol)]
-    if bias:
+    if kb is not None:
         e.append(_check("dbias", db, db_p, tol))
     errs["flash_bwd_dkv"] = max(e)
     return errs, (q, k, v, do, kb, sg, lse_p, delta, o_p), (o, dq, dk, dv)
@@ -367,23 +396,26 @@ def planted_rounding(inputs, h, d, tol):
                  f"{name}")
 
 
-def kernel_times(case, b, h, d):
+def kernel_times(case, b, h, d, causal=True):
     """Median ms of each kernel and of SDPA forward and backward (the
-    yardstick) on one case's inputs (causal): ({kernel: one call},
-    {kernel: per call of 10 back-to-back}, (sdpa one call, sdpa 10))."""
+    yardstick, with the same mask: the case's key bias as a boolean key
+    mask, or the causal diagonal) on one case's inputs: ({kernel: one
+    call}, {kernel: per call of 10 back-to-back}, (sdpa one call, sdpa
+    10))."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
-    q, k, v, do, _, _, lse, delta, _ = case
+    q, k, v, do, kb, _, lse, delta, _ = case
     t_ = q.shape[1]
     scale = d ** -0.5
     runs = {
-        "flash_fwd": lambda: fa.flash_fwd(q, k, v, None, None, h, scale,
-                                          True),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, None, None, do, lse,
-                                                delta, h, scale, True),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, None, None, do,
-                                                  lse, delta, h, scale, True),
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, kb, None, h, scale,
+                                          causal),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, kb, None, do, lse,
+                                                delta, h, scale, causal),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, kb, None, do,
+                                                  lse, delta, h, scale,
+                                                  causal),
     }
 
     # SDPA on the same inputs in its (B, H, T, D) layout; its backward alone
@@ -392,9 +424,13 @@ def kernel_times(case, b, h, d):
         return x.view(b, h, t_, d).detach().clone().requires_grad_(True)
     sq, sk, sv = bhtd(q), bhtd(k), bhtd(v)
     sdo = do.view(b, h, t_, d)
-    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-    runs["fwd"] = lambda: F.scaled_dot_product_attention(sq, sk, sv,
-                                                         is_causal=True)
+    mask = None if kb is None else (kb > -1e29)[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                              is_causal=causal)
+    sout = sdpa()
+    runs["fwd"] = sdpa
     runs["bwd"] = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
                                               retain_graph=True)
     one = {n: cuda_ms(f, 20) for n, f in runs.items()}
@@ -403,6 +439,47 @@ def kernel_times(case, b, h, d):
                       {n: x[n] for n in ("fwd", "bwd")})
     (k1, s1), (k10, s10) = pick(one), pick(ten)
     return k1, k10, (s1, s10)
+
+
+def plain_times(case, h, d, causal=True, reps=5):
+    """Median ms of each kernel's plain version on one case's inputs."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, kb, _, lse, delta, _ = case
+    scale = d ** -0.5
+    return {
+        "flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(
+            q, k, v, kb, None, h, scale, causal), reps),
+        "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_plain(
+            q, k, v, kb, None, do, lse, delta, h, scale, causal), reps),
+        "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
+            q, k, v, kb, None, do, lse, delta, h, scale, causal), reps),
+    }
+
+
+def kernel_work(bh, tq, tk, d, pairs, bias_rows=0):
+    """{kernel: (FLOPs, bytes)} of the function each kernel computes:
+    4·d, 6·d and 8·d FLOPs per visible (q, k) pair; each input read once
+    and each output written once: bf16 (BH, T, d) tensors, fp32 (BH, T)
+    rows (lse, delta; the bias gradient), and a (B, Tk) fp32 key bias of
+    ``bias_rows`` rows."""
+    el_q, el_k = bh * tq * d * 2, bh * tk * d * 2
+    row = bh * tq * 4
+    kb = bias_rows * tk * 4
+    return {
+        "flash_fwd": (4 * d * pairs, 2 * el_q + 2 * el_k + row + kb),
+        "flash_bwd_dq": (6 * d * pairs, 3 * el_q + 2 * el_k + 2 * row + kb),
+        "flash_bwd_dkv": (8 * d * pairs, 2 * el_q + 4 * el_k + 2 * row + kb
+                          + (bh * tk * 4 if bias_rows else 0)),
+    }
+
+
+def bound(flops, nbytes):
+    """(ms, "operations" or "bytes"): the larger of FLOPs over the bf16
+    tensor-core peak and bytes over the HBM rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -450,15 +527,7 @@ def phase_kernels():
     q, k, v, do, _, _, lse, delta, o = main
     bh, scale = B * H, D ** -0.5
     t, t10, (sdpa, sdpa10) = kernel_times(main, B, H, D)
-    p = {}
-    p["flash_fwd"] = cuda_ms(
-        lambda: fa.flash_fwd_plain(q, k, v, None, None, H, scale, True), 5)
-    p["flash_bwd_dq"] = cuda_ms(
-        lambda: fa.flash_bwd_dq_plain(q, k, v, None, None, do, lse, delta,
-                                      H, scale, True), 5)
-    p["flash_bwd_dkv"] = cuda_ms(
-        lambda: fa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse, delta,
-                                       H, scale, True), 5)
+    p = plain_times(main, H, D)
     log(f"times (ms; median of 20 single calls / of 20 runs of 10 "
         f"back-to-back calls; 5 single calls for the plain versions) at B {B} "
         f"T {T} H {H} d {D} bf16 causal:")
@@ -489,13 +558,7 @@ def phase_kernels():
     del wide
 
     pairs = _visible_pairs(bh, T, T, True, 0, H)
-    el = bh * T * D * 2   # bytes of one (BH, T, D) bf16 tensor
-    row = bh * T * 4      # bytes of one (BH, T) fp32 vector
-    work = {
-        "flash_fwd": (4 * D * pairs, 4 * el + row),
-        "flash_bwd_dq": (6 * D * pairs, 5 * el + 2 * row),
-        "flash_bwd_dkv": (8 * D * pairs, 6 * el + 2 * row),
-    }
+    work = kernel_work(bh, T, T, D, pairs)
     library = {"flash_fwd": (sdpa["fwd"], "scaled_dot_product_attention "
                              "forward"),
                "flash_bwd_dq": (None, "no library call computes dQ alone"),
@@ -506,8 +569,7 @@ def phase_kernels():
     report = {}
     for name in fa.KERNELS:
         flops, nbytes = work[name]
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        bound_ms, bound_by = bound(flops, nbytes)
         log(f"  {name}: {flops / t[name] / 1e9:.1f} TFLOP/s one call at a "
             f"time, {flops / t10[name] / 1e9:.1f} back to back, on the "
             f"function's {flops / 1e9:.2f} GFLOP ({flops // (D * pairs)}·d "
@@ -518,8 +580,7 @@ def phase_kernels():
             "replaces": replaces, "launches": 0,
             "max_abs_err": errs[name], "ms": t[name],
             "ms_back_to_back": t10[name], "plain_ms": p[name],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library[name][0],
             "library_ms_back_to_back": {"flash_fwd": sdpa10["fwd"],
                                         "flash_bwd_dkv": sdpa10["bwd"]}.get(
@@ -565,76 +626,16 @@ def phase_reference_check():
 
 
 def phase_main_path(card):
-    import torch
+    """GPT-2 medium through the port's training path (``build_path``,
+    ``phase_train_path``) on a one-rank NCCL world."""
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
-    from horovod_tpu_torch.ops import flash_attention as fa
-
     hvd.init()
     if hvd.backend() != "nccl" or hvd.size() != 1:
         fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
              f"x {hvd.size()}")
-    dev = hvd.device()
-    cfg = GPT2Config.medium(attention="flash")
-    B, T, steps = 8, 1024, 5
-    t0 = time.perf_counter()
-    model = GPT2(cfg, torch.Generator().manual_seed(0)).to(dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"GPT-2 medium: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.num_heads} heads, vocab {cfg.vocab_size}, {n_params} params, "
-        f"B {B} T {T} {cfg.dtype}, built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8))
-    hvd.broadcast_optimizer_state(opt, root_rank=0)
-    tokens = torch.randint(0, cfg.vocab_size, (B, T),
-                           generator=torch.Generator().manual_seed(0))
-    tokens = tokens.to(dev)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    losses, step_s, parts = [], [], []
-    for step in range(steps):
-        before = dict(fa.launches)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        t0 = time.perf_counter()
-        ev[0].record()
-        opt.zero_grad()
-        loss = loss_fn(model(tokens), tokens)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()            # fused gradient allreduce, then AdamW
-        ev[3].record()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-        losses.append(loss.item())
-        grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
-        log(f"step {step}: loss {losses[-1]:.6f}  {step_s[-1]:.3f} s  "
-            f"forward {parts[-1][0]:.1f} ms  backward {parts[-1][1]:.1f} ms"
-            f"  allreduce+adamw {parts[-1][2]:.1f} ms  launches {grew}")
-        if any(g != cfg.num_layers for g in grew.values()):
-            fail(f"each kernel must launch {cfg.num_layers} times a step, "
-                 f"got {grew}")
-    launches = dict(fa.launches)
-    peak = torch.cuda.max_memory_allocated()
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"loss is not falling: {losses}")
-    steady = step_s[1:]
-    tok_s = B * T * len(steady) / sum(steady)
-    med = [statistics.median(p[i] for p in parts[1:]) for i in range(3)]
-    log(f"main path on {card}: {tok_s:.1f} tokens/s (steps 1-{steps - 1}), "
-        f"step {statistics.median(steady) * 1e3:.1f} ms median (forward "
-        f"{med[0]:.1f}, backward {med[1]:.1f}, allreduce+adamw {med[2]:.1f} "
-        f"ms, device time between events), peak memory "
-        f"{peak / 2**30:.2f} GiB, losses {losses}")
+    run = phase_train_path("gpt2_medium", card, hvd.device())
     hvd.shutdown()
-    return launches
+    return run
 
 
 # ---------------------------------------------------------------- phase 4
@@ -647,13 +648,13 @@ GRAD_TOL = (1e-3, 1e-6)
 BN_SCALE = 1e-4
 
 
-def _close(name, got, want, tol):
+def _close(name, got, want, tol, floor=BN_SCALE):
     """Fails unless every element of ``got`` is within rtol·|want| + atol
-    (atol at least BN_SCALE of max |want|) of ``want``."""
+    (atol at least ``floor`` of max |want|) of ``want``."""
     import torch
     rtol, atol = tol
     g, w = got.detach().float().cpu(), want.detach().float().cpu()
-    atol = max(atol, BN_SCALE * w.abs().max().item())
+    atol = max(atol, floor * w.abs().max().item())
     err = (g - w).abs()
     worst = (err / (rtol * w.abs() + atol)).max().item()
     log(f"  {name}: max_abs_err {err.max().item():.3e}, max err/bound "
@@ -1006,10 +1007,460 @@ def phase_models(card):
             "collective_checks": n_checks}
 
 
+# ---------------------------------------------------------------- phase 5
+
+# The attention shapes of the three new paths, one launch of each kernel a
+# layer (bf16, d 64): batch, query heads, T, causal, the KV heads that GQA
+# expands to the query heads before the kernels, and whether the model
+# passes a key bias (BERT always does: its mask of all ones is a zero
+# bias).
+PATHS = {
+    "bert_large": dict(b=8, h=16, t=512, causal=False, hkv=16, bias=True),
+    "vit_b16": dict(b=128, h=12, t=197, causal=False, hkv=12, bias=False),
+    "llama_340m": dict(b=4, h=16, t=2048, causal=True, hkv=4, bias=False),
+}
+
+
+def _path_inputs(b, h, t, causal, hkv, bias, seed, pad_rows=0):
+    """Packed (B·H, T, 64) bf16 q, k, v, dO at a model's attention shape: K
+    and V drawn for ``hkv`` heads, each repeated for its query heads as GQA
+    expands them; a zero key bias (a mask of all ones) whose last 64 keys
+    are padded (-1e30) in the first ``pad_rows`` rows."""
+    import torch
+    d = 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(heads):
+        x = torch.randn(b, t, heads, d, generator=g, device="cuda")
+        x = x.repeat_interleave(h // heads, dim=2).to(torch.bfloat16)
+        return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+
+    q, k, v, do = rnd(h), rnd(hkv), rnd(hkv), rnd(h)
+    kb = None
+    if bias:
+        kb = torch.zeros(b, t, device="cuda")
+        kb[:pad_rows, t - 64:] = -1e30
+    return q, k, v, do, kb, None
+
+
+def phase_path_kernels():
+    """The three kernels against their plain versions at each new path's
+    shape (and at BERT's with two rows padded), then their times, bounds,
+    plain times and SDPA with the same mask: {path: {kernel: numbers}}."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    out = {}
+    for path, c in PATHS.items():
+        b, h, t, causal = c["b"], c["h"], c["t"], c["causal"]
+        log(f"path {path}: B {b} H {h} T {t} d 64 bf16 causal {causal} "
+            f"KV heads {c['hkv']} key bias {c['bias']}")
+        errs, case, outs = compare_kernels(
+            _path_inputs(seed=t, **c), b, h, 64, causal, 0, BF16_TOL)
+        del outs
+        if c["bias"]:
+            log(f"path {path}, the last 64 keys of two rows padded:")
+            padded = compare_kernels(_path_inputs(seed=t + 1, pad_rows=2,
+                                                  **c),
+                                     b, h, 64, causal, 0, BF16_TOL)[0]
+            errs = {k: max(v, padded[k]) for k, v in errs.items()}
+        one, ten, (sdpa, sdpa10) = kernel_times(case, b, h, 64, causal)
+        plain = plain_times(case, h, 64, causal)
+        pairs = _visible_pairs(b * h, t, t, causal, 0, h, bias=case[4])
+        work = kernel_work(b * h, t, t, 64, pairs,
+                           bias_rows=b if c["bias"] else 0)
+        library = {"flash_fwd": (sdpa["fwd"], sdpa10["fwd"]),
+                   "flash_bwd_dq": (None, None),
+                   "flash_bwd_dkv": (sdpa["bwd"], sdpa10["bwd"])}
+        out[path] = {}
+        for name in fa.KERNELS:
+            flops, nbytes = work[name]
+            bound_ms, bound_by = bound(flops, nbytes)
+            out[path][name] = {
+                "max_abs_err": errs[name], "ms": one[name],
+                "ms_back_to_back": ten[name], "plain_ms": plain[name],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library[name][0],
+                "library_ms_back_to_back": library[name][1],
+                "flops": flops, "bytes": nbytes}
+            log(f"  {name}: {one[name]:.4f} / {ten[name]:.4f} ms (one call /"
+                f" back to back), plain {plain[name]:.4f}, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), "
+                f"{flops / ten[name] / 1e9:.1f} TFLOP/s back to back")
+        log(f"  sdpa with the same mask: fwd {sdpa['fwd']:.4f} / "
+            f"{sdpa10['fwd']:.4f}, bwd {sdpa['bwd']:.4f} / "
+            f"{sdpa10['bwd']:.4f} ms (yardstick; the port never calls it)")
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+# The tiny fp32 models of the CPU tests, on the card against the CPU: their
+# tolerances (tests/test_torch_port_{bert,vit,llama}.py).
+def _tiny_transformers():
+    """{name: (build(attention), inputs, loss(model, inputs) -> (output,
+    loss), the parameter whose gradient is compared)}."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig, loss_fn
+    from horovod_tpu_torch.models.vit import ViT, ViTConfig
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 256, (2, 40), generator=g)
+    mask = torch.ones(2, 40, dtype=torch.bool)
+    mask[1, -9:] = False
+    mpos = (torch.rand(2, 40, generator=g) < 0.15).float()
+    images = torch.randn(4, 3, 32, 32, generator=g)
+    labels = torch.randint(0, 10, (4,), generator=g)
+    f32 = torch.float32
+
+    def bert_loss(m, x):
+        mlm, nsp = m(x[0], attention_mask=x[1])
+        return mlm, mlm_loss(mlm, x[0], x[2]) + 0.1 * (nsp ** 2).mean()
+
+    def vit_loss(m, x):
+        logits = m(x[0])
+        return logits, F.cross_entropy(logits, x[1])
+
+    def llama_loss(m, x):
+        logits = m(x[0])
+        return logits, loss_fn(logits, x[0])
+
+    return {
+        "bert": (lambda a: Bert(BertConfig.tiny(dtype=f32, attention=a)),
+                 (tokens, mask, mpos), bert_loss, "layer.0.qkv.weight"),
+        "vit": (lambda a: ViT(ViTConfig.tiny(dtype=f32, attention=a)),
+                (images, labels), vit_loss, "block.0.qkv.weight"),
+        "llama": (lambda a: Llama(LlamaConfig.tiny(dtype=f32, attention=a)),
+                  (tokens,), llama_loss, "h.0.attn.wk.weight"),
+    }
+
+
+def phase_tiny_transformers(dev):
+    """Tiny fp32 BERT (key mask with padding), ViT (T 17) and Llama (GQA, 4
+    heads over 2): flash on the card against flash on the CPU (logits and
+    one gradient), and flash against dense on the card."""
+    import copy
+    for name, (build, inputs, loss_of, pname) in \
+            _tiny_transformers().items():
+        runs = {}
+        cpu = build("flash")
+        for tag, model, x in (
+                ("cpu", cpu, inputs),
+                ("card", copy.deepcopy(cpu).to(dev),
+                 [t.to(dev) for t in inputs])):
+            out, loss = loss_of(model, x)
+            loss.backward()
+            runs[tag] = (out, dict(model.named_parameters())[pname].grad)
+        dense = build("dense").to(dev)
+        dense.load_state_dict(cpu.state_dict())
+        log(f"tiny fp32 {name}, flash on the card against flash on the CPU "
+            f"and against dense on the card:")
+        _close(f"{name} logits", runs["card"][0], runs["cpu"][0], LOGIT_TOL,
+               floor=0.0)
+        _close(f"{name} {pname} grad", runs["card"][1], runs["cpu"][1],
+               GRAD_TOL, floor=0.0)
+        _close(f"{name} flash vs dense logits", runs["card"][0],
+               loss_of(dense, [t.to(dev) for t in inputs])[0], LOGIT_TOL,
+               floor=0.0)
+
+
+def build_path(name, dev):
+    """One training path at full width, on ``dev``, from seed 0: (model,
+    optimizer, loss closure, info: the items a step and their unit, the
+    model's input, the LM head's multiply-adds a step outside ``Dense``,
+    the attention's (B, heads, T, causal), the optimizer's name). GPT-2
+    medium as ``bench.py:258-286``, BERT-large and Llama-340M as
+    ``:289-319`` and ``:552-586``, all without the bench's remat (not
+    ported); ViT-B/16 as ``:322-353`` with ``attention="flash"``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import get_model
+    g = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    opt_kw = {}
+    if name == "gpt2_medium":
+        from horovod_tpu_torch.models.gpt2 import loss_fn
+        # Built on the CPU, as in every earlier run, so its losses compare.
+        cpu = torch.Generator().manual_seed(0)
+        model = get_model("gpt2_medium", attention="flash",
+                          generator=cpu).to(dev)
+        b, t = 8, 1024
+        tokens = torch.randint(0, model.cfg.vocab_size, (b, t),
+                               generator=torch.Generator().manual_seed(0))
+        inputs = tokens.to(dev)
+
+        def loss():
+            return loss_fn(model(inputs), inputs)
+    elif name == "bert_large":
+        from horovod_tpu_torch.models.bert import mlm_loss
+        with torch.device(dev):
+            model = get_model("bert_large", attention="flash", generator=g)
+        b, t = 8, 512
+        inputs = torch.tensor(rng.integers(0, model.cfg.vocab_size, (b, t)),
+                              device=dev)
+        mpos = torch.tensor(rng.random((b, t)) < 0.15, device=dev).float()
+
+        def loss():
+            return mlm_loss(model(inputs)[0], inputs, mpos)
+        opt_kw = {"op": hvd.Adasum}
+    elif name == "vit_b16":
+        with torch.device(dev):
+            model = get_model("vit_b16", attention="flash", generator=g)
+            b, t = 128, 197
+            inputs = torch.randn(b, 3, 224, 224, generator=g)
+            labels = torch.randint(0, 1000, (b,), generator=g)
+
+        def loss():
+            return F.cross_entropy(model(inputs), labels)
+    else:
+        from horovod_tpu_torch.models.llama import loss_fn
+        with torch.device(dev):
+            model = get_model("llama", vocab_size=32000, max_seq_len=2048,
+                              num_layers=24, num_heads=16, num_kv_heads=4,
+                              d_model=1024, d_ff=2816, attention="flash",
+                              generator=g)
+        b, t = 4, 2048
+        inputs = torch.tensor(rng.integers(0, model.cfg.vocab_size, (b, t)),
+                              device=dev)
+
+        def loss():
+            return loss_fn(model(inputs), inputs)
+    cfg = model.cfg
+    lm = name != "vit_b16"
+    info = dict(items=b * t if lm else b, unit="tokens" if lm else "images",
+                inputs=inputs,
+                head_macs=b * t * cfg.vocab_size * cfg.d_model if lm else 0,
+                attention=(b, cfg.num_heads, t, name in ("gpt2_medium",
+                                                         "llama_340m")),
+                optimizer="AdamW, op=" + ("Adasum" if opt_kw else "Average"))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **opt_kw)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    return model, opt, loss, info
+
+
+def phase_train_path(name, card, dev, steps=5):
+    """Trains one path of ``build_path`` for ``steps`` steps: the loss must
+    be finite and falling and each kernel must launch ``num_layers`` times
+    a step (the counts set to 0 just before the steps and read just
+    after). Returns tokens or images/s, the step split, peak memory, the
+    share of the tensor-core bound, the losses and the launches."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    model, opt, loss_of, info = build_path(name, dev)
+    cfg, items, unit = model.cfg, info["items"], info["unit"]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads, {n_params} params, {items} {unit} a step, "
+        f"{cfg.dtype}, attention {cfg.attention}, {info['optimizer']}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    macs = _conv_macs(model, info["inputs"])
+    b, h, t, causal = info["attention"]
+    pairs = _visible_pairs(b * h, t, t, causal, 0, h)
+    hd = cfg.d_model // cfg.num_heads
+    # Model FLOPs: forward 2 per multiply-add of every dense layer, conv
+    # and LM head, plus 4·d per visible (q, k) pair and layer; backward
+    # twice the forward.
+    flops = 3 * (2 * (macs + info["head_macs"])
+                 + 4 * hd * pairs * cfg.num_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, wall, parts = [], [], []
+    for step in range(steps):
+        before = dict(fa.launches)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        opt.zero_grad()
+        loss = loss_of()
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        losses.append(loss.item())
+        grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
+        log(f"{name} step {step}: loss {losses[-1]:.6f}  {wall[-1]:.3f} s  "
+            f"forward {parts[-1][0]:.1f} ms  backward {parts[-1][1]:.1f} ms"
+            f"  allreduce+adamw {parts[-1][2]:.1f} ms  launches {grew}")
+        if any(v != cfg.num_layers for v in grew.values()):
+            fail(f"{name}: each kernel must launch {cfg.num_layers} times a "
+                 f"step, got {grew}")
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{name}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{name}: loss is not falling: {losses}")
+    steady = wall[1:]
+    med = [statistics.median(p[i] for p in parts[1:]) for i in range(3)]
+    step_ms = statistics.median(steady) * 1e3
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    out = {f"{unit}_per_s": items * len(steady) / sum(steady),
+           "step_ms_median": step_ms, "forward_ms": med[0],
+           "backward_ms": med[1], "allreduce_adamw_ms": med[2],
+           "peak_gib": peak / 2 ** 30, "step_tflop": flops / 1e12,
+           "bound_ms": bound_ms, "share_of_bound": bound_ms / step_ms,
+           "losses": losses, "launches": launches, "params": n_params}
+    log(f"{name} on {card}: {out[f'{unit}_per_s']:.1f} {unit}/s (steps "
+        f"1-{steps - 1}, wall), step {step_ms:.1f} ms median (forward "
+        f"{med[0]:.1f}, backward {med[1]:.1f}, allreduce+adamw {med[2]:.1f} "
+        f"ms, device time between events), peak memory "
+        f"{out['peak_gib']:.2f} GiB; {flops / 1e12:.3f} TFLOP a step, "
+        f"tensor-core bound {bound_ms:.3f} ms = {out['share_of_bound']:.4f}"
+        f" of the step; launches {launches}; losses {losses}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_adasum_card(dev):
+    """Adasum on the card: on one rank it returns its input bit for bit;
+    its arithmetic (the combine, a VHDD round's partial dot and norms
+    summed over the two halves, the coefficients and the scaled add) on
+    card tensors against float64 on the CPU, for fp32 and bf16 buffers of
+    4 M elements. The fp32 results must hold 1e-5 of the float64 scale
+    (|a||b| for the dot, |a|^2 for the norms, 1 for the coefficients, the
+    largest element for vectors); the bf16 combine that plus one rounding
+    to bf16 (2^-8 of each element)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import adasum as A
+    g = torch.Generator(device=dev).manual_seed(6)
+    n = 4 * 2 ** 20
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        x = torch.randn(n, generator=g, device=dev).to(dtype)
+        if not torch.equal(hvd.allreduce(x, op=hvd.Adasum), x):
+            fail(f"Adasum on one rank changed its {tag} input")
+        pair = hvd.grouped_allreduce([x, x[:1000] * 2], op=hvd.Adasum)
+        if not (torch.equal(pair[0], x) and torch.equal(pair[1],
+                                                        x[:1000] * 2)):
+            fail(f"grouped Adasum on one rank changed its {tag} inputs")
+        a = torch.randn(n, generator=g, device=dev).to(dtype)
+        b = (0.5 * a.float() + torch.randn(n, generator=g, device=dev)).to(
+            dtype)
+        a64, b64 = a.double().cpu(), b.double().cpu()
+        want = torch.stack([a64 @ b64, a64 @ a64, b64 @ b64])
+        scale = torch.stack([(want[1] * want[2]).sqrt(), want[1], want[2]])
+        half = n // 2
+        af, bf = a.float(), b.float()
+        full = A.dot_and_norms(af, bf)
+        split = (A.dot_and_norms(af[:half], bf[:half])
+                 + A.dot_and_norms(af[half:], bf[half:]))
+        errs = {}
+        for what, got in (("dot and norms", full),
+                          ("halves' partials summed", split)):
+            errs[what] = ((got.double().cpu() - want).abs()
+                          / scale).max().item()
+        ca64 = 1 - want[0] / (2 * want[1])
+        cb64 = 1 - want[0] / (2 * want[2])
+        ca, cb = A.coefficients(*split.unbind())
+        errs["coefficients"] = max(abs(ca.item() - ca64.item()),
+                                   abs(cb.item() - cb64.item()))
+        exact = ca64 * a64 + cb64 * b64
+        top = exact.abs().max().item()
+        errs["scaled add"] = ((A.scaled_add(ca, af, cb, bf).double().cpu()
+                               - exact).abs().max().item() / top)
+        comb = A.adasum_combine(a, b)
+        if comb.dtype != dtype:
+            fail(f"adasum_combine returned {comb.dtype} for {tag}")
+        err = (comb.double().cpu() - exact).abs()
+        # fp32: the fp32 limit; bf16: that plus one rounding to bf16, as a
+        # share of that bound (at most 1).
+        errs["combine"] = (err.max().item() / top if dtype == torch.float32
+                           else (err / (2 ** -8 * exact.abs() + 1e-5 * top)
+                                 ).max().item())
+        lim = {k: 1e-5 for k in errs}
+        if dtype == torch.bfloat16:
+            lim["combine"] = 1.0
+        log(f"Adasum arithmetic on the card, {tag}, {n} elements, against "
+            f"float64 on the CPU: " + ", ".join(
+                f"{k} {v:.3e} (limit {lim[k]:.1e})" for k, v in errs.items()))
+        bad = [k for k, v in errs.items() if not v <= lim[k]]
+        if bad:
+            fail(f"Adasum arithmetic ({tag}) off float64 in {bad}")
+        worst[tag] = errs
+    return worst
+
+
+def phase_join_mask(dev):
+    """The join mask on the card: ``alive=0`` on the one rank gives zero
+    (finite: ``n_alive`` is clamped to 1) gradients with Average and Sum,
+    and a ``DistributedOptimizer`` step with ``alive=1`` equals one without
+    the mask, bit for bit."""
+    import copy
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig, loss_fn
+    g = torch.Generator(device=dev).manual_seed(7)
+    for op in (hvd.Average, hvd.Sum):
+        grads = [torch.randn(300, generator=g, device=dev),
+                 torch.randn(4, 5, generator=g, device=dev)]
+        out = hvd.allreduce_gradients(grads, op=op, alive=0)
+        if not all(torch.isfinite(t).all() and not t.any() for t in out):
+            fail(f"alive=0 must give zero gradients (op {op})")
+    with torch.device(dev):
+        base = Llama(LlamaConfig.tiny(attention="flash"),
+                     torch.Generator(device=dev).manual_seed(8))
+    tokens = torch.randint(0, 256, (2, 64), generator=g, device=dev)
+    after = []
+    for alive in (None, 1):
+        m = copy.deepcopy(base)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(m.parameters(),
+                                                         lr=1e-3))
+        opt.zero_grad()
+        loss_fn(m(tokens), tokens).backward()
+        if alive is None:
+            opt.step()
+        else:
+            opt.step(alive=alive)
+        after.append([p.detach().clone() for p in m.parameters()])
+    if not all(torch.equal(a, b) for a, b in zip(*after)):
+        fail("a step with alive=1 differs from a step without the mask")
+    m = copy.deepcopy(base)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(m.parameters()))
+    loss_fn(m(tokens), tokens).backward()
+    opt.synchronize(alive=0)
+    if any(p.grad.any() for p in m.parameters() if p.grad is not None):
+        fail("alive=0 left a nonzero gradient in DistributedOptimizer")
+    log("join mask on the card: alive=0 gives zero gradients (Average, "
+        "Sum, DistributedOptimizer), alive=1 equals no mask bit for bit")
+
+
+def phase_new_paths(card):
+    """Phase 5 on a new one-rank NCCL world: returns its report."""
+    import torch
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    kernels = phase_path_kernels()
+    phase_tiny_transformers(dev)
+    trained = {name: phase_train_path(name, card, dev) for name in PATHS}
+    adasum = phase_adasum_card(dev)
+    phase_join_mask(dev)
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    return {"kernels": kernels, "trained": trained, "adasum": adasum}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4",
-                    help="comma-separated phases to run (default 1,2,3,4)")
+    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="comma-separated phases to run (default "
+                         "1,2,3,4,5)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -1023,14 +1474,26 @@ def main(argv=None) -> int:
              "repository root")
     card = phase_build()
     report = phase_kernels() if 2 in phases else {}
-    launches = {}
+    launches = {}     # path -> {kernel: launches in that path's run}
     if 3 in phases:
         phase_reference_check()
-        launches = phase_main_path(card)
+        main_path = phase_main_path(card)
+        launches["gpt2_medium"] = main_path.pop("launches")
+        print(json.dumps({"main_path": main_path}), flush=True)
     if 4 in phases:
         print(json.dumps({"models": phase_models(card)}), flush=True)
+    shapes = {}
+    if 5 in phases:
+        new = phase_new_paths(card)
+        shapes = new.pop("kernels")
+        for name, run in new["trained"].items():
+            launches[name] = run.pop("launches")
+        print(json.dumps({"phase5": new}), flush=True)
     for name, row in report.items():
-        row["launches"] = launches.get(name, 0)
+        row["launches_per_path"] = {p: n.get(name, 0)
+                                    for p, n in launches.items()}
+        row["launches"] = sum(row["launches_per_path"].values())
+        row["paths"] = {p: k[name] for p, k in shapes.items()}
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

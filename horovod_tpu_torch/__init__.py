@@ -11,11 +11,13 @@ Data-parallel training on NVIDIA GPUs with Horovod's API::
 Entry points run on the GPU unless asked otherwise: ``init()`` raises when
 no CUDA device is present; ``init(device="cpu")`` runs on the CPU with gloo.
 Models: ``models.get_model`` (MNIST, ResNet-18/50 with local,
-cross-replica or bf16-statistics batch norm, GPT-2 medium). Collectives:
-Horovod's eager API with ``*_async`` handles, ``synchronize`` and ``poll``,
-and subset process sets (``add_process_set``); ``SyncBatchNorm`` for
-users' own models. The flash-attention kernels are CUDA C++ for Hopper
-(``ops/csrc``), built with nvcc at first use. This package imports nothing
+cross-replica or bf16-statistics batch norm, GPT-2 medium, BERT, ViT,
+Llama). Collectives: Horovod's eager API with ``*_async`` handles,
+``synchronize`` and ``poll``, Adasum (``adasum.py``), and subset process
+sets (``add_process_set``); the join mask (``alive``) of
+``DistributedOptimizer``; ``SyncBatchNorm`` for users' own models. The
+flash-attention kernels are CUDA C++ for Hopper (``ops/csrc``), built with
+nvcc at first use. This package imports nothing
 of JAX or of ``horovod_tpu``.
 """
 

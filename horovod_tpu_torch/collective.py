@@ -6,18 +6,22 @@ frontend's signatures (``horovod_tpu/torch/__init__.py``). Each rank passes
 its own tensor and gets the result back (the reference simulates all ranks
 in one process with ``tensor[r]`` as rank r's value; here every rank is a
 process). Reductions keep the reference's semantics: ``prescale_factor`` and
-``postscale_factor`` apply to Sum and Average only, on the wire dtype, around
-the reduction; Average divides the sum by the set's size (floor division for
-integer tensors).
+``postscale_factor`` apply to Sum, Average and Adasum only, on the wire
+dtype, around the reduction; Average divides the sum by the set's size
+(floor division for integer tensors). Adasum (``adasum.py``) reduces each
+fusion bucket as one vector, after compression, so its coefficients are
+per bucket, as the reference's are.
 
 Every collective is issued as ``torch.distributed`` work with
 ``async_op=True`` on the caller's thread and wrapped in a :class:`Handle`;
 the ``*_async`` forms return the handle, the others synchronize it at once.
 ``synchronize`` waits for the work and runs the finishing step (Average's
-division, decompression, unpacking of fusion buckets, slicing of ragged
-parts, the copy into the target of a ``*_async_``). There is no dispatch
-thread: NCCL needs every rank to issue one group's collectives in one
-order, and the caller's thread already gives it.
+division, postscale, decompression, unpacking of fusion buckets, slicing
+of ragged parts, the copy into the target of a ``*_async_``). There is no
+dispatch thread: NCCL needs every rank to issue one group's collectives in
+one order, and the caller's thread already gives it. Adasum's rounds of
+point-to-point ops run when its handle is issued, not when it is
+synchronized.
 
 A rank outside a subset process set gets what the reference gives it,
 without communicating: its own tensor from allreduce, broadcast and
@@ -35,7 +39,10 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import core as _core
 from horovod_tpu_torch import fusion as _fusion
+from horovod_tpu_torch.adasum import (adasum_allreduce,
+                                      hierarchical_adasum_allreduce)
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.config import get_config
 from horovod_tpu_torch.process_set import ProcessSet, global_process_set
@@ -69,7 +76,7 @@ Max = ReduceOp.Max
 Product = ReduceOp.Product
 Adasum = ReduceOp.Adasum
 
-_SCALING_OPS = (ReduceOp.Average, ReduceOp.Sum)
+_SCALING_OPS = (ReduceOp.Average, ReduceOp.Sum, ReduceOp.Adasum)
 
 _DIST_OPS = {
     ReduceOp.Average: dist.ReduceOp.SUM,
@@ -134,9 +141,7 @@ def _resolve_ps(process_set: Optional[ProcessSet]) -> ProcessSet:
 
 def _check_reduce(op: int, prescale: float, postscale: float,
                   compression) -> None:
-    if op == ReduceOp.Adasum:
-        raise NotImplementedError("Adasum: not yet ported")
-    if op not in _DIST_OPS:
+    if op not in _DIST_OPS and op != ReduceOp.Adasum:
         raise ValueError(f"unknown reduce op {op}")
     if op not in _SCALING_OPS and (prescale != 1.0 or postscale != 1.0):
         raise ValueError("prescale/postscale only apply to Sum/Average/Adasum")
@@ -148,14 +153,41 @@ def _divide(buf: torch.Tensor, k: int) -> torch.Tensor:
     return buf.div_(k) if buf.is_floating_point() else buf.floor_divide_(k)
 
 
+def _adasum(buf: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
+    """Adasum of ``buf`` over the set (``adasum.py``), by node first when
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` is set: the set's ranks are grouped
+    by ``rank // local_size``."""
+    ranks = (list(range(dist.get_world_size())) if ps.ranks is None
+             else ps.ranks)
+    if len(ranks) == 1:
+        return buf
+    if dist.get_backend(ps.group) == "nccl" and not ps.p2p_ready:
+        # Batched point-to-point ops on a subset of a NCCL group need the
+        # group's communicator, which only a call of every member makes.
+        dist.all_reduce(buf.new_zeros(1), group=ps.group)
+        ps.p2p_ready = True
+    if get_config().hierarchical_allreduce:
+        nodes: dict = {}
+        for r in ranks:
+            nodes.setdefault(r // _core.local_size(), []).append(r)
+        return hierarchical_adasum_allreduce(buf, list(nodes.values()),
+                                             ps.group)
+    return adasum_allreduce(buf, ranks, ps.group)
+
+
 def _issue_reduce(buf: torch.Tensor, op: int, ps: ProcessSet,
-                  prescale: float):
+                  prescale: float) -> list:
     """Start the in-place reduction of ``buf`` (already on the wire dtype)
-    across ``ps``; returns the work."""
+    across ``ps``; returns the work to wait for. Adasum runs its rounds
+    here, at issue (``adasum.py``: on NCCL they are queued on the device,
+    on gloo they have completed on return), so it leaves no work."""
     if op in _SCALING_OPS and prescale != 1.0:
         buf.mul_(prescale)
-    return dist.all_reduce(buf, op=_DIST_OPS[op], group=ps.group,
-                           async_op=True)
+    if op == ReduceOp.Adasum:
+        buf.copy_(_adasum(buf, ps))
+        return []
+    return [dist.all_reduce(buf, op=_DIST_OPS[op], group=ps.group,
+                            async_op=True)]
 
 
 def _finish_reduce(buf: torch.Tensor, op: int, ps: ProcessSet,
@@ -181,8 +213,8 @@ def allreduce_async(tensor: torch.Tensor, op: int = Average,
         return _ready(tensor.clone())
     c, ctx = compression.compress(tensor)
     buf = c.clone() if c is tensor else c.contiguous()
-    work = _issue_reduce(buf, op, ps, pre)
-    return Handle([work], lambda: compression.decompress(
+    works = _issue_reduce(buf, op, ps, pre)
+    return Handle(works, lambda: compression.decompress(
         _finish_reduce(buf, op, ps, post), ctx))
 
 
@@ -237,7 +269,7 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
     for buf in buckets:
         c, ctx = compression.compress(buf)
         wire.append((c, ctx))
-        works.append(_issue_reduce(c, op, ps, pre))
+        works.extend(_issue_reduce(c, op, ps, pre))
 
     def finish():
         return unpack([compression.decompress(_finish_reduce(c, op, ps, post),

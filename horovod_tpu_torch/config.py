@@ -1,12 +1,16 @@
 """The knobs this port reads, from the environment.
 
 Port of the slice of ``horovod_tpu/config.py`` that the data-parallel path
-uses: the fusion threshold and the rendezvous contract. Each is read by
-:func:`get_config` (cached; :func:`refresh` re-reads) and validated when
-read, so a bad value fails at ``init()`` and not at the first collective.
+uses: the fusion threshold, hierarchical Adasum and the rendezvous
+contract. Each is read by :func:`get_config` (cached; :func:`refresh`
+re-reads) and validated when read, so a bad value fails at ``init()`` and
+not at the first collective.
 
 * ``HOROVOD_FUSION_THRESHOLD`` -- bytes per fusion bucket (default 64 MB).
   Parsed as the reference parses it: ``int(value)`` when set and non-empty.
+* ``HOROVOD_HIERARCHICAL_ALLREDUCE`` -- Adasum averages within each node
+  before combining across nodes (``1``, ``true`` or ``yes``; as the
+  reference reads it).
 * ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``LOCAL_SIZE`` -- this
   process's place in the job (defaults 0 / 1 / ``RANK`` / ``WORLD_SIZE``),
   integers with ``0 <= rank < world_size`` and
@@ -44,6 +48,7 @@ def _env_int(name: str, default: int) -> int:
 @dataclass(frozen=True)
 class Config:
     fusion_threshold_bytes: int = 64 * _MB
+    hierarchical_allreduce: bool = False
     rank: int = 0
     world_size: int = 1
     local_rank: int = 0
@@ -83,6 +88,9 @@ def _read() -> Config:
     return Config(
         fusion_threshold_bytes=_env_bytes("HOROVOD_FUSION_THRESHOLD",
                                           64 * _MB),
+        hierarchical_allreduce=os.environ.get(
+            "HOROVOD_HIERARCHICAL_ALLREDUCE", "").lower() in ("1", "true",
+                                                              "yes"),
         rank=rank, world_size=world, local_rank=local_rank,
         local_size=local_size, master_addr=addr, master_port=port)
 

@@ -7,6 +7,12 @@ arrays; nested dicts or "/"-joined keys) onto the ``state_dict`` of
 (in, out); the port stores ``nn.Linear``-style (out, in) weights, so kernels
 are transposed. LayerNorm ``scale`` becomes ``weight``.
 
+``bert_params_from_jax``, ``vit_params_from_jax`` and
+``llama_params_from_jax`` do the same for the reference's ``Bert``, ``ViT``
+and ``Llama``: a numbered module (``layer3``, ``block3``, ``h3``) becomes a
+list entry (``layer.3``), RMSNorm ``scale`` becomes ``weight``, and ViT's
+patchify kernel (kh, kw, in, out) becomes (out, in, kh, kw).
+
 ``resnet_params_from_jax`` and ``mnist_params_from_jax`` do the same for
 ``horovod_tpu.models.resnet.ResNet`` (with its ``batch_stats``) and
 ``horovod_tpu.models.mnist.MnistCNN``: conv kernels (kh, kw, in, out)
@@ -24,8 +30,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["gpt2_params_from_jax", "resnet_params_from_jax",
-           "mnist_params_from_jax", "flatten_tree"]
+__all__ = ["gpt2_params_from_jax", "bert_params_from_jax",
+           "vit_params_from_jax", "llama_params_from_jax",
+           "resnet_params_from_jax", "mnist_params_from_jax", "flatten_tree"]
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -42,8 +49,9 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def _port_name(key: str) -> str:
     parts = key.split("/")
-    if parts[0].startswith("h") and parts[0][1:].isdigit():
-        parts = ["h", parts[0][1:]] + parts[1:]
+    numbered = re.fullmatch(r"([a-z]+)(\d+)", parts[0])
+    if numbered:
+        parts = list(numbered.groups()) + parts[1:]
     leaf = parts[-1]
     if leaf == "kernel":
         parts[-1] = "weight"
@@ -58,18 +66,15 @@ def _flat(tree: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def gpt2_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax GPT-2 params -> the port's ``state_dict`` (fp32 tensors)."""
-    flat = _flat(params)
-    out: Dict[str, torch.Tensor] = {}
-    for key, val in flat.items():
-        arr = np.asarray(val, dtype=np.float32)
-        if key.endswith("/kernel"):
-            if arr.ndim != 2:
-                raise ValueError(f"{key}: expected a 2-D Dense kernel, got "
-                                 f"shape {arr.shape}")
-            arr = arr.T
-        out[_port_name(key)] = torch.tensor(np.ascontiguousarray(arr))
-    return out
+    """flax GPT-2, BERT, ViT or Llama params -> the port's ``state_dict``
+    (fp32 tensors): one mapping serves the four models."""
+    return {_port_name(key): _tensor(key, val)
+            for key, val in _flat(params).items()}
+
+
+# The same mapping under each model's name.
+bert_params_from_jax = vit_params_from_jax = llama_params_from_jax = \
+    gpt2_params_from_jax
 
 
 def _tensor(key: str, val) -> torch.Tensor:

@@ -82,13 +82,14 @@ def _validate(cfg: GPT2Config) -> None:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(features, dtype=dtype)``: fp32 parameters, the
-    product in ``dtype``. ``weight`` is (out, in)."""
+    """flax ``nn.Dense(features, dtype=dtype, use_bias=bias)``: fp32
+    parameters, the product in ``dtype``. ``weight`` is (out, in)."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
-        self.bias = nn.Parameter(torch.zeros(d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
         self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -97,11 +98,13 @@ class Dense(nn.Module):
         with torch.no_grad():
             nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):

@@ -13,6 +13,11 @@ is called after every backward pass; the first k-1 calls only add the
 pass's gradients to a local accumulator and leave the parameters alone, the
 k-th allreduces the *sum* of the k passes and applies the inner step. Call
 ``zero_grad()`` between passes, as with any optimizer.
+
+``alive`` is the in-step form of Horovod's join for uneven data (the
+reference's join mask, ``allreduce_gradients(alive=)``): a rank that has
+run out of data passes ``alive=0`` for the step, contributes zero
+gradients, and the average divides by the number of live ranks.
 """
 
 from __future__ import annotations
@@ -34,13 +39,34 @@ def allreduce_gradients(grads: List[torch.Tensor], op: int = C.Average,
                         compression=Compression.none,
                         prescale_factor: float = 1.0,
                         postscale_factor: float = 1.0,
-                        fusion_threshold_bytes: Optional[int] = None
-                        ) -> List[torch.Tensor]:
-    """Fused allreduce of a list of gradients, in place."""
-    return C.grouped_allreduce(
-        grads, op=op, process_set=process_set, compression=compression,
-        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        fusion_threshold_bytes=fusion_threshold_bytes, out=grads)
+                        fusion_threshold_bytes: Optional[int] = None,
+                        alive=None) -> List[torch.Tensor]:
+    """Fused allreduce of a list of gradients, in place.
+
+    ``alive`` (this rank's 0 or 1, a number or a tensor) is the join mask:
+    the number of live ranks ``n_alive`` is the allreduce Sum of ``alive``,
+    at least 1; every gradient is multiplied by ``alive`` and reduced with
+    Sum; Average then divides by ``n_alive``. It takes Sum and Average
+    only."""
+    kw = dict(process_set=process_set, compression=compression,
+              prescale_factor=prescale_factor,
+              postscale_factor=postscale_factor,
+              fusion_threshold_bytes=fusion_threshold_bytes, out=grads)
+    if alive is None:
+        return C.grouped_allreduce(grads, op=op, **kw)
+    if op not in (C.Average, C.Sum):
+        raise ValueError("join-style allreduce supports Sum/Average only")
+    device = grads[0].device if grads else None
+    alivef = torch.as_tensor(alive, dtype=torch.float32, device=device)
+    n_alive = C.allreduce(alivef, op=C.Sum,
+                          process_set=process_set).clamp_min(1.0)
+    for g in grads:
+        g.mul_(alivef.to(g.dtype))
+    C.grouped_allreduce(grads, op=C.Sum, **kw)
+    if op == C.Average:
+        for g in grads:
+            g.div_(n_alive.to(g.dtype))
+    return grads
 
 
 class DistributedOptimizer:
@@ -83,9 +109,10 @@ class DistributedOptimizer:
     def _params(self) -> List[torch.Tensor]:
         return [p for g in self._opt.param_groups for p in g["params"]]
 
-    def synchronize(self) -> None:
+    def synchronize(self, alive=None) -> None:
         """Allreduce every ``.grad`` now (one fused collective per fusion
-        bucket) and write the results back into ``.grad``."""
+        bucket) and write the results back into ``.grad``; ``alive`` is
+        this rank's join mask (:func:`allreduce_gradients`)."""
         grads = [p.grad for p in self._params() if p.grad is not None]
         if grads:
             allreduce_gradients(grads, op=self._op,
@@ -93,9 +120,14 @@ class DistributedOptimizer:
                                 compression=self._compression,
                                 prescale_factor=self._prescale,
                                 postscale_factor=self._postscale,
-                                fusion_threshold_bytes=self._threshold)
+                                fusion_threshold_bytes=self._threshold,
+                                alive=alive)
 
-    def step(self, closure=None):
+    def step(self, closure=None, alive=None):
+        """Synchronize the gradients, then run the inner step. ``alive``
+        (0 or 1) is this rank's join mask for this step; with
+        ``backward_passes_per_step > 1`` the k-th call's mask applies to
+        the accumulated gradients and earlier calls' are not used."""
         if self._k > 1:
             self._passes += 1
             for p in self._params():
@@ -113,7 +145,7 @@ class DistributedOptimizer:
                 if p in self._acc:
                     p.grad = self._acc.pop(p)
             self._passes = 0
-        self.synchronize()
+        self.synchronize(alive)
         self.has_updated = True
         return self._opt.step(closure)
 

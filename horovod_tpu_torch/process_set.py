@@ -32,6 +32,9 @@ class ProcessSet:
             None if ranks is None else sorted(int(r) for r in ranks))
         self.group = group
         self.process_set_id = process_set_id
+        # Set once a call of every member has made the group's NCCL
+        # communicator (Adasum's subset point-to-point ops need it).
+        self.p2p_ready = False
 
     def size(self) -> int:
         return (dist.get_world_size() if self.ranks is None

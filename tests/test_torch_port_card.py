@@ -2,7 +2,8 @@
 and collectives on the card, on the card only.
 
 Each test needs an NVIDIA GPU and nvcc (the kernels are built at first use)
-and skips without them; the device tests need two cards. The file imports
+and skips without them; the device tests need two cards, and Adasum over
+NCCL two or four. The file imports
 nothing of JAX, so it runs where only the port's dependencies are installed:
 
     python -m pytest tests/test_torch_port_card.py -q
@@ -261,3 +262,86 @@ def test_sync_batch_norm_on_two_cards(tmp_path):
         np.testing.assert_allclose(res["running_var"],
                                    bn.running_var.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+# ------------------------------------------------------ Adasum over NCCL
+
+_ADASUM_WORKER = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    hvd.init()                                   # this rank's card, NCCL
+    r, n = hvd.rank(), hvd.size()
+    data = np.load(sys.argv[2])
+    x = torch.tensor(data["x"][r], device=hvd.device())
+    # The first collective on each group is an Adasum: its point-to-point
+    # ops need the group's communicator made first.
+    out = {"global": hvd.allreduce(x, op=hvd.Adasum),
+           "bf16": hvd.allreduce(x.to(torch.bfloat16), op=hvd.Adasum)}
+    if n == 4:
+        ps = hvd.add_process_set([0, 1, 2])
+        out["k3"] = hvd.allreduce(x, op=hvd.Adasum, process_set=ps)
+    np.savez(sys.argv[3] + f".rank{r}.npz",
+             **{k: v.float().cpu().numpy() for k, v in out.items()})
+    hvd.shutdown()
+""")
+
+
+def _adasum64(xs):
+    """Adasum of the rows of ``xs`` in float64 with the port's order of
+    combination: pre-pairing of the extra ranks, then recursive doubling
+    among the first power of two."""
+    def combine(a, b):
+        dot = a @ b
+        ca = 1 - dot / (2 * (a @ a)) if a @ a > 0 else 1.0
+        cb = 1 - dot / (2 * (b @ b)) if b @ b > 0 else 1.0
+        return ca * a + cb * b
+    xs = [x.astype(np.float64) for x in xs]
+    k = len(xs)
+    p = 1 << (k.bit_length() - 1)
+    ys = [combine(xs[i], xs[p + i]) if i < k - p else xs[i]
+          for i in range(p)]
+    d = 1
+    while d < p:
+        ys = [combine(ys[i], ys[i ^ d]) for i in range(p)]
+        d *= 2
+    return ys[0]
+
+
+@pytest.mark.parametrize("nranks", [2, 4])
+def test_adasum_over_nccl_matches_cpu(tmp_path, nranks):
+    """Adasum of 1 M-element fp32 vectors (and their bf16 roundings) over
+    two and four NCCL ranks, each on its card, against float64 on the CPU;
+    on four ranks also over the set {0, 1, 2} (pre-pairing and the
+    post-broadcast). Tolerances: 1e-5 of the largest element in fp32, and
+    one bf16 rounding (2^-8 relative) more for bf16."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < nranks:
+        pytest.skip(f"needs {nranks} CUDA cards")
+    g = np.random.default_rng(nranks)
+    x = g.standard_normal((nranks, 2 ** 20)).astype(np.float32)
+    x[1] += 0.5 * x[0]
+    script = tmp_path / "worker.py"
+    script.write_text(_ADASUM_WORKER)
+    np.savez(tmp_path / "data.npz", x=x)
+    out = tmp_path / "out"
+    r = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+         str(nranks), "--timeout", "240", str(script), str(REPO),
+         str(tmp_path / "data.npz"), str(out)], cwd=REPO,
+        env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    bf = torch.tensor(x).bfloat16().float().numpy()
+    want = {"global": _adasum64(x), "bf16": _adasum64(bf),
+            "k3": _adasum64(x[:3])}
+    for rank in range(nranks):
+        res = np.load(f"{out}.rank{rank}.npz")
+        for name in res.files:
+            w = want[name] if name != "k3" or rank < 3 else x[rank]
+            top = np.abs(w).max()
+            rtol = 2 ** -8 if name == "bf16" else 0.0
+            np.testing.assert_allclose(res[name], w, rtol=rtol,
+                                       atol=1e-5 * top,
+                                       err_msg=f"rank {rank} {name}")

@@ -164,19 +164,34 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 
 def test_get_model_builds_ported_names_and_points_to_roadmap():
     from horovod_tpu_torch.models import PORTED, get_model
+    from horovod_tpu_torch.models.bert import Bert
     from horovod_tpu_torch.models.gpt2 import GPT2
+    from horovod_tpu_torch.models.llama import Llama
     from horovod_tpu_torch.models.mnist import MnistCNN
     from horovod_tpu_torch.models.resnet import ResNet
-    assert PORTED == ("mnist", "resnet18", "resnet50", "gpt2_medium")
+    from horovod_tpu_torch.models.vit import ViT
+    assert PORTED == ("mnist", "resnet18", "resnet50", "gpt2_medium",
+                      "bert", "bert_large", "vit", "vit_b16", "llama",
+                      "llama7b", "llama_small")
     with torch.device("meta"):          # shapes only, no CPU init
         assert isinstance(get_model("mnist"), MnistCNN)
         r18 = get_model("resnet18", num_classes=10)
         assert len(get_model("ResNet50").blocks) == 16
         g = get_model("gpt2-medium", attention="flash")
+        bert = get_model("bert_large", attention="flash")
+        vit = get_model("vit-b/16", attention="flash")
+        llama = get_model("llama", num_layers=24, num_heads=16,
+                          num_kv_heads=4, d_model=1024, d_ff=2816,
+                          vocab_size=32000, max_seq_len=2048)
     assert isinstance(r18, ResNet) and len(r18.blocks) == 8
     assert isinstance(g, GPT2) and g.cfg.num_layers == 24
     assert g.cfg.attention == "flash"
-    for name in ("bert_large", "vit_b16", "llama", "t5_small", "gpt2",
-                 "alexnet"):
+    assert isinstance(bert, Bert) and bert.cfg.num_layers == 24
+    assert bert.cfg.d_model == 1024 and bert.cfg.attention == "flash"
+    assert isinstance(vit, ViT) and vit.cfg.num_layers == 12
+    assert vit.cfg.attention == "flash"
+    assert isinstance(llama, Llama) and llama.cfg.num_kv_heads == 4
+    assert llama.cfg.rms_eps == 1e-6 and llama.cfg.max_seq_len == 2048
+    for name in ("t5_small", "gpt2", "alexnet"):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             get_model(name)

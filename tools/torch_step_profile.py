@@ -2,14 +2,17 @@
 """Where a training step of horovod_tpu_torch spends its time on one GPU:
 host or device, and which kernels.
 
-    python3 tools/torch_step_profile.py [--model gpt2_medium|resnet50]
+    python3 tools/torch_step_profile.py [--model gpt2_medium|resnet50|
+                                        bert_large|vit_b16|llama_340m]
                                         [--root DIR]
 
 ``gpt2_medium`` (default) drives ``chip_smoke.py``'s main path (GPT-2
 medium, 24 layers, d 1024, B 8, T 1024, bf16, ``attention="flash"``,
 ``DistributedOptimizer(AdamW)``); ``resnet50`` its phase 4 (ResNet-50,
 B 128, 224x224, bf16, ``channels_last``, local BN,
-``DistributedOptimizer(SGD(0.1, momentum 0.9))``). Both on one NCCL rank,
+``DistributedOptimizer(SGD(0.1, momentum 0.9))``); ``bert_large``,
+``vit_b16`` and ``llama_340m`` its phase 5 paths, built by
+``chip_smoke.build_path`` of this checkout. All on one NCCL rank,
 random weights and data from seed 0, with the ``horovod_tpu_torch``
 package found under ``--root`` (default: this checkout), so that two trees
 can be measured by the same script in one run. Per section of the step
@@ -116,6 +119,11 @@ def build(model_name: str, dev):
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
+    if model_name in ("bert_large", "vit_b16", "llama_340m"):
+        sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
+        import chip_smoke
+        _, opt, loss, _ = chip_smoke.build_path(model_name, dev)
+        return opt, loss
     if model_name == "gpt2_medium":
         from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
         cfg = GPT2Config.medium(attention="flash")
@@ -143,7 +151,8 @@ def build(model_name: str, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="gpt2_medium",
-                    choices=("gpt2_medium", "resnet50"))
+                    choices=("gpt2_medium", "resnet50", "bert_large",
+                             "vit_b16", "llama_340m"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose horovod_tpu_torch is measured")
     args = ap.parse_args(argv)
