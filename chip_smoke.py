@@ -60,11 +60,28 @@ Phases, in order; any failure exits nonzero and prints no result:
    and the share of the tensor-core bound; Adasum on the card (the
    identity on one rank, its arithmetic against float64 on the CPU) and
    the join mask (``alive``).
+6. the controller on the card, on a new one-rank NCCL world: phase 3's
+   GPT-2 medium run again under ``start_timeline`` (before ``init``),
+   ``start_metrics_flusher`` and the stall watchdog ``init`` starts. The
+   trace must be valid JSON with init's ``clock_anchor``, every op must
+   have one QUEUE and one EXEC event and the op ids must run 1..N; the
+   growth of ``collective_calls_total`` (5 allreduces, one broadcast per
+   state tensor) and of ``fusion_buckets_total`` (5 times the gradients'
+   bucket plan) must be what the steps issued, the metrics file must hold
+   the count, each kernel must launch 24 times a step, and the losses must
+   equal phase 3's within ``LOSS_TOL``; the median step time is printed
+   beside phase 3's. Then a planted stall (a ``collective_begin`` with no
+   end under a ``StallWatchdog(timeout_s=0.2)``) must fire exactly one
+   report naming the tensor, add one to ``stall_events_total`` and leave
+   one ``collective_stall`` marker. With two cards,
+   ``tools/torch_controller_bench.py --np 2`` runs the join service, a
+   mismatch and the negotiation timing on a two-rank NCCL world; with one
+   card a line says it did not run.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
-BERT, ViT, Llama, each counted from 0 just before the path and read just
-after) and their sum, and its numbers at each new path's shape. The last
+BERT, ViT, Llama, GPT-2 under the controller, each counted from 0 just
+before the path and read just after) and their sum, and its numbers at each new path's shape. The last
 line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops after
 the kernel checks.
 """
@@ -1254,6 +1271,12 @@ def phase_train_path(name, card, dev, steps=5):
     model, opt, loss_of, info = build_path(name, dev)
     cfg, items, unit = model.cfg, info["items"], info["unit"]
     n_params = sum(p.numel() for p in model.parameters())
+    from horovod_tpu_torch import fusion
+    from horovod_tpu_torch.config import get_config
+    grads = [p for p in model.parameters() if p.requires_grad]
+    buckets = len(fusion.make_plan(
+        [p.numel() for p in grads], [p.dtype for p in grads],
+        get_config().fusion_threshold_bytes).buckets)
     log(f"{name}: {cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.num_heads} heads, {n_params} params, {items} {unit} a step, "
         f"{cfg.dtype}, attention {cfg.attention}, {info['optimizer']}, "
@@ -1309,7 +1332,10 @@ def phase_train_path(name, card, dev, steps=5):
            "backward_ms": med[1], "allreduce_adamw_ms": med[2],
            "peak_gib": peak / 2 ** 30, "step_tflop": flops / 1e12,
            "bound_ms": bound_ms, "share_of_bound": bound_ms / step_ms,
-           "losses": losses, "launches": launches, "params": n_params}
+           "losses": losses, "launches": launches, "params": n_params,
+           "buckets_per_step": buckets,
+           "state_tensors": sum(torch.is_tensor(t)
+                                for t in model.state_dict().values())}
     log(f"{name} on {card}: {out[f'{unit}_per_s']:.1f} {unit}/s (steps "
         f"1-{steps - 1}, wall), step {step_ms:.1f} ms median (forward "
         f"{med[0]:.1f}, backward {med[1]:.1f}, allreduce+adamw {med[2]:.1f} "
@@ -1455,14 +1481,164 @@ def phase_new_paths(card):
     torch.cuda.synchronize()
     return {"kernels": kernels, "trained": trained, "adasum": adasum}
 
+# ---------------------------------------------------------------- phase 6
+
+LOSS_TOL = 1e-6     # absolute: phase 3's losses, observed or not
+
+
+def _phase_events(trace):
+    """{op_id: [phase names]} of the trace's complete phase events."""
+    ops: dict = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "phase" and e.get("ph") == "X":
+            ops.setdefault(e["args"]["op_id"], []).append(
+                (e["name"], e["args"]["kind"]))
+    return ops
+
+
+def _counter(snap, name, **labels):
+    return sum(s["value"] for s in snap["counters"].get(name, [])
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
+def phase_controller(card, main_path):
+    """Phase 6: the controller on the card. GPT-2 medium's phase-3 run
+    again on a new one-rank NCCL world, under the timeline (started before
+    ``init``, so init's clock anchor is in it), the metrics flusher and the
+    stall watchdog that ``init`` starts; then a planted stall; then, with
+    two cards, ``tools/torch_controller_bench.py --np 2``."""
+    import os
+    import tempfile
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics, timeline
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase6_")
+    trace_path = os.path.join(tmp, "trace.json")
+    prom_path = os.path.join(tmp, "metrics.prom")
+    hvd.start_timeline(trace_path)
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    hvd.start_metrics_flusher(prom_path, interval_s=0.5)
+    dog = hvd.get_stall_watchdog()
+    if dog is None or dog._thread is None:
+        fail("init did not start the stall watchdog")
+    before = metrics.snapshot()
+    run = phase_train_path("gpt2_medium", card, hvd.device())
+    after = metrics.snapshot()
+    hvd.stop_timeline()
+    hvd.stop_metrics_flusher()
+
+    with open(trace_path) as f:
+        trace = json.load(f)            # valid JSON, or this raises
+    anchors = [e for e in trace["traceEvents"] if e["name"] == "clock_anchor"]
+    if len(anchors) != 1 or anchors[0]["cat"] != "trace" or \
+            anchors[0]["ph"] != "i" or set(anchors[0]["args"]) != {
+                "epoch", "wall_time"}:
+        fail(f"phase 6: no clock_anchor of the reference's form: {anchors}")
+    ops = _phase_events(trace)
+    if sorted(ops) != list(range(1, len(ops) + 1)):
+        fail(f"phase 6: op ids are not 1..{len(ops)}: {sorted(ops)[:20]}")
+    bad = {i: p for i, p in ops.items()
+           if sorted(n for n, _ in p) != ["EXEC", "QUEUE"]}
+    if bad:
+        fail(f"phase 6: ops without one QUEUE and one EXEC: "
+             f"{dict(list(bad.items())[:5])}")
+    kinds = [p[0][1] for _, p in sorted(ops.items())]
+    steps = len(run["losses"])
+    delta = {k: _counter(after, "collective_calls_total", kind=k)
+             - _counter(before, "collective_calls_total", kind=k)
+             for k in ("allreduce", "broadcast")}
+    buckets = (_counter(after, "fusion_buckets_total")
+               - _counter(before, "fusion_buckets_total"))
+    want = {"allreduce": steps, "broadcast": run["state_tensors"]}
+    if delta != want or kinds.count("allreduce") != steps or \
+            buckets != steps * run["buckets_per_step"]:
+        fail(f"phase 6: collective_calls_total grew by {delta} (the steps "
+             f"issued {want}), {kinds.count('allreduce')} allreduce spans, "
+             f"fusion_buckets_total by {buckets} (the plan: "
+             f"{steps} x {run['buckets_per_step']})")
+    with open(prom_path) as f:
+        prom = f.read()
+    line = 'horovod_tpu_collective_calls_total{kind="allreduce"}'
+    if f"{line} {_counter(after, 'collective_calls_total', kind='allreduce')}" \
+            not in prom:
+        fail(f"phase 6: the metrics file lacks {line}")
+    diffs = [abs(a - b) for a, b in zip(run["losses"],
+                                        main_path["losses"])]
+    if len(diffs) != steps or max(diffs) > LOSS_TOL:
+        fail(f"phase 6: losses {run['losses']} differ from phase 3's "
+             f"{main_path['losses']} by up to {max(diffs):.3e} "
+             f"(limit {LOSS_TOL})")
+    log(f"phase 6: GPT-2 medium under the timeline, the metrics flusher and "
+        f"the stall watchdog: {len(ops)} ops with QUEUE and EXEC, op ids "
+        f"1..{len(ops)} ({steps} grouped allreduces, {delta['broadcast']} "
+        f"broadcasts), fusion_buckets_total +{buckets}, losses within "
+        f"{max(diffs):.3e} of phase 3's; step {run['step_ms_median']:.2f} ms "
+        f"median of steps 2-{steps} against phase 3's "
+        f"{main_path['step_ms_median']:.2f} ms")
+
+    # A planted stall: a collective that begins and never ends.
+    stall_path = os.path.join(tmp, "stall.json")
+    timeline.start_timeline(stall_path)
+    seen = []
+    n0 = metrics.registry.counter("stall_events_total").value
+    tok = metrics.collective_begin("allreduce", name="planted/stall",
+                                   nbytes=4096)
+    planted = metrics.StallWatchdog(timeout_s=0.2, poll_s=0.05,
+                                    on_stall=seen.append).start()
+    try:
+        time.sleep(0.8)
+    finally:
+        planted.stop()
+        metrics.collective_end(tok)
+        timeline.stop_timeline()
+    with open(stall_path) as f:
+        marks = [e for e in json.load(f)["traceEvents"]
+                 if e["name"] == "collective_stall"]
+    fired = metrics.registry.counter("stall_events_total").value - n0
+    if len(seen) != 1 or seen[0]["tensor"] != "planted/stall" or \
+            fired != 1 or len(marks) != 1 or \
+            marks[0]["args"]["tensor"] != "planted/stall":
+        fail(f"phase 6: the planted stall fired {len(seen)} reports "
+             f"({seen}), stall_events_total +{fired}, {len(marks)} markers")
+    log(f"phase 6: planted stall reported once after "
+        f"{seen[0]['pending_s']:.3f} s: {seen[0]}")
+    hvd.shutdown()
+    torch.cuda.synchronize()
+
+    world = None
+    if torch.cuda.device_count() >= 2:
+        proc = subprocess.run(
+            [sys.executable, "tools/torch_controller_bench.py", "--np", "2"],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"phase 6: the two-rank NCCL world failed:\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        world = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"phase 6: two-rank NCCL world on two cards: {world}")
+    else:
+        log("phase 6: the two-rank NCCL part (join service, mismatch, "
+            "negotiation time) did not run for want of a second card "
+            f"(cards: {torch.cuda.device_count()})")
+    return {"step_ms_median": run["step_ms_median"],
+            "phase3_step_ms_median": main_path["step_ms_median"],
+            "losses": run["losses"], "max_loss_diff": max(diffs),
+            "ops": len(ops), "collective_calls": delta,
+            "fusion_buckets": buckets, "launches": run["launches"],
+            "stall_report": seen[0], "two_rank_world": world}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5)")
+                         "1,2,3,4,5,6; 6 needs 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
+    if 6 in phases and 3 not in phases:
+        fail("phase 6 compares its losses with phase 3's: run both")
 
     import torch
     if not torch.cuda.is_available():
@@ -1489,6 +1665,10 @@ def main(argv=None) -> int:
         for name, run in new["trained"].items():
             launches[name] = run.pop("launches")
         print(json.dumps({"phase5": new}), flush=True)
+    if 6 in phases:
+        ctl = phase_controller(card, main_path)
+        launches["gpt2_medium_controller"] = ctl.pop("launches")
+        print(json.dumps({"phase6": ctl}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -1,7 +1,8 @@
 """The knobs this port reads, from the environment.
 
 Port of the slice of ``horovod_tpu/config.py`` that the data-parallel path
-uses: the fusion threshold, hierarchical Adasum and the rendezvous
+and its controller use: the fusion threshold, hierarchical Adasum, the
+timeline, the metrics flusher, the stall check and the rendezvous
 contract. Each is read by :func:`get_config` (cached; :func:`refresh`
 re-reads) and validated when read, so a bad value fails at ``init()`` and
 not at the first collective.
@@ -11,6 +12,16 @@ not at the first collective.
 * ``HOROVOD_HIERARCHICAL_ALLREDUCE`` -- Adasum averages within each node
   before combining across nodes (``1``, ``true`` or ``yes``; as the
   reference reads it).
+* ``HOROVOD_TIMELINE`` -- path of the Chrome trace that ``init()`` starts
+  (one shard per rank when the world is larger than 1).
+  ``HOROVOD_TIMELINE_MARK_CYCLES`` is not read: it changes nothing in the
+  reference either, which has no controller cycle to mark.
+* ``HOROVOD_METRICS_FILE`` / ``HOROVOD_METRICS_INTERVAL`` -- the metrics
+  snapshot file (``.prom`` / ``.txt``: Prometheus text, else JSON) and its
+  write period in seconds (default 10, at least 0.05);
+  ``HOROVOD_METRICS_GRAD_NORM`` records the gradient-norm gauge.
+* ``HOROVOD_STALL_CHECK_DISABLE`` / ``HOROVOD_STALL_CHECK_TIME_SECONDS``
+  -- the stall watchdog that ``init()`` starts, and its threshold (60 s).
 * ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``LOCAL_SIZE`` -- this
   process's place in the job (defaults 0 / 1 / ``RANK`` / ``WORLD_SIZE``),
   integers with ``0 <= rank < world_size`` and
@@ -35,6 +46,18 @@ def _env_bytes(name: str, default: int) -> int:
     return int(v) if v else default
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v else default
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     if v is None or v.strip() == "":
@@ -55,6 +78,12 @@ class Config:
     local_size: int = 1
     master_addr: Optional[str] = None
     master_port: Optional[int] = None
+    timeline_path: Optional[str] = None
+    metrics_file: Optional[str] = None
+    metrics_interval_seconds: float = 10.0
+    metrics_grad_norm: bool = False
+    stall_check_disable: bool = False
+    stall_check_time_seconds: float = 60.0
 
 
 def _read() -> Config:
@@ -92,7 +121,15 @@ def _read() -> Config:
             "HOROVOD_HIERARCHICAL_ALLREDUCE", "").lower() in ("1", "true",
                                                               "yes"),
         rank=rank, world_size=world, local_rank=local_rank,
-        local_size=local_size, master_addr=addr, master_port=port)
+        local_size=local_size, master_addr=addr, master_port=port,
+        timeline_path=os.environ.get("HOROVOD_TIMELINE") or None,
+        metrics_file=os.environ.get("HOROVOD_METRICS_FILE") or None,
+        metrics_interval_seconds=max(
+            0.05, _env_float("HOROVOD_METRICS_INTERVAL", 10.0)),
+        metrics_grad_norm=_env_bool("HOROVOD_METRICS_GRAD_NORM"),
+        stall_check_disable=_env_bool("HOROVOD_STALL_CHECK_DISABLE"),
+        stall_check_time_seconds=_env_float(
+            "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0))
 
 
 _CONFIG: Optional[Config] = None

@@ -13,6 +13,13 @@ tensors give the same buffers.
 A bucket is one flat buffer on the tensors' device, filled by one
 ``torch.cat``; ``unpack`` slices the reduced buffers back, either into new
 tensors or in place into given ones (the optimizer writes into ``p.grad``).
+
+Every ``fuse`` records the reference's fusion metrics (``metrics.py``):
+``fusion_tensors_total``, ``fusion_buckets_total``,
+``fusion_flush_total{cause}`` and the fill-ratio and bucket-bytes
+histograms, and a ``fusion_flush`` timeline marker per bucket under the
+collective's span. Here they count per call: the reference's fusion runs at
+trace time, so its counters count per compilation.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from horovod_tpu_torch import metrics as _metrics
+from horovod_tpu_torch import tracing as _tracing
 
 __all__ = ["DEFAULT_FUSION_THRESHOLD_BYTES", "FUSION_ALIGN_BYTES",
            "plan_buckets", "split_oversize", "FusionPlan", "make_plan",
@@ -78,6 +88,10 @@ class FusionPlan:
     segments: List[Tuple[int, int, int]]   # (tensor, start, n) elements
     buckets: List[List[int]]               # bucket -> segment indices
     pad_elems: int
+    # Why each bucket closed: "oversize_leaf" (only chunks of split
+    # tensors), "capacity" (the next segment would overflow) or
+    # "end_of_group" (last bucket of its dtype).
+    causes: List[str]
 
     def padded_len(self, s: int) -> int:
         n = self.segments[s][2]
@@ -89,20 +103,52 @@ def make_plan(numels: Sequence[int], dtypes: Sequence[torch.dtype],
               pad_elems: int = 1) -> FusionPlan:
     """The bucket layout for tensors of these sizes and dtypes."""
     itemsizes = [torch.empty((), dtype=dt).element_size() for dt in dtypes]
-    segments, _ = split_oversize(numels, itemsizes, threshold_bytes)
+    segments, split = split_oversize(numels, itemsizes, threshold_bytes)
     pad_elems = max(1, int(pad_elems))
     by_dtype: dict = {}            # dtype -> segment indices, first-seen order
     for s, (i, _, _) in enumerate(segments):
         by_dtype.setdefault(dtypes[i], []).append(s)
     buckets: List[List[int]] = []
+    causes: List[str] = []
     for segs in by_dtype.values():
         sizes = [-(-segments[s][2] // pad_elems) * pad_elems
                  * itemsizes[segments[s][0]] for s in segs]
         groups: dict = {}
         for s, b in zip(segs, plan_buckets(sizes, threshold_bytes)):
             groups.setdefault(b, []).append(s)
-        buckets.extend(groups[b] for b in sorted(groups))
-    return FusionPlan(segments, buckets, pad_elems)
+        ordered = [groups[b] for b in sorted(groups)]
+        buckets.extend(ordered)
+        for j, g in enumerate(ordered):
+            if all(segments[s][0] in split for s in g):
+                causes.append("oversize_leaf")
+            elif j < len(ordered) - 1:
+                causes.append("capacity")
+            else:
+                causes.append("end_of_group")
+    return FusionPlan(segments, buckets, pad_elems, causes)
+
+
+def _record(plan: FusionPlan, itemsizes: Sequence[int],
+            threshold_bytes: int) -> None:
+    """The reference's fusion metrics and markers for one plan."""
+    _metrics.counter("fusion_tensors_total").inc(len(itemsizes))
+    _metrics.counter("fusion_buckets_total").inc(len(plan.buckets))
+    span = _tracing.current_span()
+    for b, (segs, cause) in enumerate(zip(plan.buckets, plan.causes)):
+        nbytes = sum(plan.segments[s][2] * itemsizes[plan.segments[s][0]]
+                     for s in segs)
+        _metrics.counter("fusion_flush_total", cause=cause).inc()
+        _metrics.histogram("fusion_fill_ratio",
+                           buckets=_metrics.RATIO_BUCKETS).observe(
+            nbytes / max(threshold_bytes, 1))
+        _metrics.histogram("fusion_bucket_bytes",
+                           buckets=_metrics.SIZE_BUCKETS).observe(nbytes)
+        if span is not None:
+            _metrics._timeline_marker(
+                "fusion_flush", category="fusion", op_id=span.op_id,
+                tensor=span.tensor, bucket=b,
+                member_leaves=sorted({plan.segments[s][0] for s in segs}),
+                bytes=nbytes, cause=cause)
 
 
 def fuse(tensors: Sequence[torch.Tensor],
@@ -118,6 +164,7 @@ def fuse(tensors: Sequence[torch.Tensor],
     tensors = list(tensors)
     plan = make_plan([t.numel() for t in tensors],
                      [t.dtype for t in tensors], threshold_bytes, pad_elems)
+    _record(plan, [t.element_size() for t in tensors], threshold_bytes)
     flats = [t.reshape(-1) for t in tensors]
 
     def piece(s: int) -> List[torch.Tensor]:

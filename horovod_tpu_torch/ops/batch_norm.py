@@ -16,7 +16,10 @@ for NCHW tensors:
   module's own code), and the output is in ``dtype``. A ``process_set``
   averages E[x] and E[x²] over the set's ranks (the reference's
   ``axis_name`` pmean); the backward averages their cotangents over the
-  same set, the transpose of that mean.
+  same set, the transpose of that mean. Both are in-step allreduces
+  (``collective._in_step_allreduce``): like the reference's pmean inside
+  the jitted step they take no negotiation round, and ranks may use
+  disjoint sets (batch-norm groups).
 
 This path has no TPU kernel: the reference computes it outside Pallas.
 """
@@ -61,9 +64,10 @@ class _SetMean(torch.autograd.Function):
 
 
 def _average(x: torch.Tensor, process_set) -> torch.Tensor:
-    # fp32 on the wire whatever the statistics' dtype.
-    return C.allreduce(x.float(), op=C.Average,
-                       process_set=process_set).to(x.dtype)
+    # fp32 on the wire whatever the statistics' dtype; in-step, as the
+    # reference's pmean runs inside the step: no negotiation round.
+    return C._in_step_allreduce(x.float(), C.Average,
+                                process_set).to(x.dtype)
 
 
 class TunableBatchNorm(nn.Module):

@@ -17,21 +17,41 @@ k-th allreduces the *sum* of the k passes and applies the inner step. Call
 ``alive`` is the in-step form of Horovod's join for uneven data (the
 reference's join mask, ``allreduce_gradients(alive=)``): a rank that has
 run out of data passes ``alive=0`` for the step, contributes zero
-gradients, and the average divides by the number of live ranks.
+gradients, and the average divides by the number of live ranks. The eager
+form is ``hvd.join()`` (``collective.py``).
+
+``HOROVOD_METRICS_GRAD_NORM=1`` records the global L2 norm of the reduced
+gradients in the ``optimizer_grad_norm`` gauge (``metrics.py``) after each
+allreduce, as the reference does; reading it back waits for the device, so
+it is off by default. The reference's step-time gauge is recorded on its
+autotuned step only, and waits with the autotuner.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
 from horovod_tpu_torch import collective as C
+from horovod_tpu_torch import metrics as _metrics
 from horovod_tpu_torch.compression import Compression
+from horovod_tpu_torch.config import get_config
 from horovod_tpu_torch.process_set import ProcessSet
 
 __all__ = ["allreduce_gradients", "DistributedOptimizer",
            "broadcast_parameters", "broadcast_optimizer_state"]
+
+
+def _maybe_record_grad_norm(grads: List[torch.Tensor]) -> None:
+    """The ``optimizer_grad_norm`` gauge: the L2 norm, in fp32, of the
+    floating-point gradients (``HOROVOD_METRICS_GRAD_NORM``)."""
+    if not get_config().metrics_grad_norm:
+        return
+    sq = [g.float().square().sum() for g in grads if g.is_floating_point()]
+    if sq:
+        _metrics.gauge("optimizer_grad_norm").set(
+            torch.stack(sq).sum().sqrt().item())
 
 
 def allreduce_gradients(grads: List[torch.Tensor], op: int = C.Average,
@@ -53,7 +73,9 @@ def allreduce_gradients(grads: List[torch.Tensor], op: int = C.Average,
               postscale_factor=postscale_factor,
               fusion_threshold_bytes=fusion_threshold_bytes, out=grads)
     if alive is None:
-        return C.grouped_allreduce(grads, op=op, **kw)
+        out = C.grouped_allreduce(grads, op=op, **kw)
+        _maybe_record_grad_norm(out)
+        return out
     if op not in (C.Average, C.Sum):
         raise ValueError("join-style allreduce supports Sum/Average only")
     device = grads[0].device if grads else None
@@ -66,6 +88,7 @@ def allreduce_gradients(grads: List[torch.Tensor], op: int = C.Average,
     if op == C.Average:
         for g in grads:
             g.div_(n_alive.to(g.dtype))
+    _maybe_record_grad_norm(grads)
     return grads
 
 
@@ -166,26 +189,52 @@ def broadcast_parameters(params, root_rank: int = 0,
                 C.broadcast_(t.data, root_rank, process_set=process_set)
 
 
+def _describe(v) -> tuple:
+    if torch.is_tensor(v):
+        return ("tensor", tuple(v.shape), v.dtype, v.device.type == "cpu")
+    return ("value", v)
+
+
 def broadcast_optimizer_state(optimizer, root_rank: int = 0,
                               process_set: Optional[ProcessSet] = None
                               ) -> None:
     """Copy ``root_rank``'s optimizer state into every rank's
-    (``hvd.broadcast_optimizer_state``): tensor state in place, scalar state
-    and the param-group hyperparameters by object broadcast."""
+    (``hvd.broadcast_optimizer_state``). The ranks' states may differ in
+    layout (the root resumed from a checkpoint, the others are fresh), so
+    the root's layout goes first, by object broadcast: the param groups'
+    hyperparameters and, for each parameter, its state's keys, each
+    tensor's shape and dtype and each other value. Every rank then makes
+    its state that layout -- a missing or misshapen tensor becomes zeros on
+    the parameter's device (on the CPU where the root keeps it there, as
+    torch's optimizers keep ``step``), keys the root lacks are dropped --
+    and the tensors are broadcast in the root's order."""
     opt = getattr(optimizer, "_opt", optimizer)
-    groups = C.broadcast_object(
-        [{k: v for k, v in g.items() if k != "params"}
-         for g in opt.param_groups], root_rank, process_set)
-    for g, src in zip(opt.param_groups, groups):
+    layout = C.broadcast_object({
+        "groups": [{k: v for k, v in g.items() if k != "params"}
+                   for g in opt.param_groups],
+        "state": [[sorted((k, _describe(v))
+                          for k, v in opt.state.get(p, {}).items())
+                   for p in g["params"]] for g in opt.param_groups],
+    }, root_rank, process_set)
+    for g, src in zip(opt.param_groups, layout["groups"]):
         g.update(src)
-    scalars: Dict[Any, Any] = {}
-    for gi, g in enumerate(opt.param_groups):
-        for pi, p in enumerate(g["params"]):
-            for k, v in sorted(opt.state.get(p, {}).items()):
-                if torch.is_tensor(v):
-                    C.broadcast_(v, root_rank, process_set=process_set)
-                else:
-                    scalars[(gi, pi, k)] = v
-    scalars = C.broadcast_object(scalars, root_rank, process_set)
-    for (gi, pi, k), v in scalars.items():
-        opt.state[opt.param_groups[gi]["params"][pi]][k] = v
+    for g, entries_of in zip(opt.param_groups, layout["state"]):
+        for p, entries in zip(g["params"], entries_of):
+            if not entries:
+                opt.state.pop(p, None)
+                continue
+            state = opt.state[p]
+            for k in [k for k in state if k not in dict(entries)]:
+                del state[k]
+            for k, desc in entries:
+                if desc[0] == "value":
+                    state[k] = desc[1]
+                    continue
+                _, shape, dtype, on_cpu = desc
+                cur = state.get(k)
+                if not (torch.is_tensor(cur) and tuple(cur.shape) == shape
+                        and cur.dtype == dtype):
+                    cur = state[k] = torch.zeros(
+                        shape, dtype=dtype,
+                        device="cpu" if on_cpu else p.device)
+                C.broadcast_(cur, root_rank, process_set=process_set)

@@ -116,15 +116,16 @@ _WORKER = textwrap.dedent("""
             out[f"grouped_{i}"] = t
         pair = hvd.add_process_set([0, 1])
         alive = {"alive10": (1, 0), "alive00": (0, 0)}
-        if r in (0, 1):
-            for name, a in alive.items():
-                for op_name, op in (("avg", hvd.Average), ("sum", hvd.Sum)):
-                    grads = [data["grad0"].clone(), data["grad1"].clone()]
-                    res = hvd.allreduce_gradients(grads, op=op,
-                                                  process_set=pair,
-                                                  alive=a[r])
-                    out[f"{name}_{op_name}_0"], out[f"{name}_{op_name}_1"] \\
-                        = res
+        # Every rank takes part in every eager op's negotiation round, the
+        # ranks outside the set too (they get their own tensors back).
+        for name, a in alive.items():
+            for op_name, op in (("avg", hvd.Average), ("sum", hvd.Sum)):
+                grads = [data["grad0"].clone(), data["grad1"].clone()]
+                res = hvd.allreduce_gradients(grads, op=op,
+                                              process_set=pair,
+                                              alive=a[r] if r < 2 else 1)
+                out[f"{name}_{op_name}_0"], out[f"{name}_{op_name}_1"] \\
+                    = res
         try:
             hvd.allreduce_gradients([x.clone()], op=hvd.Max, alive=1)
             out["flag:alive_max_raises"] = torch.tensor(False)

@@ -345,3 +345,24 @@ def test_adasum_over_nccl_matches_cpu(tmp_path, nranks):
             np.testing.assert_allclose(res[name], w, rtol=rtol,
                                        atol=1e-5 * top,
                                        err_msg=f"rank {rank} {name}")
+
+
+# ------------------------------------------------- the controller over NCCL
+
+@pytest.mark.parametrize("nranks", [2, 4])
+def test_controller_over_nccl(nranks):
+    """``tools/torch_controller_bench.py`` on ``nranks`` NCCL ranks, each on
+    its card: the join service with the reference's averages widened to N
+    ranks, a mismatch that raises on every rank with no data-plane work
+    issued, and per-rank timeline shards whose op ids line up."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < nranks:
+        pytest.skip(f"needs {nranks} CUDA cards")
+    import json
+    r = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_controller_bench.py"),
+         "--np", str(nranks)], cwd=REPO, env=dict(os.environ),
+        capture_output=True, text=True, timeout=600)
+    assert r.returncode in (0, 1), r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"], out["failed"]
+    assert out["ranks"] == nranks and out["device"] == "cuda"

@@ -64,6 +64,54 @@ def test_importing_every_module_loads_no_jax_and_builds_nothing(tmp_path):
     assert not build.exists(), "import must not run nvcc"
 
 
+CONTROLLER_MODULES = ["horovod_tpu_torch.metrics", "horovod_tpu_torch.tracing",
+                      "horovod_tpu_torch.timeline",
+                      "horovod_tpu_torch.utils",
+                      "horovod_tpu_torch.utils.stall"]
+
+
+@pytest.mark.parametrize("module", CONTROLLER_MODULES)
+def test_controller_modules_load_no_jax_and_start_no_thread(tmp_path,
+                                                            module):
+    code = textwrap.dedent(f"""
+        import importlib, sys, threading
+        sys.path.insert(0, {str(REPO)!r})
+        before = threading.active_count()
+        importlib.import_module({module!r})
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in {FORBIDDEN!r})
+        print("FORBIDDEN:", bad, "THREADS:",
+              threading.active_count() - before)
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "FORBIDDEN: [] THREADS: 0" in r.stdout, r.stdout
+
+
+def test_import_starts_no_thread_and_init_starts_the_watchdog(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys, threading
+        sys.path.insert(0, {str(REPO)!r})
+        before = threading.active_count()
+        import horovod_tpu_torch as hvd
+        assert threading.active_count() == before, threading.enumerate()
+        hvd.init(device="cpu")
+        names = [t.name for t in threading.enumerate()]
+        assert "hvd-stall-watchdog" in names, names
+        hvd.shutdown()
+        names = [t.name for t in threading.enumerate()]
+        assert "hvd-stall-watchdog" not in names, names
+        print("OK")
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_STALL")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "OK" in r.stdout
+
+
 def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
     import horovod_tpu_torch as hvd
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
