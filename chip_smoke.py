@@ -77,11 +77,28 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``tools/torch_controller_bench.py --np 2`` runs the join service, a
    mismatch and the negotiation timing on a two-rank NCCL world; with one
    card a line says it did not run.
+7. collective depth, on a new one-rank NCCL world: (a) the quantized
+   allreduce (``ops/quantized.py``) at GPT-2 medium's gradient bucket
+   sizes, int8 and fp8: codes and scales on the card equal the CPU's, the
+   result equals the plain CPU computation bit for bit and lies within
+   one step of each block of its input, and codes made with a scale one
+   step off must fail the code check; (b) phase 3's GPT-2 medium under
+   ``DistributedOptimizer(overlap=True)`` (gradient hooks issue the
+   buckets during the backward): the losses equal phase 3's within
+   ``LOSS_TOL``, every step issues buckets before the backward returns,
+   at most one negotiation round a step, 24 launches of each kernel a
+   step, the median step time printed beside phase 3's; (c) the same with
+   ``Compression.int8`` and error feedback: the losses inside
+   ``INT8_LOSS_BAND`` of phase 3's, the residual nonzero; and one step
+   with ``Compression.fp8``; (d) with two cards
+   ``tools/torch_collective_bench.py --np 2`` at 1, 64 and 1024 MB; with
+   one card a line says it did not run.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
-BERT, ViT, Llama, GPT-2 under the controller, each counted from 0 just
-before the path and read just after) and their sum, and its numbers at each new path's shape. The last
+BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
+under the int8 wire, each counted from 0 just before the path and read
+just after) and their sum, and its numbers at each new path's shape. The last
 line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops after
 the kernel checks.
 """
@@ -1181,14 +1198,16 @@ def phase_tiny_transformers(dev):
                floor=0.0)
 
 
-def build_path(name, dev):
+def build_path(name, dev, **opt_extra):
     """One training path at full width, on ``dev``, from seed 0: (model,
     optimizer, loss closure, info: the items a step and their unit, the
     model's input, the LM head's multiply-adds a step outside ``Dense``,
     the attention's (B, heads, T, causal), the optimizer's name). GPT-2
     medium as ``bench.py:258-286``, BERT-large and Llama-340M as
     ``:289-319`` and ``:552-586``, all without the bench's remat (not
-    ported); ViT-B/16 as ``:322-353`` with ``attention="flash"``."""
+    ported); ViT-B/16 as ``:322-353`` with ``attention="flash"``.
+    ``opt_extra`` goes to ``DistributedOptimizer`` (phase 7: ``overlap``,
+    ``compression``, ``error_feedback``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1254,21 +1273,25 @@ def build_path(name, dev):
                 optimizer="AdamW, op=" + ("Adasum" if opt_kw else "Average"))
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **opt_kw)
+        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **opt_kw,
+        **opt_extra)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     return model, opt, loss, info
 
 
-def phase_train_path(name, card, dev, steps=5):
+def phase_train_path(name, card, dev, steps=5, **opt_extra):
     """Trains one path of ``build_path`` for ``steps`` steps: the loss must
     be finite and falling and each kernel must launch ``num_layers`` times
     a step (the counts set to 0 just before the steps and read just
     after). Returns tokens or images/s, the step split, peak memory, the
-    share of the tensor-core bound, the losses and the launches."""
+    share of the tensor-core bound, the losses and the launches, and per
+    step the negotiation rounds and, under ``overlap=True``, what the
+    gradient hooks did; under error feedback the largest residual."""
     import torch
+    from horovod_tpu_torch import collective as C
     from horovod_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    model, opt, loss_of, info = build_path(name, dev)
+    model, opt, loss_of, info = build_path(name, dev, **opt_extra)
     cfg, items, unit = model.cfg, info["items"], info["unit"]
     n_params = sum(p.numel() for p in model.parameters())
     from horovod_tpu_torch import fusion
@@ -1293,9 +1316,10 @@ def phase_train_path(name, card, dev, steps=5):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    losses, wall, parts = [], [], []
+    losses, wall, parts, rounds, hooks = [], [], [], [], []
     for step in range(steps):
         before = dict(fa.launches)
+        n0 = sum(C.negotiation_stats().values())
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         t0 = time.perf_counter()
         ev[0].record()
@@ -1310,6 +1334,9 @@ def phase_train_path(name, card, dev, steps=5):
         wall.append(time.perf_counter() - t0)
         parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
         losses.append(loss.item())
+        rounds.append(sum(C.negotiation_stats().values()) - n0)
+        if opt.last_overlap is not None:
+            hooks.append(dict(opt.last_overlap))
         grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
         log(f"{name} step {step}: loss {losses[-1]:.6f}  {wall[-1]:.3f} s  "
             f"forward {parts[-1][0]:.1f} ms  backward {parts[-1][1]:.1f} ms"
@@ -1335,7 +1362,11 @@ def phase_train_path(name, card, dev, steps=5):
            "losses": losses, "launches": launches, "params": n_params,
            "buckets_per_step": buckets,
            "state_tensors": sum(torch.is_tensor(t)
-                                for t in model.state_dict().values())}
+                                for t in model.state_dict().values()),
+           "rounds": rounds, "overlap": hooks}
+    if opt._ef:
+        out["ef_residual_max"] = max(float(r.abs().max())
+                                     for r in opt._residual.values())
     log(f"{name} on {card}: {out[f'{unit}_per_s']:.1f} {unit}/s (steps "
         f"1-{steps - 1}, wall), step {step_ms:.1f} ms median (forward "
         f"{med[0]:.1f}, backward {med[1]:.1f}, allreduce+adamw {med[2]:.1f} "
@@ -1630,15 +1661,261 @@ def phase_controller(card, main_path):
             "stall_report": seen[0], "two_rank_world": world}
 
 
+# ---------------------------------------------------------------- phase 7
+
+# Absolute band around phase 3's losses that the int8 run (error feedback
+# on) must stay in, at every step (written into PERF.md before the run).
+INT8_LOSS_BAND = 0.02
+
+
+def _gpt2_bucket_sizes():
+    """The element counts of GPT-2 medium's gradient buckets under a
+    quantized wire: the fusion plan of its parameters at the default
+    threshold, each tensor padded to whole blocks (``fusion.py``)."""
+    import torch
+    from horovod_tpu_torch import fusion
+    from horovod_tpu_torch.config import get_config
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.ops.quantized import BLOCK
+    with torch.device("meta"):
+        model = get_model("gpt2_medium", attention="flash")
+    ps = [p for p in model.parameters() if p.requires_grad]
+    plan = fusion.make_plan([p.numel() for p in ps], [p.dtype for p in ps],
+                            get_config().fusion_threshold_bytes, BLOCK)
+    return sorted({sum(plan.padded_len(s) for s in segs)
+                   for segs in plan.buckets})
+
+
+def _plain_one_rank(x, wire):
+    """The quantized allreduce of one rank, in plain torch on the CPU:
+    quantize, dequantize, divide by 1, re-quantize, dequantize."""
+    from horovod_tpu_torch.ops.quantized import (BLOCK, dequantize_blocks,
+                                                 quantize_blocks)
+    L = x.numel()
+    c = -(-L // BLOCK) * BLOCK
+    rows = torch_pad(x, c).view(1, c)
+    q1, s1 = quantize_blocks(rows, wire)
+    part = dequantize_blocks(q1, s1)[0] / 1.0
+    q2, s2 = quantize_blocks(part, wire)
+    return dequantize_blocks(q2, s2)[:L]
+
+
+def torch_pad(x, n):
+    import torch
+    return torch.nn.functional.pad(x, (0, n - x.numel()))
+
+
+def _codes_with_scale(x, scale, wire):
+    """``x`` quantized with the given per-block scales (a planted fault)."""
+    import torch
+    from horovod_tpu_torch.ops.quantized import BLOCK
+    L = x.numel()
+    blocks = torch_pad(x, scale.numel() * BLOCK).view(-1, BLOCK) \
+        / scale[:, None]
+    if wire == "int8":
+        q = torch.round(blocks).clamp(-127, 127).to(torch.int8)
+    else:
+        q = blocks.clamp(-448.0, 448.0).to(torch.float8_e4m3fn)
+    return q.reshape(-1)[:L]
+
+
+def _codes_equal(q, s, q_ref, s_ref) -> bool:
+    import torch
+    return (torch.equal(q.cpu().view(torch.uint8), q_ref.view(torch.uint8))
+            and torch.equal(s.cpu(), s_ref))
+
+
+def phase_quantized(dev):
+    """Phase 7 (a): the quantized allreduce on the card at GPT-2 medium's
+    bucket sizes, int8 and fp8: the card's codes and scales equal the
+    CPU's, the one-rank result equals the plain CPU computation bit for
+    bit and lies within one step of each block (two re-quantizations of
+    half a step) of the input; a planted fault (codes made with a scale
+    one step off) must fail the code check. On one rank the division by
+    the member count and the re-quantization change nothing (re-quantizing
+    dequantized codes gives the same codes), so no fault of theirs can
+    show here; the CPU tests hold them against the reference on 2 and 4
+    ranks."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.ops.quantized import (BLOCK, quantize_blocks,
+                                                 quantized_allreduce)
+    sizes = _gpt2_bucket_sizes()
+    picked = sorted({sizes[0], sizes[len(sizes) // 2], sizes[-1]})
+    rows = []
+    for L in picked:
+        g = np.random.default_rng(L % 100003)
+        blocks = -(-L // BLOCK)
+        mag = np.exp(g.uniform(-12, 2, blocks)).astype(np.float32)
+        x = (g.standard_normal(L).astype(np.float32)
+             * np.repeat(mag, BLOCK)[:L])
+        x[:BLOCK] = 0.0                         # a zero block
+        xc = torch.from_numpy(x)
+        xd = xc.to(dev)
+        for wire in ("int8", "fp8"):
+            q_d, s_d = quantize_blocks(xd, wire)
+            q_c, s_c = quantize_blocks(xc, wire)
+            if not _codes_equal(q_d, s_d, q_c, s_c):
+                fail(f"phase 7: {wire} codes or scales on the card differ "
+                     f"from the CPU's at {L} elements")
+            out = quantized_allreduce(xd, average=True, wire=wire)
+            torch.cuda.synchronize()
+            want = _plain_one_rank(xc, wire)
+            if not torch.equal(out.cpu(), want):
+                fail(f"phase 7: {wire} allreduce at {L} elements differs "
+                     f"from the plain CPU computation by "
+                     f"{float((out.cpu() - want).abs().max()):.3e}")
+            absmax = torch_pad(xc.abs(), blocks * BLOCK).view(-1, BLOCK) \
+                .amax(1)
+            step = (absmax / (127.0 if wire == "int8" else 8.0)) \
+                .repeat_interleave(BLOCK)[:L]
+            err = (out.cpu() - xc).abs()
+            if not bool((err <= step).all()):
+                fail(f"phase 7: {wire} result off its input by more than "
+                     f"a step: {float((err - step).max()):.3e}")
+            # A planted fault must fail the code check: codes made with a
+            # scale one int8 step too large, reported with the right scale.
+            q_bad = _codes_with_scale(xd, s_d * (1.0 + 1.0 / 127.0), wire)
+            if _codes_equal(q_bad, s_d, q_c, s_c):
+                fail(f"phase 7: a scale off by one step passed the "
+                     f"{wire} code check")
+            ms = cuda_ms(lambda: quantized_allreduce(xd, True, wire), reps=5)
+            t0 = time.perf_counter()
+            _plain_one_rank(xc, wire)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"elements": L, "wire": wire, "ms": ms,
+                         "plain_cpu_ms": plain_ms,
+                         "max_err_steps": float((err / step.clamp_min(
+                             1e-30)).max())})
+            log(f"phase 7: quantized allreduce {wire}, {L} elements "
+                f"({L * 4 / 2 ** 20:.1f} MB fp32): codes and scales equal "
+                f"the CPU's, result equals the plain one bit for bit, "
+                f"worst error {rows[-1]['max_err_steps']:.3f} of a step; "
+                f"{ms:.3f} ms on the card, plain on the CPU {plain_ms:.1f} "
+                f"ms; the planted scale fault was caught")
+    return {"bucket_sizes": sizes, "checked": rows}
+
+
+def phase_collective_depth(card, main_path):
+    """Phase 7 on a new one-rank NCCL world: (a) the quantized allreduce;
+    (b) GPT-2 medium under ``DistributedOptimizer(overlap=True)``; (c) the
+    same with ``Compression.int8`` and error feedback, and one step with
+    ``Compression.fp8``; (d) with two cards,
+    ``tools/torch_collective_bench.py --np 2``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    quant = phase_quantized(dev)
+
+    ov = phase_train_path("gpt2_medium", card, dev, overlap=True)
+    diffs = [abs(a - b) for a, b in zip(ov["losses"], main_path["losses"])]
+    if max(diffs) > LOSS_TOL:
+        fail(f"phase 7: overlap losses {ov['losses']} differ from phase "
+             f"3's {main_path['losses']} by {max(diffs):.3e}")
+    if any(h["issued_in_backward"] < 1 for h in ov["overlap"]) or \
+            len(ov["overlap"]) != len(ov["losses"]):
+        fail(f"phase 7: no bucket went out during the backward: "
+             f"{ov['overlap']}")
+    if any(r > 1 for r in ov["rounds"]):
+        fail(f"phase 7: more than one negotiation round a step: "
+             f"{ov['rounds']}")
+    log(f"phase 7: GPT-2 medium, overlap=True: losses within "
+        f"{max(diffs):.3e} of phase 3's, buckets issued in the backward "
+        f"{[h['issued_in_backward'] for h in ov['overlap']]} of "
+        f"{ov['overlap'][0]['buckets']}, hook firings "
+        f"{ov['overlap'][0]['firings']}, rounds {ov['rounds']}; step "
+        f"{ov['step_ms_median']:.2f} ms median against phase 3's "
+        f"{main_path['step_ms_median']:.2f} ms")
+
+    q = phase_train_path("gpt2_medium", card, dev, overlap=True,
+                         compression=hvd.Compression.int8,
+                         error_feedback=True)
+    band = [abs(a - b) for a, b in zip(q["losses"], main_path["losses"])]
+    if max(band) > INT8_LOSS_BAND:
+        fail(f"phase 7: int8 losses {q['losses']} leave the band "
+             f"{INT8_LOSS_BAND} around phase 3's {main_path['losses']}")
+    if not q.get("ef_residual_max", 0.0) > 0.0:
+        fail("phase 7: the int8 run's error-feedback residual is zero")
+    snap = metrics.snapshot()
+    int8_bytes = sum(s["value"] for s in snap["counters"].get(
+        "allreduce_wire_bytes_total", [])
+        if s["labels"] == {"algorithm": "compression", "wire": "int8"})
+    log(f"phase 7: GPT-2 medium, Compression.int8 + error feedback: losses "
+        f"{q['losses']}, at most {max(band):.4f} from phase 3's (band "
+        f"{INT8_LOSS_BAND}), residual max {q['ef_residual_max']:.3e}, "
+        f"int8 wire bytes {int8_bytes}; step {q['step_ms_median']:.2f} ms")
+
+    model, opt, loss_of, _ = build_path(
+        "gpt2_medium", dev, overlap=True, compression=hvd.Compression.fp8,
+        error_feedback=True)
+    opt.zero_grad()
+    loss = loss_of()
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    res = max(float(r.abs().max()) for r in opt._residual.values())
+    if not (torch.isfinite(loss).item() and
+            abs(loss.item() - main_path["losses"][0]) <= LOSS_TOL and
+            res > 0.0):
+        fail(f"phase 7: the fp8 step: loss {loss.item()}, residual {res}")
+    with torch.no_grad():
+        after = float(loss_of().item())
+    if not math.isfinite(after):
+        fail(f"phase 7: the loss after the fp8 step is {after}")
+    log(f"phase 7: one Compression.fp8 step: loss {loss.item():.6f} -> "
+        f"{after:.6f}, residual max {res:.3e}")
+    del model, opt
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    torch.cuda.synchronize()
+
+    bench = None
+    if torch.cuda.device_count() >= 2:
+        proc = subprocess.run(
+            [sys.executable, "tools/torch_collective_bench.py", "--np", "2",
+             "--sizes", "1,64,1024", "--reps", "5"],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail(f"phase 7: the two-rank collective bench failed:\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        bench = json.loads(proc.stdout.strip().splitlines()[-1])
+        best = max(bench["rank0"], key=lambda r: r["busbw_gbs"])
+        log(f"phase 7: two-rank collective bench: best busbw "
+            f"{best['busbw_gbs']:.1f} GB/s ({best['algorithm']}, "
+            f"{best['wire']}, {best['mb']} MB)")
+    else:
+        log("phase 7: tools/torch_collective_bench.py --np 2 did not run "
+            f"for want of a second card (cards: "
+            f"{torch.cuda.device_count()})")
+    return {"quantized": quant,
+            "overlap": {k: ov[k] for k in ("step_ms_median", "losses",
+                                           "rounds", "overlap",
+                                           "backward_ms",
+                                           "allreduce_adamw_ms",
+                                           "peak_gib")},
+            "int8": {k: q[k] for k in ("step_ms_median", "losses",
+                                       "ef_residual_max", "peak_gib")},
+            "int8_loss_band": INT8_LOSS_BAND, "max_int8_loss_diff": max(band),
+            "phase3_step_ms_median": main_path["step_ms_median"],
+            "launches": {"gpt2_medium_overlap": ov["launches"],
+                         "gpt2_medium_int8": q["launches"]},
+            "two_rank_bench": bench}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6; 6 needs 3)")
+                         "1,2,3,4,5,6,7; 6 and 7 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
-    if 6 in phases and 3 not in phases:
-        fail("phase 6 compares its losses with phase 3's: run both")
+    if phases & {6, 7} and 3 not in phases:
+        fail("phases 6 and 7 compare their losses with phase 3's: run 3")
 
     import torch
     if not torch.cuda.is_available():
@@ -1669,6 +1946,10 @@ def main(argv=None) -> int:
         ctl = phase_controller(card, main_path)
         launches["gpt2_medium_controller"] = ctl.pop("launches")
         print(json.dumps({"phase6": ctl}), flush=True)
+    if 7 in phases:
+        depth = phase_collective_depth(card, main_path)
+        launches.update(depth.pop("launches"))
+        print(json.dumps({"phase7": depth}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

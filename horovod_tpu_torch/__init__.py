@@ -20,7 +20,17 @@ own models. Horovod's controller runs around every eager op: negotiation
 (a readable error, not a NCCL hang, when ranks issue collectives in another
 order), the timeline (``HOROVOD_TIMELINE`` or ``start_timeline``), the
 metrics registry (``metrics()``, ``HOROVOD_METRICS_FILE``) and the stall
-watchdog (``HOROVOD_STALL_CHECK_TIME_SECONDS``). The
+watchdog (``HOROVOD_STALL_CHECK_TIME_SECONDS``). The allreduce algorithm
+axis (``overlap.py``: ``algorithm=`` ``psum``, ``rs_ag``,
+``chunked_rs_ag``, their ``_int8`` / ``_fp8`` quantized forms, the ``_2d``
+forms over ``topology()``, ``swing``, or ``auto``; ``wire=`` and
+``overlap_chunks=``; ``HOROVOD_ALLREDUCE_ALGORITHM``,
+``HOROVOD_ALLREDUCE_WIRE``, ``HOROVOD_OVERLAP_CHUNKS``,
+``HOROVOD_TOPOLOGY``), the quantized wire ``Compression.int8`` / ``fp8``
+(``ops/quantized.py``), and in ``DistributedOptimizer`` gradient overlap
+in the backward (``overlap=True``), error feedback (``error_feedback=``,
+``reset_error_feedback``), ``gradient_predivide_factor`` and the online
+tuner (``HOROVOD_AUTOTUNE``, ``autotune.py``). The
 flash-attention kernels are CUDA C++ for Hopper (``ops/csrc``), built with
 nvcc at first use. This package imports nothing
 of JAX or of ``horovod_tpu``.
@@ -36,17 +46,21 @@ from horovod_tpu_torch.collective import (
     grouped_reducescatter_async, join, negotiation_arrival_stats,
     negotiation_stats, poll, ragged_allgather, reducescatter,
     reducescatter_async, synchronize)
+from horovod_tpu_torch.autotune import (
+    AutotuneResult, Autotuner, BayesianAutotuner, autotune_fusion_threshold)
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import (
     backend, build_info, cross_rank, cross_size, device, init,
-    is_initialized, local_rank, local_size, rank, shutdown, size)
+    is_initialized, local_rank, local_size, rank, shutdown, size, topology,
+    topology_str)
 from horovod_tpu_torch import metrics
 from horovod_tpu_torch.metrics import (
     get_stall_watchdog, reset_metrics, start_metrics_flusher,
     start_stall_watchdog, stop_metrics_flusher, stop_stall_watchdog)
 from horovod_tpu_torch.optimizer import (
     DistributedOptimizer, allreduce_gradients, broadcast_optimizer_state,
-    broadcast_parameters)
+    broadcast_parameters, reset_error_feedback)
+from horovod_tpu_torch.ops.quantized import quantized_allreduce
 from horovod_tpu_torch.process_set import (
     ProcessSet, add_process_set, get_process_set_ids_and_ranks,
     global_process_set, remove_process_set)
@@ -72,5 +86,7 @@ __all__ = [
     "reset_metrics", "start_metrics_flusher", "stop_metrics_flusher",
     "start_timeline", "stop_timeline", "start_stall_watchdog",
     "stop_stall_watchdog", "get_stall_watchdog", "negotiation_stats",
-    "negotiation_arrival_stats",
+    "negotiation_arrival_stats", "topology", "topology_str",
+    "reset_error_feedback", "quantized_allreduce", "Autotuner",
+    "BayesianAutotuner", "AutotuneResult", "autotune_fusion_threshold",
 ]

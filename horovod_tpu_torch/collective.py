@@ -84,12 +84,14 @@ import torch.distributed as dist
 from horovod_tpu_torch import core as _core
 from horovod_tpu_torch import fusion as _fusion
 from horovod_tpu_torch import metrics as _metrics
+from horovod_tpu_torch import overlap as _overlap
 from horovod_tpu_torch import timeline as _tl
 from horovod_tpu_torch import tracing as _tracing
 from horovod_tpu_torch.adasum import (adasum_allreduce,
                                       hierarchical_adasum_allreduce)
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.config import get_config
+from horovod_tpu_torch.ops import quantized as _quantized
 from horovod_tpu_torch.process_set import ProcessSet, global_process_set
 
 __all__ = ["ReduceOp", "Average", "Sum", "Min", "Max", "Product", "Adasum",
@@ -132,10 +134,6 @@ _DIST_OPS = {
     ReduceOp.Max: dist.ReduceOp.MAX,
     ReduceOp.Product: dist.ReduceOp.PRODUCT,
 }
-
-# ``all_gather_into_tensor`` under its newer name where torch has it.
-_ALL_GATHER_SINGLE = getattr(dist, "all_gather_single",
-                             dist.all_gather_into_tensor)
 
 
 class Handle:
@@ -246,7 +244,7 @@ def _host_allgather_i32(vec) -> np.ndarray:
     row = torch.as_tensor(np.asarray(vec, np.int32))
     n = _core.size()
     out = torch.empty(n * row.numel(), dtype=torch.int32)
-    _ALL_GATHER_SINGLE(out, row, group=_core.control_group())
+    _quantized.ALL_GATHER_SINGLE(out, row, group=_core.control_group())
     return out.view(n, -1).numpy()
 
 
@@ -477,27 +475,65 @@ def _check_reduce(op: int, prescale: float, postscale: float,
         raise ValueError(f"unknown reduce op {op}")
     if op not in _SCALING_OPS and (prescale != 1.0 or postscale != 1.0):
         raise ValueError("prescale/postscale only apply to Sum/Average/Adasum")
-    if getattr(compression, "wire", None) is not None:
-        raise NotImplementedError("quantized wire: not yet ported")
+    marker = getattr(compression, "wire", None)
+    if marker is not None and op not in (ReduceOp.Sum, ReduceOp.Average):
+        raise ValueError(f"{marker} quantized allreduce supports Sum and "
+                         "Average")
+
+
+def _resolve_axis(algorithm: Optional[str], overlap_chunks: Optional[int],
+                  wire: Optional[str]) -> tuple:
+    """``algorithm``, ``overlap_chunks`` and ``wire`` with the config's
+    defaults, validated as the reference's ``allreduce`` validates them."""
+    cfg = get_config()
+    if algorithm is None:
+        algorithm = cfg.allreduce_algorithm
+    if overlap_chunks is None:
+        overlap_chunks = cfg.overlap_chunks
+    if wire is None:
+        wire = cfg.allreduce_wire
+    if algorithm not in _overlap.ALGORITHMS:
+        _overlap._reject_algorithm(
+            algorithm,
+            knob=("allreduce(algorithm=...)"
+                  if algorithm != cfg.allreduce_algorithm
+                  else "HOROVOD_ALLREDUCE_ALGORITHM"))
+    if wire not in _overlap.WIRES:
+        raise ValueError(
+            f"unknown allreduce wire {wire!r}; expected one of "
+            f"{_overlap.WIRES} (HOROVOD_ALLREDUCE_WIRE)")
+    overlap_chunks = int(overlap_chunks)
+    if overlap_chunks < 1:
+        raise ValueError(
+            f"overlap_chunks must be >= 1, got {overlap_chunks}")
+    return algorithm, overlap_chunks, wire
 
 
 def _divide(buf: torch.Tensor, k: int) -> torch.Tensor:
     return buf.div_(k) if buf.is_floating_point() else buf.floor_divide_(k)
 
 
+def _ensure_p2p(ps: ProcessSet, buf: torch.Tensor) -> None:
+    """Batched point-to-point ops on a subset of a NCCL group need the
+    group's communicator, which only a call of every member makes."""
+    if dist.get_backend(ps.group) == "nccl" and not ps.p2p_ready:
+        dist.all_reduce(buf.new_zeros(1), group=ps.group)
+        ps.p2p_ready = True
+
+
+def _set_ranks(ps: ProcessSet) -> List[int]:
+    return (list(range(dist.get_world_size())) if ps.ranks is None
+            else ps.ranks)
+
+
 def _adasum(buf: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
     """Adasum of ``buf`` over the set (``adasum.py``), by node first when
     ``HOROVOD_HIERARCHICAL_ALLREDUCE`` is set: the set's ranks are grouped
     by ``rank // local_size``."""
-    ranks = (list(range(dist.get_world_size())) if ps.ranks is None
-             else ps.ranks)
+    ranks = _set_ranks(ps)
     if len(ranks) == 1:
         return buf
-    if dist.get_backend(ps.group) == "nccl" and not ps.p2p_ready:
-        # Batched point-to-point ops on a subset of a NCCL group need the
-        # group's communicator, which only a call of every member makes.
-        dist.all_reduce(buf.new_zeros(1), group=ps.group)
-        ps.p2p_ready = True
+    _ensure_p2p(ps, buf)
     if get_config().hierarchical_allreduce:
         nodes: dict = {}
         for r in ranks:
@@ -509,10 +545,11 @@ def _adasum(buf: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
 
 def _issue_reduce(buf: torch.Tensor, op: int, ps: ProcessSet,
                   prescale: float) -> list:
-    """Start the in-place reduction of ``buf`` (already on the wire dtype)
-    across ``ps``; returns the work to wait for. Adasum runs its rounds
-    here, at issue (``adasum.py``: on NCCL they are queued on the device,
-    on gloo they have completed on return), so it leaves no work."""
+    """Start the in-place ``psum`` reduction of ``buf`` (already on the
+    wire dtype) across ``ps``; returns the work to wait for. Adasum runs
+    its rounds here, at issue (``adasum.py``: on NCCL they are queued on
+    the device, on gloo they have completed on return), so it leaves no
+    work."""
     if op in _SCALING_OPS and prescale != 1.0:
         buf.mul_(prescale)
     if op == ReduceOp.Adasum:
@@ -533,26 +570,248 @@ def _finish_reduce(buf: torch.Tensor, op: int, k: int,
     return buf
 
 
+def _wire_label(dtype: torch.dtype) -> str:
+    """Metrics label of an unquantized payload dtype; an exact exchange of
+    an int8 tensor is ``raw-int8``, so ``wire="int8"`` always means the
+    quantized format (the reference's ``_wire_label``)."""
+    name = _dtype_name(dtype)
+    name = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16",
+            "float64": "fp64"}.get(name, name)
+    return f"raw-{name}" if name in _overlap.QUANT_WIRES else name
+
+
+def _record_algorithm(alg: str, base: str, qwire: Optional[str],
+                      c: torch.Tensor, logical: tuple, n: int, topo,
+                      chunks: int) -> None:
+    """The reference's per-bucket telemetry: ``allreduce_algorithm_total``,
+    ``allreduce_wire_bytes_total`` (one series a leg for the decomposed
+    lowerings), the ``allreduce_compression_ratio`` gauge (the same legs
+    at the bucket's own dtype over the legs as shipped) and the
+    ``allreduce_algorithm`` timeline marker. Counted per call (the
+    reference counts per compiled bucket), on the set's size ``n``."""
+    _metrics.counter("allreduce_algorithm_total", algorithm=alg).inc()
+    eff_wire = qwire or _wire_label(c.dtype)
+    phases = _overlap.wire_bytes_by_phase(base, c.numel(), eff_wire, n,
+                                          dims=topo,
+                                          elem_bytes=c.element_size())
+    wb = sum(phases.values())
+    if alg == "psum":
+        _metrics.counter("allreduce_wire_bytes_total", algorithm=alg,
+                         wire=eff_wire).inc(wb)
+    else:
+        for ph, b in phases.items():
+            _metrics.counter("allreduce_wire_bytes_total", algorithm=alg,
+                             wire=eff_wire, phase=ph).inc(b)
+    numel, dtype, itemsize = logical
+    wb_logical = sum(_overlap.wire_bytes_by_phase(
+        base, numel, _wire_label(dtype), n, dims=topo,
+        elem_bytes=itemsize).values())
+    if wb_logical and wb:
+        _metrics.gauge("allreduce_compression_ratio",
+                       wire=eff_wire).set(wb_logical / wb)
+    span = _tracing.current_span()
+    if span is not None:
+        _metrics._timeline_marker(
+            "allreduce_algorithm", category="overlap", op_id=span.op_id,
+            tensor=span.tensor, algorithm=alg,
+            bytes=c.numel() * c.element_size(), wire=eff_wire,
+            wire_bytes=wb, phases=dict(phases),
+            topology="x".join(str(d) for d in (topo or ())),
+            chunks=chunks)
+
+
+def _stage_bucket(buf: torch.Tensor, compression, wire: str, op: int):
+    """QUEUE: compress one fusion bucket and, under the ``bf16`` wire,
+    cast a float bucket for the collective. Returns ``(c, ctx, cast_back,
+    logical)``; ``logical`` is the bucket's own (numel, dtype, itemsize)."""
+    logical = (buf.numel(), buf.dtype, buf.element_size())
+    c, ctx = compression.compress(buf)
+    cast_back = None
+    if wire == "bf16" and op in (ReduceOp.Sum, ReduceOp.Average) and \
+            c.is_floating_point() and c.dtype != torch.bfloat16:
+        cast_back = c.dtype
+        c = c.to(torch.bfloat16)
+    return c, ctx, cast_back, logical
+
+
+def _issue_bucket(staged, op: int, ps: ProcessSet, pre: float, post: float,
+                  compression, algorithm: str, chunks: int, wire: str,
+                  k: int):
+    """EXEC: the per-bucket dispatcher (the reference's ``reduce_buffer``):
+    resolve the bucket's lowering, strip a quantized wire from an integer
+    bucket, record the telemetry and start the work. Adasum, Min, Max and
+    Product pass through to ``psum``'s path. ``k`` is the number of
+    contributing ranks (Average's divisor). Returns ``(works, finish)``;
+    ``finish()`` returns the bucket on its own dtype."""
+    c, ctx, cast_back, logical = staged
+    reducible = op in (ReduceOp.Sum, ReduceOp.Average)
+    quantizable = reducible and c.is_floating_point()
+    n = ps.size()
+    topo = _core.topology() if ps.ranks is None else None
+    alg = _overlap.resolve_algorithm(
+        algorithm, c.numel() * c.element_size(), op, n,
+        reducible=reducible, wire=wire if quantizable else None,
+        topology=topo)
+    base, qwire = _overlap.parse_algorithm(alg)
+    if qwire is not None and not quantizable:
+        alg, qwire = base, None
+    chunked = base in ("chunked_rs_ag", "chunked_rs_ag_2d")
+    n_chunks = chunks if chunked else 1
+    _record_algorithm(alg, base, qwire, c, logical, n, topo, n_chunks)
+    if alg == "psum":
+        works = _issue_reduce(c, op, ps, pre)
+
+        def reduced():
+            return _finish_reduce(c, op, k, post)
+    else:
+        if pre != 1.0:
+            c.mul_(pre)
+        phases = _core.torus_phases() if base.endswith("_2d") else None
+        if qwire is not None:
+            mean_k = float(k) if op == ReduceOp.Average else None
+            x = c.to(torch.float32)
+            if phases:
+                works, lowered = _overlap.chunked_rs_ag_2d_quantized(
+                    x, phases, n, n_chunks, qwire, mean_k)
+            else:
+                works, lowered = _overlap.chunked_rs_ag_quantized(
+                    x, ps.group, n, n_chunks, qwire, mean_k)
+
+            def reduced():
+                out = lowered().to(c.dtype)
+                return out.mul_(post) if post != 1.0 else out
+        else:
+            if base == "swing":
+                _ensure_p2p(ps, c)
+                works, lowered = _overlap.swing(c, ps.group, _set_ranks(ps),
+                                                ps.rank())
+            elif phases:
+                works, lowered = _overlap.chunked_rs_ag_2d(c, phases, n,
+                                                           n_chunks)
+            else:
+                works, lowered = _overlap.chunked_rs_ag(c, ps.group, n,
+                                                        n_chunks)
+
+            def reduced():
+                return _finish_reduce(lowered(), op, k, post)
+
+    def finish():
+        r = reduced()
+        if cast_back is not None:
+            r = r.to(cast_back)
+        return compression.decompress(r, ctx)
+    return works, finish
+
+
+def _stage_marker(tensors: List[torch.Tensor], threshold: int):
+    """QUEUE of the quantized-marker path (``Compression.int8`` / ``fp8``,
+    the reference's ``collective.py:323-393``): every float tensor in one
+    fp32 buffer, each padded to a whole number of ``BLOCK``s so one
+    tensor's magnitude never sets another's scale; the integer tensors in
+    ordinary fusion buckets, reduced exactly."""
+    live = [i for i, t in enumerate(tensors)
+            if t.numel() and t.is_floating_point()]
+    exact = [i for i, t in enumerate(tensors)
+             if t.numel() and not t.is_floating_point()]
+    spans, parts, off = [], [], 0
+    for i in live:
+        flat = tensors[i].reshape(-1).to(torch.float32)
+        m = -(-flat.numel() // _quantized.BLOCK) * _quantized.BLOCK
+        parts.append(torch.nn.functional.pad(flat, (0, m - flat.numel())))
+        spans.append((i, off, flat.numel()))
+        off += m
+    buf = torch.cat(parts) if parts else None
+    ints = (_fusion.fuse([tensors[i] for i in exact], threshold)
+            if exact else ([], None))
+    return buf, spans, exact, ints
+
+
+def _issue_marker(staged, tensors, op: int, ps: ProcessSet, pre: float,
+                  post: float, marker: str, threshold: int, k: int,
+                  out: Optional[Sequence[torch.Tensor]]):
+    """EXEC of the quantized-marker path: the fp32 buffer in pieces of the
+    fusion threshold (``BLOCK``-aligned), each through the two-phase
+    quantized allreduce (``ops/quantized.py``), Average dividing by the
+    ``k`` contributing ranks before the re-quantization; the integer
+    buckets through the exact ``psum``. Returns ``(works, finish)``."""
+    buf, spans, exact, (ibufs, iunpack) = staged
+    works, lowered = [], []
+    if buf is not None:
+        nbytes = _overlap.wire_bytes(buf.numel(), marker)
+        _metrics.counter("allreduce_wire_bytes_total",
+                         algorithm="compression", wire=marker).inc(nbytes)
+        _metrics.gauge("allreduce_compression_ratio",
+                       wire=marker).set(4 * buf.numel() / nbytes)
+        if pre != 1.0:
+            buf.mul_(pre)
+        seg = max(_quantized.BLOCK,
+                  (int(threshold) // 4) // _quantized.BLOCK
+                  * _quantized.BLOCK)
+        mean_k = float(k) if op == ReduceOp.Average else None
+        for s in range(0, buf.numel(), seg):
+            ws, fin = _quantized.issue_quantized_allreduce(
+                buf[s:s + seg], ps.group, ps.size(), marker, mean_k)
+            works.extend(ws)
+            lowered.append(fin)
+    for b in ibufs:
+        works.extend(_issue_reduce(b, op, ps, pre))
+
+    def finish():
+        dst = ([torch.empty_like(t) for t in tensors] if out is None
+               else list(out))
+        if lowered:
+            res = torch.cat([f() for f in lowered])
+            if post != 1.0:
+                res.mul_(post)
+            for i, start, n in spans:
+                dst[i].copy_(res[start:start + n].view(tensors[i].shape))
+        if exact:
+            iunpack([_finish_reduce(b, op, k, post) for b in ibufs],
+                    out=[dst[i] for i in exact])
+        for i, t in enumerate(tensors):
+            if not t.numel():
+                dst[i] = t.clone() if out is None else dst[i]
+        return dst
+    return works, finish
+
+
 def _allreduce(tensors: List[torch.Tensor], op: int, ps: ProcessSet,
                pre: float, post: float, compression, threshold: int,
                out: Optional[Sequence[torch.Tensor]], name: Optional[str],
-               how: str = "eager") -> Handle:
+               how: str = "eager", algorithm: str = "auto",
+               chunks: int = _overlap.DEFAULT_CHUNKS, wire: str = "fp32",
+               reverse: bool = False, replay_joined: tuple = ()) -> Handle:
     """Every allreduce form: the tensors packed into fusion buckets, each
-    bucket compressed (QUEUE) and reduced (EXEC); ``synchronize`` returns
-    the list, written into ``out`` when given. ``how`` is :func:`_run`'s: a
-    joined rank replays the op through here with ``"replay"``."""
+    bucket compressed (QUEUE) and reduced by its resolved lowering (EXEC);
+    ``synchronize`` returns the list, written into ``out`` when given.
+    ``reverse`` issues the buckets last first (the gradient-overlap order).
+    ``how`` is :func:`_run`'s: a joined rank replays the op through here
+    with ``"replay"`` and the joined ranks of its round in
+    ``replay_joined``."""
+    marker = getattr(compression, "wire", None)
     desc = None
     if ps.ranks is None:
         # Everything the bucket plan and the wire depend on: a joined rank
         # must issue exactly the NCCL work the active ranks issue.
         desc = ("allreduce", _shapes(tensors), op, pre, post, compression,
-                threshold)
+                threshold, algorithm, chunks, wire, reverse)
+    # A quantized wire pads each tensor to whole blocks inside its bucket.
+    # Only Sum and Average quantize; other ops keep the unpadded layout, so
+    # the order of their sums and products is the psum path's.
+    quantized = op in (ReduceOp.Sum, ReduceOp.Average) and (
+        marker is not None
+        or _overlap.parse_algorithm(algorithm)[1] is not None
+        or wire in _overlap.QUANT_WIRES)
+    pad = _quantized.BLOCK if quantized else 1
 
     def stage():
         if not ps.included():
             return None
-        buckets, unpack = _fusion.fuse(tensors, threshold)
-        return [compression.compress(b) for b in buckets], unpack
+        if marker is not None:
+            return _stage_marker(tensors, threshold)
+        buckets, unpack = _fusion.fuse(tensors, threshold, pad_elems=pad)
+        return [_stage_bucket(b, compression, wire, op)
+                for b in buckets], unpack
 
     def launch(staged, joined):
         if staged is None:
@@ -561,23 +820,28 @@ def _allreduce(tensors: List[torch.Tensor], op: int, ps: ProcessSet,
             for dst, t in zip(out, tensors):
                 dst.copy_(t)
             return _ready(list(out))
-        wire, unpack = staged
-        works = []
-        for c, _ in wire:
-            works.extend(_issue_reduce(c, op, ps, pre))
-        # Joined ranks contributed neutral elements: Average divides by
-        # the active ranks only.
-        k = ps.size() - len(joined)
+        # Joined ranks contribute neutral elements: Average divides by the
+        # active ranks only.
+        k = ps.size() - len(joined or replay_joined)
+        if marker is not None:
+            works, finish = _issue_marker(staged, tensors, op, ps, pre, post,
+                                          marker, threshold, k, out)
+            return Handle(works, finish)
+        buckets, unpack = staged
+        issued: list = [None] * len(buckets)
+        for b in _fusion.issue_order(len(buckets), reverse):
+            issued[b] = _issue_bucket(buckets[b], op, ps, pre, post,
+                                      compression, algorithm, chunks, wire,
+                                      k)
 
         def finish():
-            return unpack([compression.decompress(
-                _finish_reduce(c, op, k, post), ctx) for c, ctx in wire],
-                out=out)
-        return Handle(works, finish)
+            return unpack([fin() for _, fin in issued], out=out)
+        return Handle([w for ws, _ in issued for w in ws], finish)
 
     return _run("allreduce", ps, tensors,
                 _sig(tensors, op, _ps_key(ps), pre, post,
-                     compression.__name__, threshold),
+                     compression.__name__, threshold, algorithm, chunks,
+                     reverse, wire),
                 stage, launch, name=name, desc=desc, how=how)
 
 
@@ -589,10 +853,16 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             compression=Compression.none,
                             fusion_threshold_bytes: Optional[int] = None,
                             out: Optional[Sequence[torch.Tensor]] = None,
-                            name: Optional[str] = None) -> Handle:
+                            name: Optional[str] = None,
+                            algorithm: Optional[str] = None,
+                            overlap_chunks: Optional[int] = None,
+                            wire: Optional[str] = None,
+                            _reverse_issue: bool = False) -> Handle:
     """Start :func:`grouped_allreduce`; ``synchronize`` returns the list."""
     pre, post = float(prescale_factor), float(postscale_factor)
     _check_reduce(op, pre, post, compression)
+    algorithm, overlap_chunks, wire = _resolve_axis(algorithm,
+                                                    overlap_chunks, wire)
     tensors = list(tensors)
     ps = _resolve_ps(process_set)
     if not tensors:
@@ -600,7 +870,9 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
     if fusion_threshold_bytes is None:
         fusion_threshold_bytes = get_config().fusion_threshold_bytes
     return _allreduce(tensors, op, ps, pre, post, compression,
-                      int(fusion_threshold_bytes), out, name)
+                      int(fusion_threshold_bytes), out, name,
+                      algorithm=algorithm, chunks=overlap_chunks, wire=wire,
+                      reverse=bool(_reverse_issue))
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], op: int = Average,
@@ -610,14 +882,21 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: int = Average,
                       compression=Compression.none,
                       fusion_threshold_bytes: Optional[int] = None,
                       out: Optional[Sequence[torch.Tensor]] = None,
-                      name: Optional[str] = None) -> List[torch.Tensor]:
+                      name: Optional[str] = None,
+                      algorithm: Optional[str] = None,
+                      overlap_chunks: Optional[int] = None,
+                      wire: Optional[str] = None,
+                      _reverse_issue: bool = False) -> List[torch.Tensor]:
     """Allreduce a list of tensors as one fused operation
     (``hvd.grouped_allreduce``): the tensors are packed into fusion buckets
-    (``fusion.py``), one collective runs per bucket, and the results are
-    sliced back out. ``out`` receives the results in place when given."""
+    (``fusion.py``), one lowering runs per bucket, and the results are
+    sliced back out. ``out`` receives the results in place when given.
+    ``algorithm``, ``overlap_chunks`` and ``wire`` are :func:`allreduce`'s.
+    ``_reverse_issue`` (internal) issues the buckets last first."""
     return grouped_allreduce_async(
         tensors, op, process_set, prescale_factor, postscale_factor,
-        compression, fusion_threshold_bytes, out, name).synchronize()
+        compression, fusion_threshold_bytes, out, name, algorithm,
+        overlap_chunks, wire, _reverse_issue).synchronize()
 
 
 def allreduce_async(tensor: torch.Tensor, op: int = Average,
@@ -626,12 +905,15 @@ def allreduce_async(tensor: torch.Tensor, op: int = Average,
                     postscale_factor: float = 1.0,
                     compression=Compression.none,
                     name: Optional[str] = None,
-                    fusion_threshold_bytes: Optional[int] = None) -> Handle:
+                    fusion_threshold_bytes: Optional[int] = None,
+                    algorithm: Optional[str] = None,
+                    overlap_chunks: Optional[int] = None,
+                    wire: Optional[str] = None) -> Handle:
     """Start :func:`allreduce`; ``synchronize`` returns the new tensor."""
     return grouped_allreduce_async(
         [tensor], op, process_set, prescale_factor, postscale_factor,
-        compression, fusion_threshold_bytes, None, name).then(
-            lambda out: out[0])
+        compression, fusion_threshold_bytes, None, name, algorithm,
+        overlap_chunks, wire).then(lambda out: out[0])
 
 
 def allreduce(tensor: torch.Tensor, op: int = Average,
@@ -639,15 +921,31 @@ def allreduce(tensor: torch.Tensor, op: int = Average,
               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
               compression=Compression.none,
               name: Optional[str] = None,
-              fusion_threshold_bytes: Optional[int] = None) -> torch.Tensor:
+              fusion_threshold_bytes: Optional[int] = None,
+              algorithm: Optional[str] = None,
+              overlap_chunks: Optional[int] = None,
+              wire: Optional[str] = None) -> torch.Tensor:
     """Reduce this rank's ``tensor`` with every other rank's
     (``hvd.allreduce``). Returns a new tensor; the input is left as is.
     A tensor above ``fusion_threshold_bytes`` (``HOROVOD_FUSION_THRESHOLD``
     by default) is reduced in aligned chunks, as in the reference; for
-    Adasum each chunk has its own coefficients."""
+    Adasum each chunk has its own coefficients.
+
+    ``algorithm`` (default ``HOROVOD_ALLREDUCE_ALGORITHM``, ``auto``) picks
+    each bucket's lowering for Sum and Average (``overlap.py``): ``psum``,
+    ``rs_ag``, ``chunked_rs_ag`` (``overlap_chunks`` pieces, default
+    ``HOROVOD_OVERLAP_CHUNKS``), their ``_int8`` / ``_fp8`` quantized
+    forms, the ``_2d`` forms over the topology, ``swing``, or ``auto`` by
+    size. Other ops pass through unchanged. ``wire`` (default
+    ``HOROVOD_ALLREDUCE_WIRE``, ``fp32``): ``bf16`` casts each float bucket
+    for the collective and back; ``int8`` / ``fp8`` make ``auto`` take the
+    quantized forms. ``compression=Compression.int8`` / ``fp8`` quantize
+    every float tensor through the two-phase quantized allreduce and
+    ignore ``algorithm``; integer tensors are reduced exactly."""
     return allreduce_async(tensor, op, process_set, prescale_factor,
                            postscale_factor, compression, name,
-                           fusion_threshold_bytes).synchronize()
+                           fusion_threshold_bytes, algorithm,
+                           overlap_chunks, wire).synchronize()
 
 
 def allreduce_async_(tensor: torch.Tensor, **kwargs) -> Handle:
@@ -661,23 +959,81 @@ def allreduce_(tensor: torch.Tensor, **kwargs) -> torch.Tensor:
     return allreduce_async_(tensor, **kwargs).synchronize()
 
 
+def _in_step_allreduce_async(tensors: List[torch.Tensor], op: int,
+                             ps: ProcessSet, name: Optional[str] = None,
+                             out: Optional[Sequence[torch.Tensor]] = None,
+                             prescale: float = 1.0, postscale: float = 1.0,
+                             compression=Compression.none,
+                             threshold: Optional[int] = None,
+                             algorithm: str = "auto",
+                             chunks: int = _overlap.DEFAULT_CHUNKS,
+                             wire: str = "fp32") -> Handle:
+    """Start an allreduce inside a training step's forward or backward,
+    on the set's group without a negotiation round: the reference's
+    in-program collective (a ``pmean`` inside the jitted step,
+    ``_traced_span``), which it never negotiates. Cross-replica batch
+    norm's moments and the gradient buckets of
+    ``DistributedOptimizer(overlap=True)`` take this path, so a step costs
+    no host round per layer or bucket, and ranks may use disjoint sets
+    (batch-norm groups). Every member issues the same in-step allreduces
+    in the same order because they run the same model. The fusion plan,
+    the per-bucket lowering, the QUEUE and EXEC phases and the pending
+    entry are those of :func:`allreduce`; its span comes from the
+    negative sequence and it counts ``collective_traced_total`` (per call
+    here, per compiled program in the reference). A joined rank does not
+    service it: use the join mask."""
+    if threshold is None:
+        threshold = get_config().fusion_threshold_bytes
+    return _allreduce(list(tensors), op, ps, prescale, postscale,
+                      compression, int(threshold), out, name,
+                      how="in_step", algorithm=algorithm, chunks=chunks,
+                      wire=wire)
+
+
+def _in_step_bucket_async(buf: torch.Tensor, op: int, ps: ProcessSet,
+                          prescale: float, postscale: float, compression,
+                          algorithm: str, chunks: int, wire: str,
+                          name: Optional[str] = None) -> Handle:
+    """Start the in-place allreduce of one packed gradient bucket inside
+    the backward (``DistributedOptimizer(overlap=True)``): the per-bucket
+    lowering of :func:`allreduce` on ``buf`` itself, under an in-step span
+    (no round; see :func:`_in_step_allreduce_async`). ``synchronize``
+    returns ``buf`` holding the result."""
+    marker = getattr(compression, "wire", None)
+    nbytes = buf.numel() * buf.element_size()
+
+    def stage():
+        if marker is not None:
+            return _stage_marker([buf], nbytes)
+        return _stage_bucket(buf, compression, wire, op)
+
+    def launch(staged, joined):
+        if marker is not None:
+            works, finish = _issue_marker(staged, [buf], op, ps, prescale,
+                                          postscale, marker, nbytes,
+                                          ps.size(), [buf])
+            return Handle(works, lambda: finish()[0])
+        works, fin = _issue_bucket(staged, op, ps, prescale, postscale,
+                                   compression, algorithm, chunks, wire,
+                                   ps.size())
+
+        def finish():
+            r = fin()
+            if r.data_ptr() != buf.data_ptr():
+                buf.copy_(r)
+            return buf
+        return Handle(works, finish)
+
+    return _run("allreduce", ps, [buf], (), stage, launch, name=name,
+                how="in_step")
+
+
 def _in_step_allreduce(tensor: torch.Tensor, op: int, ps: ProcessSet,
                        name: Optional[str] = None) -> torch.Tensor:
-    """An allreduce inside a training step's forward or backward, issued on
-    the set's group without a negotiation round: the reference's in-program
-    collective (a ``pmean`` inside the jitted step, ``_traced_span``), which
-    it never negotiates. Cross-replica batch norm's moments take this path
-    (``ops/batch_norm.py``), so a step costs no host round per layer, and
-    ranks may use disjoint sets (batch-norm groups). Every member issues
-    the same in-step allreduces in the same order because they run the
-    same model. The fusion plan, the QUEUE and EXEC phases and the pending
-    entry are those of :func:`allreduce`; its span comes from the negative
-    sequence and it counts ``collective_traced_total`` (per call here, per
-    compiled program in the reference). A joined rank does not service it:
-    use the join mask."""
-    return _allreduce([tensor], op, ps, 1.0, 1.0, Compression.none,
-                      get_config().fusion_threshold_bytes, None, name,
-                      how="in_step").synchronize()[0]
+    """:func:`_in_step_allreduce_async` of one tensor, waited for."""
+    return _in_step_allreduce_async([tensor], op, ps, name,
+                                    algorithm="psum").synchronize()[0]
+
 
 
 # ---------------------------------------------------------------------------
@@ -1107,7 +1463,8 @@ def _join_service_round() -> bool:
         raise RuntimeError(
             "joined process cannot service this eager collective (no "
             "descriptor — only global-set allreduce is join-serviceable)")
-    _, shapes, op, pre, post, compression, threshold = desc
+    (_, shapes, op, pre, post, compression, threshold, algorithm, chunks,
+     wire, reverse) = desc
     _check_join_avg_dtypes(op, shapes)
     dev = _core.device()
     tensors = []
@@ -1116,7 +1473,10 @@ def _join_service_round() -> bool:
         tensors.append(torch.full(shape, _neutral_host(op, dtype),
                                   dtype=dtype, device=dev))
     _allreduce(tensors, op, global_process_set(), pre, post, compression,
-               threshold, None, None, how="replay").synchronize()
+               threshold, None, None, how="replay", algorithm=algorithm,
+               chunks=chunks, wire=wire, reverse=reverse,
+               replay_joined=tuple(int(i) for i in np.nonzero(rows[:, 5])[0])
+               ).synchronize()
     return False
 
 

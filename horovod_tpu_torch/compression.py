@@ -2,9 +2,14 @@
 
 Port of ``horovod_tpu/compression.py``. The cast compressors put floating
 tensors on the wire as fp16 or bf16 and cast the result back. The quantized
-wire formats (``int8``, ``fp8``) are markers in the reference that reroute
-the reduction through a block-quantized all-to-all; that path is not ported
-yet, so using a marker raises instead of silently running uncompressed.
+wire formats (``int8``, ``fp8``) are markers: a cast cannot express them
+(the sum of quantized values overflows and mixes scales), so the
+collective layer (``collective.py``) reroutes a marked allreduce through
+the two-phase quantized allreduce of ``ops/quantized.py``. Float tensors
+are quantized with per-block scales, each padded to whole blocks; integer
+tensors take the exact reduction. The same wires are spelled on the
+``algorithm=`` axis too (``algorithm="chunked_rs_ag_int8"``,
+``HOROVOD_ALLREDUCE_WIRE``).
 """
 
 from __future__ import annotations
@@ -64,15 +69,18 @@ class BF16Compressor(_CastCompressor):
 
 
 class _QuantizedMarker(Compressor):
+    """Marker of a quantized wire format; the collective layer reads
+    ``wire`` and quantizes inside the reduction, so the compressor itself
+    passes tensors through."""
     wire = None  # "int8" | "fp8"
 
     @staticmethod
     def compress(tensor):
-        raise NotImplementedError("quantized wire: not yet ported")
+        return tensor, None
 
     @staticmethod
     def decompress(tensor, ctx):
-        raise NotImplementedError("quantized wire: not yet ported")
+        return tensor
 
 
 class Int8Compressor(_QuantizedMarker):

@@ -28,6 +28,21 @@ not at the first collective.
   ``0 <= local_rank < local_size <= world_size``.
 * ``MASTER_ADDR`` / ``MASTER_PORT`` -- the rendezvous store. Both or neither;
   a world of more than one process needs both.
+* ``HOROVOD_ALLREDUCE_ALGORITHM`` -- the per-bucket allreduce lowering, one
+  of ``overlap.ALGORITHMS`` (default ``auto``); ``HOROVOD_ALLREDUCE_WIRE``
+  -- the default wire precision, one of ``overlap.WIRES`` (``fp32``;
+  empty, ``none`` and ``off`` mean ``fp32``); ``HOROVOD_OVERLAP_CHUNKS`` --
+  the pipeline depth of the ``chunked_*`` lowerings (default 4, at least
+  1); ``HOROVOD_TOPOLOGY`` -- the torus dims the ``_2d`` lowerings run on
+  (``"2x2"``; their product must equal the world, checked at ``init``).
+  The reference's ``HOROVOD_XLA_LATENCY_HIDING`` sets XLA compiler flags
+  and has no counterpart here.
+* ``HOROVOD_AUTOTUNE`` -- the online tuner of ``DistributedOptimizer``
+  (``autotune.py``); ``HOROVOD_AUTOTUNE_MODE`` ``ladder`` (default),
+  ``bayes`` or ``bayes-compression``; ``HOROVOD_AUTOTUNE_LOG`` -- the file
+  rank 0 appends the converged point to; ``HOROVOD_AUTOTUNE_PROBES`` /
+  ``HOROVOD_AUTOTUNE_SAMPLES`` -- the Bayesian budget (6 probes of 10
+  steps).
 """
 
 from __future__ import annotations
@@ -84,6 +99,62 @@ class Config:
     metrics_grad_norm: bool = False
     stall_check_disable: bool = False
     stall_check_time_seconds: float = 60.0
+    allreduce_algorithm: str = "auto"
+    allreduce_wire: str = "fp32"
+    overlap_chunks: int = 4
+    topology: Optional[str] = None
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    autotune_mode: str = "ladder"
+    autotune_probes: int = 6
+    autotune_samples: int = 10
+
+
+def _env_algorithm() -> str:
+    from horovod_tpu_torch.overlap import ALGORITHMS
+    v = (os.environ.get("HOROVOD_ALLREDUCE_ALGORITHM", "auto")
+         .strip().lower() or "auto")
+    if v not in ALGORITHMS:
+        raise ValueError(
+            f"HOROVOD_ALLREDUCE_ALGORITHM={v!r}: expected one of "
+            f"{ALGORITHMS}")
+    return v
+
+
+def _env_wire() -> str:
+    from horovod_tpu_torch.overlap import WIRES
+    v = os.environ.get("HOROVOD_ALLREDUCE_WIRE", "").strip().lower()
+    if v in ("", "none", "off"):
+        return "fp32"
+    if v not in WIRES:
+        raise ValueError(
+            f"HOROVOD_ALLREDUCE_WIRE={v!r}: expected one of {WIRES}")
+    return v
+
+
+def _env_topology() -> Optional[str]:
+    v = os.environ.get("HOROVOD_TOPOLOGY", "").strip().lower()
+    if not v:
+        return None
+    from horovod_tpu_torch.parallel.mesh import parse_topology
+    dims = parse_topology(v)   # grammar check: a typo'd spec fails here
+    return "x".join(str(d) for d in dims)
+
+
+def _env_chunks() -> int:
+    v = os.environ.get("HOROVOD_OVERLAP_CHUNKS")
+    if not v:
+        from horovod_tpu_torch.overlap import DEFAULT_CHUNKS
+        return DEFAULT_CHUNKS
+    try:
+        n = int(v)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_OVERLAP_CHUNKS={v!r}: expected a positive integer")
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_OVERLAP_CHUNKS={n}: chunk count must be >= 1")
+    return n
 
 
 def _read() -> Config:
@@ -129,7 +200,17 @@ def _read() -> Config:
         metrics_grad_norm=_env_bool("HOROVOD_METRICS_GRAD_NORM"),
         stall_check_disable=_env_bool("HOROVOD_STALL_CHECK_DISABLE"),
         stall_check_time_seconds=_env_float(
-            "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0))
+            "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0),
+        allreduce_algorithm=_env_algorithm(),
+        allreduce_wire=_env_wire(),
+        overlap_chunks=_env_chunks(),
+        topology=_env_topology(),
+        autotune=_env_bool("HOROVOD_AUTOTUNE"),
+        autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG") or None,
+        autotune_mode=(os.environ.get("HOROVOD_AUTOTUNE_MODE", "ladder")
+                       .strip().lower() or "ladder"),
+        autotune_probes=int(_env_float("HOROVOD_AUTOTUNE_PROBES", 6)),
+        autotune_samples=int(_env_float("HOROVOD_AUTOTUNE_SAMPLES", 10)))
 
 
 _CONFIG: Optional[Config] = None

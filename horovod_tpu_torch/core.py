@@ -21,6 +21,14 @@ and the span ids, starts the timeline when ``HOROVOD_TIMELINE`` is set, runs
 the clock-anchor barrier in a world larger than one, and starts the metrics
 flusher and the stall watchdog (``metrics.on_init``); ``shutdown`` writes
 the timeline and stops them.
+
+``init`` detects the world's topology (``parallel/mesh.py``:
+``HOROVOD_TOPOLOGY``, else hosts x GPUs a host, else a ring; ``topology()``)
+and, when it has two or more dims, makes the sub-group of every line of
+the torus along each dim, on every rank in one order: the phases of the
+``_2d`` allreduce lowerings (``overlap.py``). It also sets the reference's
+``config_allreduce_algorithm``, ``config_allreduce_wire``,
+``config_overlap_chunks`` and ``config_topology`` gauges.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from horovod_tpu_torch import config as _config
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
            "local_rank", "local_size", "cross_rank", "cross_size", "device",
-           "backend", "build_info", "init_epoch"]
+           "backend", "build_info", "init_epoch", "topology",
+           "topology_str"]
 
 _LOCK = threading.Lock()
 
@@ -53,6 +62,10 @@ class _Context:
     local_size: int
     owns_group: bool
     control: object         # the process group of the controller's rounds
+    topology: tuple = ()    # detected dims, (world,) for a ring
+    # This rank's line along each dim above 1: (group, extent), the
+    # phases of the _2d lowerings; empty on a ring.
+    phases: tuple = ()
 
 
 _CTX: Optional[_Context] = None
@@ -126,11 +139,14 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         # process set's group.
         control = (dist.new_group(backend="gloo") if backend == "nccl"
                    else dist.group.WORLD)
+        from horovod_tpu_torch.parallel.mesh import detect_topology
+        world = dist.get_world_size()
+        topo = detect_topology(world, cfg.local_size, cfg.topology)
         _CTX = _Context(device=dev, backend=backend, rank=dist.get_rank(),
-                        size=dist.get_world_size(),
-                        local_rank=cfg.local_rank,
+                        size=world, local_rank=cfg.local_rank,
                         local_size=cfg.local_size, owns_group=owns,
-                        control=control)
+                        control=control, topology=topo,
+                        phases=_make_phases(topo, dist.get_rank()))
         from horovod_tpu_torch import collective as _coll
         from horovod_tpu_torch import metrics as _metrics
         from horovod_tpu_torch import process_set as _ps
@@ -151,8 +167,43 @@ def init(device: Union[str, torch.device, None] = None) -> None:
             # only some ranks cannot deadlock init.
             dist.barrier(group=control)
         _tl.emit_clock_anchor(epoch=_INIT_EPOCH)
+        _set_config_gauges(cfg, topo)
         _metrics.on_init(cfg, init_seconds=time.perf_counter() - t0,
                          world=_CTX.size)
+
+
+def _make_phases(topo: tuple, rank: int) -> tuple:
+    """The sub-group of every line of the torus along each dim above 1,
+    made on every rank in one order (``dist.new_group`` is collective over
+    the world); returns this rank's line of each dim as (group, extent)."""
+    from horovod_tpu_torch.overlap import torus_lines
+    dims = tuple(d for d in topo if d > 1)
+    if len(dims) < 2:
+        return ()
+    phases = []
+    for lines in torus_lines(dims):
+        for line in lines:
+            g = dist.new_group(line)
+            if rank in line:
+                phases.append((g, len(line)))
+    return tuple(phases)
+
+
+def _set_config_gauges(cfg, topo: tuple) -> None:
+    """The reference's config gauges: one algorithm and one wire label at
+    1, the chunk count, and the topology's dims (unused slots 0)."""
+    from horovod_tpu_torch import metrics as _metrics
+    from horovod_tpu_torch.overlap import ALGORITHMS, WIRES
+    for a in ALGORITHMS:
+        _metrics.gauge("config_allreduce_algorithm", algorithm=a).set(
+            1 if a == cfg.allreduce_algorithm else 0)
+    for w in WIRES:
+        _metrics.gauge("config_allreduce_wire", wire=w).set(
+            1 if w == cfg.allreduce_wire else 0)
+    _metrics.gauge("config_overlap_chunks").set(cfg.overlap_chunks)
+    for i in range(max(len(topo), 4)):
+        _metrics.gauge("config_topology", dim=str(i)).set(
+            topo[i] if i < len(topo) else 0)
 
 
 def shutdown() -> None:
@@ -232,6 +283,24 @@ def backend() -> str:
 def control_group():
     """The process group of the controller's host rounds (gloo)."""
     return _ctx().control
+
+
+def topology() -> tuple:
+    """The world's dims: ``(2, 2)`` under ``HOROVOD_TOPOLOGY=2x2``,
+    ``(hosts, gpus_per_host)`` on several hosts of several GPUs,
+    ``(world,)`` on a ring."""
+    return _ctx().topology
+
+
+def topology_str() -> str:
+    """:func:`topology` as an ``"XxY"`` spec string (``"8"`` for 1-D)."""
+    return "x".join(str(d) for d in _ctx().topology)
+
+
+def torus_phases() -> tuple:
+    """This rank's (group, extent) along each dim of the topology above 1
+    (the ``_2d`` lowerings' phases); empty on a ring."""
+    return _ctx().phases
 
 
 def init_epoch() -> int:

@@ -7,8 +7,18 @@ given order; each group is cut greedily into buckets of at most
 ``hvd_fusion_plan``); a tensor larger than the threshold is first split into
 aligned chunks of at most the threshold, each riding its own bucket.
 ``pad_elems > 1`` zero-pads every packed segment to a multiple of that many
-elements. The plan is the reference's, bucket for bucket, so the same
-tensors give the same buffers.
+elements (the quantized wire pads each tensor to whole quantization blocks,
+so one tensor's magnitude never sets another's scale). The plan is the
+reference's, bucket for bucket, so the same tensors give the same buffers.
+
+The buckets go out first to last, or last first under ``reverse`` (the
+reference's ``fused_apply(reverse=True)``: the backward produces the last
+parameters' gradients first). :class:`BucketFiller` is the gradient-overlap
+form of a plan: buckets fill as the backward produces their tensors, and
+``pin_order`` holds a full bucket back until every bucket before it in
+issue order has gone, so every rank issues one order whatever order its
+gradient hooks fire in, as the reference's ``pin_order`` pins its issue
+order.
 
 A bucket is one flat buffer on the tensors' device, filled by one
 ``torch.cat``; ``unpack`` slices the reduced buffers back, either into new
@@ -34,7 +44,7 @@ from horovod_tpu_torch import tracing as _tracing
 
 __all__ = ["DEFAULT_FUSION_THRESHOLD_BYTES", "FUSION_ALIGN_BYTES",
            "plan_buckets", "split_oversize", "FusionPlan", "make_plan",
-           "fuse"]
+           "fuse", "issue_order", "BucketFiller"]
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 
@@ -204,3 +214,58 @@ def fuse(tensors: Sequence[torch.Tensor],
         return dst
 
     return buckets, unpack
+
+
+def issue_order(n_buckets: int, reverse: bool = False) -> range:
+    """The order buckets are issued in: first to last, or last first."""
+    return range(n_buckets - 1, -1, -1) if reverse else range(n_buckets)
+
+
+class BucketFiller:
+    """Which buckets of ``plan`` may go out as their tensors become ready.
+
+    :meth:`mark` takes the index of a tensor whose value is final and
+    returns the buckets to issue now, in issue order (``reverse``: last
+    bucket first). With ``pin_order`` a full bucket waits for every bucket
+    before it in issue order; without it, it goes at once. :meth:`rest`
+    returns the buckets not issued yet, in issue order (a tensor that got
+    no value leaves its bucket to the end of the step). :meth:`reset`
+    starts the next step."""
+
+    def __init__(self, plan: FusionPlan, reverse: bool = True,
+                 pin_order: bool = True):
+        self.plan = plan
+        self.order = list(issue_order(len(plan.buckets), reverse))
+        self.pin_order = pin_order
+        bucket_of = {s: b for b, segs in enumerate(plan.buckets)
+                     for s in segs}
+        self._buckets_of: dict = {}
+        for s, (i, _, _) in enumerate(plan.segments):
+            self._buckets_of.setdefault(i, []).append(bucket_of[s])
+        self.reset()
+
+    def reset(self) -> None:
+        self._left = [len(segs) for segs in self.plan.buckets]
+        self._issued = [False] * len(self.plan.buckets)
+        self._next = 0
+
+    def mark(self, tensor: int) -> List[int]:
+        for b in self._buckets_of.get(tensor, ()):
+            self._left[b] -= 1
+        return self._take(lambda b: self._left[b] == 0)
+
+    def rest(self) -> List[int]:
+        return self._take(lambda b: True)
+
+    def _take(self, full) -> List[int]:
+        out = []
+        if self.pin_order:
+            while self._next < len(self.order) and \
+                    full(self.order[self._next]):
+                out.append(self.order[self._next])
+                self._next += 1
+        else:
+            out = [b for b in self.order if not self._issued[b] and full(b)]
+        for b in out:
+            self._issued[b] = True
+        return out

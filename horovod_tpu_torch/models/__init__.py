@@ -8,14 +8,15 @@ to ``ROADMAP.md``, which lists the reference's models still to be ported.
 
 __all__ = ["get_model", "PORTED"]
 
-PORTED = ("mnist", "resnet18", "resnet50", "gpt2_medium", "bert",
+PORTED = ("mnist", "resnet18", "resnet50", "gpt2", "gpt2_medium", "bert",
           "bert_large", "vit", "vit_b16", "llama", "llama7b", "llama_small")
 
 
 def get_model(name: str, **kw):
     """A ported model by name: ``mnist`` (``MnistCNN``), ``resnet18`` /
-    ``resnet50`` (``ResNet18`` / ``ResNet50``), ``gpt2_medium``
-    (``GPT2`` of ``GPT2Config.medium(**kw)``), ``bert`` / ``bert_large``
+    ``resnet50`` (``ResNet18`` / ``ResNet50``), ``gpt2`` / ``gpt2_medium``
+    (``GPT2`` of ``GPT2Config(**kw)`` / ``GPT2Config.medium(**kw)``),
+    ``bert`` / ``bert_large``
     (``Bert`` of ``BertConfig(**kw)`` / ``BertConfig.large(**kw)``), ``vit``
     / ``vit_b16`` (``ViT`` of ``ViTConfig(**kw)`` / ``ViTConfig.b16(**kw)``),
     ``llama`` / ``llama_small`` / ``llama7b`` (``Llama`` of the small or
@@ -31,9 +32,10 @@ def get_model(name: str, **kw):
         from horovod_tpu_torch.models import resnet
         return (resnet.ResNet18 if key == "resnet18" else resnet.ResNet50)(
             **kw, **gen)
-    if key == "gpt2_medium":
+    if key in ("gpt2", "gpt2_medium"):
         from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config
-        return GPT2(GPT2Config.medium(**kw), **gen)
+        return GPT2(GPT2Config.medium(**kw) if key == "gpt2_medium"
+                    else GPT2Config(**kw), **gen)
     if key in ("bert", "bert_large"):
         from horovod_tpu_torch.models.bert import Bert, BertConfig
         return Bert(BertConfig.large(**kw) if key == "bert_large"

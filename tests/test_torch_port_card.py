@@ -366,3 +366,106 @@ def test_controller_over_nccl(nranks):
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["ok"], out["failed"]
     assert out["ranks"] == nranks and out["device"] == "cuda"
+
+
+# ------------------------------------- the allreduce algorithm axis over NCCL
+
+_ALG_WORKER = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import overlap
+
+    hvd.init()                                   # this rank's card, NCCL
+    r, n = hvd.rank(), hvd.size()
+    data = np.load(sys.argv[2])
+    x = torch.tensor(data["x"][r], device=hvd.device())
+    out = {"topology": torch.tensor(hvd.topology())}
+    for alg in overlap.ALGORITHMS:
+        for wire in overlap.WIRES:
+            for oname, op in (("sum", hvd.Sum), ("avg", hvd.Average)):
+                out[f"{alg}_{wire}_{oname}"] = hvd.allreduce(
+                    x, op=op, algorithm=alg, wire=wire, overlap_chunks=3)
+    # overlap=True: the hooks run on the autograd engine's device thread.
+    for tag, ov in (("plain", False), ("overlap", True)):
+        torch.manual_seed(0)
+        m = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(),
+                                torch.nn.Linear(256, 64)).to(hvd.device())
+        hvd.broadcast_parameters(m.state_dict(), 0)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(),
+                                                       lr=0.1),
+                                       overlap=ov, fusion_threshold_bytes=4096)
+        for step in range(3):
+            inp = torch.tensor(data["inp"][r, step], device=hvd.device())
+            opt.zero_grad()
+            m(inp).square().mean().backward()
+            opt.step()
+        out[f"model_{tag}"] = torch.cat([p.detach().reshape(-1)
+                                         for p in m.parameters()])
+    np.savez(sys.argv[3] + f".rank{r}.npz",
+             **{k: v.float().cpu().numpy() for k, v in out.items()})
+    hvd.shutdown()
+""")
+
+
+@pytest.mark.parametrize("nranks", [2, 4])
+def test_algorithms_over_nccl_match_psum(tmp_path, nranks):
+    """Every algorithm x wire, Sum and Average, of 2^16 fp32 values a rank
+    over two NCCL ranks and over four under ``HOROVOD_TOPOLOGY=2x2`` (the
+    ``_2d`` forms run two phases), against ``psum`` in the same world,
+    within the CPU tests' tolerances (``tests/test_torch_port_algorithms.py``:
+    fp32 rtol 2e-6 / atol 1e-5, the bf16 wire 2e-2 / 2e-2, the quantized
+    wires three half-steps of the largest value a contribution); the
+    quantized forms and ``swing`` give every rank the same bits; and a small
+    model trained 3 steps with ``overlap=True`` ends where ``overlap=False``
+    ends."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < nranks:
+        pytest.skip(f"needs {nranks} CUDA cards")
+    from horovod_tpu_torch import overlap
+    g = np.random.default_rng(nranks)
+    x = g.standard_normal((nranks, 2 ** 16)).astype(np.float32)
+    inp = g.standard_normal((nranks, 3, 8, 64)).astype(np.float32)
+    script = tmp_path / "worker.py"
+    script.write_text(_ALG_WORKER)
+    np.savez(tmp_path / "data.npz", x=x, inp=inp)
+    out = tmp_path / "out"
+    env = dict(os.environ)
+    if nranks == 4:
+        env["HOROVOD_TOPOLOGY"] = "2x2"
+    r = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+         str(nranks), "--timeout", "400", str(script), str(REPO),
+         str(tmp_path / "data.npz"), str(out)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=450)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = [np.load(f"{out}.rank{i}.npz") for i in range(nranks)]
+    assert tuple(res[0]["topology"]) == ((2, 2) if nranks == 4 else (2,))
+    top = float(np.abs(x).max())
+    for rank in range(nranks):
+        for oname in ("sum", "avg"):
+            base = res[rank][f"psum_fp32_{oname}"]
+            k = nranks if oname == "sum" else 1
+            for alg in overlap.ALGORITHMS:
+                for wire in overlap.WIRES:
+                    got = res[rank][f"{alg}_{wire}_{oname}"]
+                    qw = overlap.parse_algorithm(alg)[1]
+                    msg = f"rank {rank} {alg} {wire} {oname}"
+                    if qw is not None:
+                        bound = 3.0 * k * top / (127 if qw == "int8" else 8)
+                        if wire == "bf16":
+                            bound += 0.1 * k
+                        assert np.abs(got - base).max() < bound, msg
+                    elif wire == "bf16":
+                        np.testing.assert_allclose(got, base, rtol=2e-2,
+                                                   atol=2e-2 * k, err_msg=msg)
+                    else:
+                        np.testing.assert_allclose(got, base, rtol=2e-6,
+                                                   atol=1e-5, err_msg=msg)
+                    if qw is not None or alg == "swing":
+                        np.testing.assert_array_equal(
+                            got, res[0][f"{alg}_{wire}_{oname}"], msg)
+        np.testing.assert_allclose(res[rank]["model_overlap"],
+                                   res[rank]["model_plain"], rtol=1e-6,
+                                   atol=1e-7)

@@ -72,6 +72,23 @@ def test_config_fields_match_reference():
             getattr(GPT2Config.tiny(), name)
 
 
+@pytest.mark.parametrize("kw", [{}, {"num_layers": 3, "d_model": 96,
+                                     "num_heads": 6, "vocab_size": 512}])
+def test_get_model_gpt2_builds_the_reference_config(kw):
+    """``get_model("gpt2", **kw)`` builds ``GPT2(GPT2Config(**kw))`` as the
+    reference's ``get_model`` does (``horovod_tpu/models/__init__.py``)."""
+    from horovod_tpu.models import get_model as jget_model
+
+    from horovod_tpu_torch.models import get_model
+    with torch.device("meta"):
+        m = get_model("gpt2", **kw)
+    want = jget_model("gpt2", **kw).cfg
+    assert isinstance(m, GPT2)
+    for name in ("vocab_size", "max_seq_len", "num_layers", "num_heads",
+                 "d_model", "ln_eps", "attention", "remat", "num_experts"):
+        assert getattr(m.cfg, name) == getattr(want, name), name
+
+
 def test_converted_state_dict_covers_every_parameter(jax_params):
     sd = gpt2_params_from_jax(jax_params)
     m = GPT2(GPT2Config.tiny(dtype=torch.float32))

@@ -89,6 +89,39 @@ def test_controller_modules_load_no_jax_and_start_no_thread(tmp_path,
     assert "FORBIDDEN: [] THREADS: 0" in r.stdout, r.stdout
 
 
+COLLECTIVE_DEPTH_MODULES = ["horovod_tpu_torch.overlap",
+                            "horovod_tpu_torch.ops.quantized",
+                            "horovod_tpu_torch.autotune",
+                            "horovod_tpu_torch.parallel",
+                            "horovod_tpu_torch.parallel.mesh",
+                            "horovod_tpu_torch.optimizer"]
+
+
+@pytest.mark.parametrize("module", COLLECTIVE_DEPTH_MODULES)
+def test_collective_depth_modules_load_no_jax_and_build_nothing(tmp_path,
+                                                                module):
+    """The algorithm axis, the quantized wire, the tuner and the topology
+    import alone with no JAX, no module of ``horovod_tpu``, no thread and
+    no nvcc."""
+    build = tmp_path / "kernels"
+    code = textwrap.dedent(f"""
+        import importlib, sys, threading
+        sys.path.insert(0, {str(REPO)!r})
+        before = threading.active_count()
+        importlib.import_module({module!r})
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in {FORBIDDEN!r})
+        print("FORBIDDEN:", bad, "THREADS:",
+              threading.active_count() - before)
+    """)
+    env = dict(os.environ, HOROVOD_TORCH_BUILD_DIR=str(build))
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "FORBIDDEN: [] THREADS: 0" in r.stdout, r.stdout
+    assert not build.exists(), "import must not run nvcc"
+
+
 def test_import_starts_no_thread_and_init_starts_the_watchdog(tmp_path):
     code = textwrap.dedent(f"""
         import sys, threading
@@ -218,14 +251,15 @@ def test_get_model_builds_ported_names_and_points_to_roadmap():
     from horovod_tpu_torch.models.mnist import MnistCNN
     from horovod_tpu_torch.models.resnet import ResNet
     from horovod_tpu_torch.models.vit import ViT
-    assert PORTED == ("mnist", "resnet18", "resnet50", "gpt2_medium",
-                      "bert", "bert_large", "vit", "vit_b16", "llama",
-                      "llama7b", "llama_small")
+    assert PORTED == ("mnist", "resnet18", "resnet50", "gpt2",
+                      "gpt2_medium", "bert", "bert_large", "vit", "vit_b16",
+                      "llama", "llama7b", "llama_small")
     with torch.device("meta"):          # shapes only, no CPU init
         assert isinstance(get_model("mnist"), MnistCNN)
         r18 = get_model("resnet18", num_classes=10)
         assert len(get_model("ResNet50").blocks) == 16
         g = get_model("gpt2-medium", attention="flash")
+        small = get_model("gpt2", num_layers=2, d_model=64, num_heads=4)
         bert = get_model("bert_large", attention="flash")
         vit = get_model("vit-b/16", attention="flash")
         llama = get_model("llama", num_layers=24, num_heads=16,
@@ -234,12 +268,14 @@ def test_get_model_builds_ported_names_and_points_to_roadmap():
     assert isinstance(r18, ResNet) and len(r18.blocks) == 8
     assert isinstance(g, GPT2) and g.cfg.num_layers == 24
     assert g.cfg.attention == "flash"
+    assert isinstance(small, GPT2) and small.cfg.num_layers == 2
+    assert small.cfg.d_model == 64 and small.cfg.num_heads == 4
     assert isinstance(bert, Bert) and bert.cfg.num_layers == 24
     assert bert.cfg.d_model == 1024 and bert.cfg.attention == "flash"
     assert isinstance(vit, ViT) and vit.cfg.num_layers == 12
     assert vit.cfg.attention == "flash"
     assert isinstance(llama, Llama) and llama.cfg.num_kv_heads == 4
     assert llama.cfg.rms_eps == 1e-6 and llama.cfg.max_seq_len == 2048
-    for name in ("t5_small", "gpt2", "alexnet"):
+    for name in ("t5_small", "alexnet"):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             get_model(name)

@@ -205,7 +205,7 @@ def test_joined_peer_forces_full_round_and_ships_descriptor(monkeypatch):
                   compression=hvd.Compression.fp16, prescale_factor=2.0)
     desc = obj_calls[-1][2]
     assert desc == ("allreduce", (((4,), "float32"),), hvd.Sum, 2.0, 1.0,
-                    hvd.Compression.fp16, 512)
+                    hvd.Compression.fp16, 512, "auto", 4, "fp32", False)
 
 
 def test_neutral_host_elements():
