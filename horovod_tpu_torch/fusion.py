@@ -14,11 +14,11 @@ reference's, bucket for bucket, so the same tensors give the same buffers.
 The buckets go out first to last, or last first under ``reverse`` (the
 reference's ``fused_apply(reverse=True)``: the backward produces the last
 parameters' gradients first). :class:`BucketFiller` is the gradient-overlap
-form of a plan: buckets fill as the backward produces their tensors, and
-``pin_order`` holds a full bucket back until every bucket before it in
-issue order has gone, so every rank issues one order whatever order its
-gradient hooks fire in, as the reference's ``pin_order`` pins its issue
-order.
+form of a plan: buckets fill as the backward produces their tensors, and a
+full bucket is held back until every bucket before it in issue order has
+gone, so every rank issues one order whatever order its gradient hooks
+fire in (the reference's ``pin_order=True``; NCCL needs every rank to
+issue its collectives in one order).
 
 A bucket is one flat buffer on the tensors' device, filled by one
 ``torch.cat``; ``unpack`` slices the reduced buffers back, either into new
@@ -226,17 +226,14 @@ class BucketFiller:
 
     :meth:`mark` takes the index of a tensor whose value is final and
     returns the buckets to issue now, in issue order (``reverse``: last
-    bucket first). With ``pin_order`` a full bucket waits for every bucket
-    before it in issue order; without it, it goes at once. :meth:`rest`
-    returns the buckets not issued yet, in issue order (a tensor that got
-    no value leaves its bucket to the end of the step). :meth:`reset`
-    starts the next step."""
+    bucket first): a full bucket waits for every bucket before it in issue
+    order. :meth:`rest` returns the buckets not issued yet, in issue order
+    (a tensor that got no value leaves its bucket to the end of the step).
+    :meth:`reset` starts the next step."""
 
-    def __init__(self, plan: FusionPlan, reverse: bool = True,
-                 pin_order: bool = True):
+    def __init__(self, plan: FusionPlan, reverse: bool = True):
         self.plan = plan
         self.order = list(issue_order(len(plan.buckets), reverse))
-        self.pin_order = pin_order
         bucket_of = {s: b for b, segs in enumerate(plan.buckets)
                      for s in segs}
         self._buckets_of: dict = {}
@@ -246,7 +243,6 @@ class BucketFiller:
 
     def reset(self) -> None:
         self._left = [len(segs) for segs in self.plan.buckets]
-        self._issued = [False] * len(self.plan.buckets)
         self._next = 0
 
     def mark(self, tensor: int) -> List[int]:
@@ -259,13 +255,7 @@ class BucketFiller:
 
     def _take(self, full) -> List[int]:
         out = []
-        if self.pin_order:
-            while self._next < len(self.order) and \
-                    full(self.order[self._next]):
-                out.append(self.order[self._next])
-                self._next += 1
-        else:
-            out = [b for b in self.order if not self._issued[b] and full(b)]
-        for b in out:
-            self._issued[b] = True
+        while self._next < len(self.order) and full(self.order[self._next]):
+            out.append(self.order[self._next])
+            self._next += 1
         return out

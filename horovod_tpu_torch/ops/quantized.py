@@ -164,30 +164,44 @@ def reduce_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def issue_quantized_allreduce(flat: torch.Tensor, group, n: int,
-                              wire: str, mean_k: Optional[float] = None
+                              wire: str, mean_k: Optional[float] = None,
+                              per: Optional[int] = None, chunks: int = 1
                               ) -> Tuple[List, Callable[[], torch.Tensor]]:
     """Start the two-phase quantized allreduce of a 1-D fp32 buffer over
-    the ``n`` members of ``group``; returns ``(works, finish)``, where
-    ``finish()`` (after the works) returns the fp32 result. Phase 1 is
-    waited for here (on NCCL that orders the device stream, it does not
-    block the host). ``mean_k`` divides the reduced chunk before it is
-    re-quantized (Average over ``mean_k`` contributors)."""
+    the ``n`` members of ``group``, in ``chunks`` pieces of ``per``
+    elements (a multiple of ``n * BLOCK``; by default one piece that holds
+    the buffer); returns ``(works, finish)``, where ``finish()`` (after
+    the works) returns the fp32 result. Every piece's phase 1 is issued
+    before any phase 2; each phase 1 is waited for before its reduction
+    (on NCCL that orders the device stream, it does not block the host).
+    ``mean_k`` divides each reduced chunk before it is re-quantized
+    (Average over ``mean_k`` contributors). A one-member group still
+    quantizes."""
     L = flat.numel()
-    c = -(-L // (n * BLOCK)) * BLOCK      # chunk length, BLOCK-aligned
-    buf = torch.nn.functional.pad(flat, (0, n * c - L))
-    q, scale = quantize_blocks(buf.view(n, c), wire)
-    works, q_recv, s_recv = alltoall_codes(q, scale, group)
-    for w in works:
-        w.wait()
-    part = reduce_rows(q_recv, s_recv)
-    if mean_k is not None:
-        part = true_div(part, mean_k)
-    q2, s2 = quantize_blocks(part, wire)
-    works, q_all, s_all = allgather_codes(q2, s2, n, group)
+    if per is None:
+        per = -(-L // (n * BLOCK)) * n * BLOCK
+    c = per // n                           # a member's row, BLOCK-aligned
+    buf = torch.nn.functional.pad(flat, (0, per * chunks - L))
+    phase1 = [alltoall_codes(*quantize_blocks(
+        buf[i * per:(i + 1) * per].view(n, c), wire), group)
+        for i in range(chunks)]
+    gathered, works = [], []
+    for ws, q_recv, s_recv in phase1:
+        for w in ws:
+            w.wait()
+        part = reduce_rows(q_recv, s_recv)
+        if mean_k is not None:
+            part = true_div(part, mean_k)
+        ws2, q_all, s_all = allgather_codes(*quantize_blocks(part, wire), n,
+                                            group)
+        works.extend(ws2)
+        gathered.append((q_all, s_all))
 
     def finish() -> torch.Tensor:
-        return dequantize_blocks(q_all.view(n, c),
-                                 s_all.view(n, c // BLOCK)).reshape(-1)[:L]
+        outs = [dequantize_blocks(q.view(n, c),
+                                  s.view(n, c // BLOCK)).reshape(-1)
+                for q, s in gathered]
+        return (outs[0] if chunks == 1 else torch.cat(outs))[:L]
     return works, finish
 
 

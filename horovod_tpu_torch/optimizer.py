@@ -52,6 +52,12 @@ writes the results into ``.grad``. The plan is negotiated once, at the
 first step and whenever the tuner changes it: ranks whose plans differ
 raise on every rank before any bucket goes out. Under
 ``backward_passes_per_step=k`` the hooks issue on the k-th backward only.
+A parameter carries the hook of one wrapper at a time: a new
+``overlap=True`` wrapper over it (the optimizer rebuilt after a checkpoint
+load or a reset) removes the earlier wrapper's hook, and
+:meth:`DistributedOptimizer.close` removes the wrapper's own. A hook holds
+its wrapper weakly, so a dropped wrapper and its bucket buffers are
+freed.
 The join mask must be known before the backward there: call
 :meth:`DistributedOptimizer.set_alive` before ``loss.backward()`` (and
 pass the same value to ``step``).
@@ -76,6 +82,7 @@ from __future__ import annotations
 
 import json
 import time
+import weakref
 from typing import Dict, Iterable, List, Optional
 
 import torch
@@ -110,7 +117,8 @@ def _effective_quant_wire(algorithm: Optional[str], wire: Optional[str] = None,
     """The quantized wire a gradient allreduce will use, or None: the
     compression marker's, else an explicit quantized ``algorithm``'s,
     else the wire (argument or ``HOROVOD_ALLREDUCE_WIRE``) when it is
-    ``int8`` or ``fp8``."""
+    ``int8`` or ``fp8``. The reference's does not read the marker (a
+    deliberate divergence; see the module docstring)."""
     marker = getattr(compression, "wire", None)
     if marker is not None:
         return marker
@@ -223,6 +231,46 @@ def _make_autotuner():
                      "'bayes', or 'bayes-compression'")
 
 
+# id(parameter) -> (weak reference to it, handle of its overlap hook): the
+# one DistributedOptimizer(overlap=True) hook each parameter carries.
+_OVERLAP_HOOKS: Dict[int, tuple] = {}
+
+
+def _grad_hook(owner: weakref.ref, i: int):
+    def hook(p):
+        opt = owner()
+        if opt is not None:
+            opt._on_grad(i, p)
+    return hook
+
+
+def _hook_parameters(opt, params: List[torch.Tensor]) -> list:
+    """Register ``opt``'s post-accumulate-grad hook on every parameter in
+    place of the hook an earlier wrapper left there; returns the
+    ``(weakref(parameter), handle)`` pairs."""
+    for k in [k for k, (ref, _) in _OVERLAP_HOOKS.items() if ref() is None]:
+        del _OVERLAP_HOOKS[k]
+    owner, hooks = weakref.ref(opt), []
+    for i, p in enumerate(params):
+        old = _OVERLAP_HOOKS.pop(id(p), None)
+        if old is not None and old[0]() is p:
+            old[1].remove()
+        entry = (weakref.ref(p),
+                 p.register_post_accumulate_grad_hook(_grad_hook(owner, i)))
+        _OVERLAP_HOOKS[id(p)] = entry
+        hooks.append(entry)
+    return hooks
+
+
+def _unhook_parameters(hooks: list) -> None:
+    for ref, handle in hooks:
+        handle.remove()
+        p = ref()
+        if p is not None and _OVERLAP_HOOKS.get(id(p)) is not None \
+                and _OVERLAP_HOOKS[id(p)][1] is handle:
+            del _OVERLAP_HOOKS[id(p)]
+
+
 class _Overlap:
     """One gradient plan of ``DistributedOptimizer(overlap=True)``: the
     fusion plan of the parameters, the bucket buffers they are packed
@@ -235,8 +283,7 @@ class _Overlap:
         self.plan = _fusion.make_plan([p.numel() for p in params],
                                       [p.dtype for p in params], threshold,
                                       pad)
-        self.filler = _fusion.BucketFiller(self.plan, reverse=True,
-                                           pin_order=True)
+        self.filler = _fusion.BucketFiller(self.plan, reverse=True)
         # (bucket, offset in it, start in the tensor, n) of each tensor.
         self.places: Dict[int, list] = {}
         self.sizes = []
@@ -347,12 +394,12 @@ class DistributedOptimizer:
         # Of the last step under overlap=True: hook firings, buckets issued
         # in the backward, buckets in the plan.
         self.last_overlap: Optional[dict] = None
+        self._hooks: list = []
         if self._overlap:
             params = self._params()
             self._ov_params = [p for p in params if p.requires_grad]
-            for i, p in enumerate(self._ov_params):
-                p.register_post_accumulate_grad_hook(
-                    lambda p, i=i: self._on_grad(i, p))
+            self._hooks = _hook_parameters(self, self._ov_params)
+            weakref.finalize(self, _unhook_parameters, self._hooks)
 
     def __getattr__(self, name):
         return getattr(object.__getattribute__(self, "_opt"), name)
@@ -498,6 +545,13 @@ class DistributedOptimizer:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self._opt.zero_grad(set_to_none=set_to_none)
+
+    def close(self) -> None:
+        """Remove the gradient hooks of ``overlap=True`` and free the
+        bucket buffers. A later ``step()`` still reduces the gradients,
+        all of them at the step, as if none had arrived in the backward."""
+        _unhook_parameters(self._hooks)
+        self._ov = None
 
     # -- error-feedback state ----------------------------------------------
 

@@ -39,9 +39,9 @@ reference's member rows either way (the sum of the members' values); only
 the order of the fp32 additions differs.
 
 NCCL runs one communicator's work in issue order on one stream, so the
-chunks of ``chunked_rs_ag`` overlap with each other only where the
-all-gather legs ride a second communicator (``ag_group``);
-``tools/torch_collective_bench.py`` measures both. The reference's
+chunks of ``chunked_rs_ag`` do not overlap with each other there;
+``tools/torch_collective_bench.py`` measures what a second communicator
+for the all-gather legs would give. The reference's
 ``enable_latency_hiding`` sets XLA flags and has no counterpart here.
 
 Each lowering returns ``(works, finish)``: the work to wait for and the
@@ -266,11 +266,10 @@ def _observe_chunks(nbytes: int, chunks: int) -> None:
 
 
 def chunked_rs_ag(x: torch.Tensor, group, n: int,
-                  chunks: int = DEFAULT_CHUNKS, ag_group=None) -> Lowered:
+                  chunks: int = DEFAULT_CHUNKS) -> Lowered:
     """Sum-allreduce a 1-D buffer as ``chunks`` reduce-scatter +
     all-gather pairs over the ``n`` ranks of ``group`` (``chunks=1`` is
-    ``rs_ag``); ``ag_group``, a second communicator over the same ranks,
-    carries the all-gather legs when given."""
+    ``rs_ag``)."""
     m = x.numel()
     if m == 0 or n <= 1:
         return [], lambda: x
@@ -287,15 +286,15 @@ def chunked_rs_ag(x: torch.Tensor, group, n: int,
     # an all-gather on it needs no wait for its reduce-scatter; a wait
     # there would hold the caller's stream (the backward's compute, under
     # overlap) until the reduce-scatter ends. gloo's worker threads do not
-    # keep the order, and a second communicator has its own stream.
-    ordered = ag_group is None and dist.get_backend(group) == "nccl"
+    # keep the order.
+    ordered = dist.get_backend(group) == "nccl"
     gathered, works = [], []
     for w, part in zip(rs_works, scattered):
         if not ordered:
             w.wait()
         full = x.new_empty(per)
-        works.append(_q.ALL_GATHER_SINGLE(full, part, group=ag_group or group,
-                                async_op=True))
+        works.append(_q.ALL_GATHER_SINGLE(full, part, group=group,
+                                          async_op=True))
         gathered.append(full)
 
     def finish():
@@ -310,7 +309,9 @@ def chunked_rs_ag_quantized(x: torch.Tensor, group, n: int, chunks: int,
     """:func:`chunked_rs_ag` with the quantized wire (fp32 buffer): each
     chunk's rows (one BLOCK-aligned row per rank) are quantized and
     exchanged all-to-all, reduced in fp32 at their owner, divided by
-    ``mean_k`` (Average), re-quantized and all-gathered."""
+    ``mean_k`` (Average), re-quantized and all-gathered
+    (``ops/quantized.issue_quantized_allreduce``). One rank reduces
+    nothing and quantizes nothing."""
     if x.dtype != torch.float32:
         raise ValueError("quantized rs+ag reduces in fp32; cast the "
                          f"buffer first (got {x.dtype})")
@@ -319,30 +320,9 @@ def chunked_rs_ag_quantized(x: torch.Tensor, group, n: int, chunks: int,
         return [], lambda: (_q.true_div(x, mean_k)
                             if mean_k is not None and m else x)
     per, chunks = _split_sizes(m, n * _q.BLOCK, chunks)
-    x = _pad_to(x, per * chunks)
-    c = per // n
     _observe_chunks(wire_bytes(per, wire), chunks)
-    phase1 = [_q.alltoall_codes(*_q.quantize_blocks(
-        x[i * per:(i + 1) * per].view(n, c), wire), group)
-        for i in range(chunks)]
-    gathered, works = [], []
-    for ws, q_recv, s_recv in phase1:
-        for w in ws:
-            w.wait()
-        part = _q.reduce_rows(q_recv, s_recv)
-        if mean_k is not None:
-            part = _q.true_div(part, mean_k)
-        ws2, q_all, s_all = _q.allgather_codes(
-            *_q.quantize_blocks(part, wire), n, group)
-        works.extend(ws2)
-        gathered.append((q_all, s_all))
-
-    def finish():
-        outs = [_q.dequantize_blocks(q.view(n, c),
-                                     s.view(n, c // _q.BLOCK)).reshape(-1)
-                for q, s in gathered]
-        return (outs[0] if chunks == 1 else torch.cat(outs))[:m]
-    return works, finish
+    return _q.issue_quantized_allreduce(x, group, n, wire, mean_k, per,
+                                        chunks)
 
 
 def chunked_rs_ag_2d(x: torch.Tensor, phases: Sequence[Tuple[object, int]],

@@ -20,9 +20,14 @@ and none after, and plans that differ between ranks raise on every rank;
 a parameter that gets no gradient still lets its bucket go at ``step()``
 (its reduced gradient is zeros, as in the reference);
 ``backward_passes_per_step=2`` and the join mask (``set_alive``) give what
-``overlap=False`` gives. Error feedback: under ``Compression.int8`` the
-residual after a step equals the reference's ``_quantization_residual`` of
-this rank's gradient, bit for bit, with and without overlap.
+``overlap=False`` gives; a wrapper rebuilt over the same parameters takes
+their hooks over, and ``close()`` removes them. Error feedback: under
+``Compression.int8`` the residual after a step equals the reference's
+``_quantization_residual`` of this rank's gradient, bit for bit, with and
+without overlap; over three steps of gradients given exactly, the
+parameters and residuals are the reference's quantized algorithm with
+error feedback (``rs_ag_int8``), within the tolerances of
+``test_error_feedback_under_the_marker_trains_as_the_reference``.
 ``gradient_predivide_factor`` is held against the reference's torch
 frontend (``horovod_tpu.torch``): Average of fp16-compressed gradients of
 40000 on every rank overflows fp16 without it and is finite with the
@@ -87,6 +92,19 @@ def jax_steps(jax_params):
     for i in range(STEPS):
         params, state = sstep(params, state, jnp.asarray(_tokens(i)))
     return gpt2_params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+
+
+# Leaves of the error-feedback run: ragged tails, one whole block, mixed
+# magnitudes (1e-3 to 1e2), so that blocks and scales differ per leaf.
+EF_SIZES = (300, 7, 1000, 256)
+
+
+def _ef_consts():
+    """[rank][step][leaf] gradients of the error-feedback run."""
+    rng = np.random.default_rng(7)
+    return [[[(rng.standard_normal(n) * 10.0 ** rng.integers(-3, 3))
+              .astype(np.float32) for n in EF_SIZES] for _ in range(STEPS)]
+            for _ in range(2)]
 
 
 _WORKER = textwrap.dedent("""
@@ -207,6 +225,69 @@ _WORKER = textwrap.dedent("""
         assert all(float(t.abs().max()) == 0
                    for t in opt.state_dict()["error_feedback"])
 
+    # Error feedback under the int8 marker over three steps, on gradients
+    # the reference can be given exactly: d/dw sum(w * c) = c.
+    n_leaves = len([k for k in data.files if k.startswith(f"c0_0_")])
+    for tag, ov in (("efsteps_plain", False), ("efsteps_overlap", True)):
+        ws = [torch.nn.Parameter(torch.zeros(data[f"c0_0_{j}"].size))
+              for j in range(n_leaves)]
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(ws, lr=0.5),
+                                       compression=hvd.Compression.int8,
+                                       error_feedback=True, overlap=ov)
+        for step in range(3):
+            opt.zero_grad()
+            sum((w * torch.tensor(data[f"c{r}_{step}_{j}"])).sum()
+                for j, w in enumerate(ws)).backward()
+            opt.step()
+        for j, w in enumerate(ws):
+            out[f"{tag}:{j}"] = w.detach().numpy()
+            out[f"{tag}:res{j}"] = opt.state_dict()["error_feedback"][j] \
+                .numpy()
+
+    # The optimizer rebuilt over the same parameters, after a step and a
+    # backward with no step: the new wrapper takes the hooks over, the
+    # old one's fire no more, and once dropped it is freed.
+    import gc
+    import weakref
+    m = model()
+
+    def wrap():
+        return hvd.DistributedOptimizer(
+            torch.optim.SGD(m.parameters(), lr=0.1), overlap=True,
+            fusion_threshold_bytes=16384)
+
+    def backward(i):
+        tok = torch.tensor(data[f"t{i}"][r * half:(r + 1) * half])
+        loss_fn(m(tok), tok).backward()
+    first = wrap()
+    first.zero_grad()
+    backward(0)
+    first.step()
+    first.zero_grad()
+    backward(1)                  # no step: its buckets went out
+    aborted = first._ov.firings
+    first.zero_grad()
+    second = wrap()
+    for i in (1, 2):
+        second.zero_grad()
+        backward(i)
+        second.step()
+    info["rewrap"] = {"old_firings": [aborted, first._ov.firings],
+                      "new": second.last_overlap}
+    gone = weakref.ref(first)
+    del first
+    gc.collect()
+    info["rewrap"]["old_freed"] = gone() is None
+    for n, p in m.named_parameters():
+        out[f"rewrap:{n}"] = p.detach().numpy().copy()
+    # close(): no hook fires; step() still reduces every gradient.
+    second.close()
+    second.zero_grad()
+    backward(0)
+    info["rewrap"]["closed_quiet"] = second._ov is None
+    second.step()
+    info["rewrap"]["closed_step"] = second.last_overlap
+
     # gradient_predivide_factor: fp16 wire, 40000 on every rank.
     for tag, f in (("pre1", 1.0), ("pre2", 2.0)):
         w = torch.zeros(4, requires_grad=True)
@@ -242,7 +323,10 @@ def world(tmp_path_factory, jax_params):
     data = tmp / "data.npz"
     sd = gpt2_params_from_jax(jax_params)
     np.savez(data, **{f"t{i}": _tokens(i) for i in range(STEPS)},
-             **{f"p:{k}": v.numpy() for k, v in sd.items()})
+             **{f"p:{k}": v.numpy() for k, v in sd.items()},
+             **{f"c{r}_{s}_{j}": c for r, steps in enumerate(_ef_consts())
+                for s, leaves in enumerate(steps)
+                for j, c in enumerate(leaves)})
     out = tmp / "out"
     env = dict(os.environ, OMP_NUM_THREADS="1")
     r = subprocess.run(
@@ -331,6 +415,87 @@ def test_error_feedback_residual_matches_the_reference(world, tag):
             assert np.abs(got).max() <= np.abs(g).max() / 254 * 1.0001
 
 
+@pytest.mark.parametrize("tag", ["efsteps_plain", "efsteps_overlap"])
+def test_error_feedback_under_the_marker_trains_as_the_reference(world, tag):
+    """The port's ``Compression.int8`` with error feedback quantizes each
+    tensor as the reference's quantized algorithm does and carries the
+    residual of the same geometry. The reference's error feedback reads
+    only the algorithm and the wire (its residual stays zero under the
+    marker alone), so the run with the same semantics there is
+    ``allreduce_gradients(algorithm="rs_ag_int8", error_feedback=)`` over
+    the process set of ranks 0 and 1: three SGD(0.5) steps of the same
+    gradients. The reference's compiled step may contract a multiply and
+    an add (one rounding fewer), so: the residuals lie within one ulp of
+    twice the leaf's largest gradient (a bound on the compensated value);
+    the reduced values take the tolerance of
+    ``test_torch_port_quantized.py`` (a re-quantized value may move by one
+    step, max-abs / 127), so every parameter lies within 0.5 x the sum
+    over the steps of one step of the leaf, and 99 % within 1e-5 of the
+    leaf's largest parameter."""
+    from horovod_tpu.optimizer import allreduce_gradients
+    from jax.sharding import PartitionSpec as P
+    consts = _ef_consts()
+    ps = jhvd.add_process_set([0, 1])
+    try:
+        step = jhvd.spmd(
+            lambda g, e: allreduce_gradients(
+                g, process_set=ps, algorithm="rs_ag_int8", error_feedback=e),
+            in_specs=(P("hvd"), P("hvd")), out_specs=(P("hvd"), P("hvd")))
+        res = {j: jnp.zeros((jhvd.size(), n), jnp.float32)
+               for j, n in enumerate(EF_SIZES)}
+        w = [np.zeros(n, np.float32) for n in EF_SIZES]
+        bound = [0.0] * len(EF_SIZES)
+        for s in range(STEPS):
+            g = {j: jnp.asarray(np.stack(
+                [consts[r][s][j] for r in range(2)]
+                + [np.zeros(n, np.float32)] * (jhvd.size() - 2)))
+                for j, n in enumerate(EF_SIZES)}
+            out, res = step(g, res)
+            for j in range(len(EF_SIZES)):
+                o = np.asarray(out[j])[0]
+                w[j] = w[j] - np.float32(0.5) * o
+                bound[j] += 0.5 * float(np.abs(o).max()) / 127
+    finally:
+        jhvd.remove_process_set(ps)
+    for r, (got, _) in enumerate(world):
+        for j in range(len(EF_SIZES)):
+            np.testing.assert_allclose(got[f"{tag}:{j}"], w[j], rtol=0,
+                                       atol=bound[j], err_msg=str(j))
+            close = np.abs(got[f"{tag}:{j}"] - w[j]) \
+                <= 1e-5 * np.abs(w[j]).max()
+            assert close.mean() >= 0.99, (j, close.mean())
+            top = max(float(np.abs(consts[r][s][j]).max())
+                      for s in range(STEPS))
+            np.testing.assert_allclose(
+                got[f"{tag}:res{j}"], np.asarray(res[j])[r], rtol=0,
+                atol=float(np.spacing(np.float32(2 * top))), err_msg=str(j))
+        assert any(np.abs(got[f"{tag}:res{j}"]).max() > 0
+                   for j in range(len(EF_SIZES)))
+
+
+def test_rebuilt_optimizer_takes_the_hooks_over(world):
+    """A second ``overlap=True`` wrapper over the same parameters, built
+    after a step and an aborted backward of the first, trains as one
+    wrapper does (the parameters of overlap off after three steps, bit
+    for bit); the first wrapper's hooks fire no more and, dropped, it is
+    freed; after ``close()`` no hook fires and ``step()`` reduces every
+    gradient at the step."""
+    for res, info in world:
+        plain = _params(res, "plain")
+        again = _params(res, "rewrap")
+        assert set(again) == set(plain)
+        for name in plain:
+            np.testing.assert_array_equal(again[name], plain[name], name)
+        rw = info["rewrap"]
+        n = info["overlap"]["params"]
+        assert rw["old_firings"] == [n, n]
+        assert rw["new"]["firings"] == n
+        assert rw["new"]["issued_in_backward"] == rw["new"]["buckets"]
+        assert rw["old_freed"] and rw["closed_quiet"]
+        assert rw["closed_step"]["firings"] == 0
+        assert rw["closed_step"]["issued_in_backward"] == 0
+
+
 def test_gradient_predivide_factor_matches_the_torch_frontend(world):
     import horovod_tpu.torch as jtorch
     got = {}
@@ -383,11 +548,13 @@ def test_error_feedback_defaults_on_for_a_quantized_algorithm(monkeypatch):
         config.refresh()
 
 
-@pytest.mark.parametrize("pin_order", [True, False])
-def test_bucket_filler_issues_full_buckets_in_reverse(pin_order):
-    """Six tensors in buckets of the reference's plan; they become ready
-    out of order. With ``pin_order`` a full bucket waits for every later
-    bucket; without it, it goes at once. ``rest`` hands out the others."""
+@pytest.mark.parametrize("out_of_order", [True, False])
+def test_bucket_filler_issues_full_buckets_in_reverse(out_of_order):
+    """Six tensors in buckets of the reference's plan. A full bucket waits
+    for every later bucket (the order is pinned, the reference's
+    ``pin_order=True``): tensors that become ready out of order hold their
+    buckets back; in the backward's order (last tensor first) each bucket
+    goes as soon as it is full. ``rest`` hands out the others."""
     from horovod_tpu.fusion import fuse as jfuse
     from horovod_tpu_torch import fusion
     sizes = [100, 100, 300, 50, 700, 10]
@@ -398,11 +565,12 @@ def test_bucket_filler_issues_full_buckets_in_reverse(pin_order):
         == [int(b.size) for b in jbuckets]
     # Buckets: [t0 t1] [t2a] [t2b t3] [t4a] [t4b] [t4c] [t5].
     assert plan.buckets == [[0, 1], [2], [3, 4], [5], [6], [7], [8]]
-    f = fusion.BucketFiller(plan, reverse=True, pin_order=pin_order)
-    got = [f.mark(i) for i in (0, 1, 5, 4)] + [f.rest()]
-    if pin_order:
+    f = fusion.BucketFiller(plan, reverse=True)
+    if out_of_order:
+        got = [f.mark(i) for i in (0, 1, 5, 4)] + [f.rest()]
         assert got == [[], [], [6], [5, 4, 3], [2, 1, 0]]
     else:
-        assert got == [[], [0], [6], [5, 4, 3], [2, 1]]
+        got = [f.mark(i) for i in (5, 4, 3, 2, 1, 0)] + [f.rest()]
+        assert got == [[6], [5, 4, 3], [], [2, 1], [], [0], []]
     f.reset()
     assert f.rest() == list(fusion.issue_order(len(plan.buckets), True))

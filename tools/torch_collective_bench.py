@@ -19,10 +19,11 @@ host clock on the CPU), algbw = bytes / time and busbw = algbw x 2(n-1)/n,
 the largest error against ``psum``'s result on the same inputs relative
 to its largest value, the wire bytes a call from the
 ``allreduce_wire_bytes_total`` counters and the algorithm it resolved to.
-``chunked_rs_ag`` is timed once more with its all-gather legs on a second
-communicator over the same ranks (``overlap.chunked_rs_ag(ag_group=)``):
-NCCL runs one communicator's work in issue order, so only then can chunk
-i's all-gather overlap chunk i+1's reduce-scatter.
+``chunked_rs_ag``'s legs are timed once more as this tool issues them
+itself, on one communicator and with the all-gather legs on a second
+communicator over the same ranks (:func:`_chunked_two_comms`): NCCL runs
+one communicator's work in issue order, so only on two can chunk i's
+all-gather overlap chunk i+1's reduce-scatter.
 
 **Models** (``--model``): GPT-2 medium (B 8, T 1024, bf16, flash, AdamW)
 or ResNet-50 (B 128, 224², bf16, channels_last, SGD-momentum), each rank
@@ -88,6 +89,37 @@ def _bound(alg, wire, n, top):
     if wire in overlap.QUANT_WIRES and alg == "auto":
         return 3.0 * n * top / (127 if wire == "int8" else 8)
     return 2e-2 * n * top if wire == "bf16" else 1e-5 * n * top
+
+
+def _chunked_two_comms(x, group, ag_group, n: int, chunks: int):
+    """``overlap.chunked_rs_ag``'s legs, the all-gathers on ``ag_group``
+    (``group`` itself for the one-communicator baseline): every chunk's
+    reduce-scatter, then each chunk's all-gather after its own
+    reduce-scatter. Returns the reduced buffer."""
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch import overlap
+    from horovod_tpu_torch.ops import quantized as q
+    m = x.numel()
+    per, chunks = overlap._split_sizes(m, n, chunks)
+    x = overlap._pad_to(x, per * chunks)
+    rs, parts = [], []
+    for i in range(chunks):
+        out = x.new_empty(per // n)
+        rs.append(overlap._RS_SINGLE(out, x[i * per:(i + 1) * per],
+                                     group=group, async_op=True))
+        parts.append(out)
+    gathered, works = [], []
+    for w, part in zip(rs, parts):
+        if ag_group is not group or dist.get_backend(group) != "nccl":
+            w.wait()
+        full = x.new_empty(per)
+        works.append(q.ALL_GATHER_SINGLE(full, part, group=ag_group,
+                                         async_op=True))
+        gathered.append(full)
+    for w in works:
+        w.wait()
+    return (gathered[0] if chunks == 1 else torch.cat(gathered))[:m]
 
 
 def collectives_worker(device: str, sizes_mb, reps: int, out_dir: str):
@@ -162,14 +194,11 @@ def collectives_worker(device: str, sizes_mb, reps: int, out_dir: str):
                          "err": err, "rel_err": err / top,
                          "ok": err <= _bound(alg, wire, n, top_x),
                          "wire_bytes": wire_bytes})
-        for tag, ag in (("chunked_rs_ag_1comm", None),
+        for tag, ag in (("chunked_rs_ag_1comm", ps.group),
                         ("chunked_rs_ag_2comm", second)):
             def direct():
-                works, fin = overlap.chunked_rs_ag(
-                    x, ps.group, n, overlap.DEFAULT_CHUNKS, ag_group=ag)
-                for w in works:
-                    w.wait()
-                return fin()
+                return _chunked_two_comms(x, ps.group, ag, n,
+                                          overlap.DEFAULT_CHUNKS)
             err = float((direct() - ref).abs().max())
             ms = timed(direct)
             rows.append({"mb": mb, "algorithm": tag, "wire": "fp32",
