@@ -93,12 +93,30 @@ Phases, in order; any failure exits nonzero and prints no result:
    with ``Compression.fp8``; (d) with two cards
    ``tools/torch_collective_bench.py --np 2`` at 1, 64 and 1024 MB; with
    one card a line says it did not run.
+8. elastic training of phase 3's GPT-2 medium, committing a
+   ``TorchState`` and saving it through ``ShardedCheckpointManager
+   (max_to_keep=2)`` every step (the disk must hold three saves): (a)
+   ``runner.run_elastic(np=1, spares=1)`` of
+   ``tools/torch_elastic_worker.py`` with ``kill@rank=0,step=4``: one
+   restart, the spare held no CUDA context in standby, it resumed from the
+   newest published step, every step's loss equals phase 3's within
+   ``LOSS_TOL`` and each kernel launched 24 times in every step that ran;
+   the recovery time and its parts, a save's seconds and bytes, how long
+   ``save()`` held the step and the step time with saves are printed; (b)
+   on a new one-rank NCCL world, an in-process reset under
+   ``@elastic.run`` after step 2's commit: the state rolls back, the group
+   is re-formed (``init_epoch`` + 1), the same losses and launches, the
+   commit's and the reset's times; (c) with two cards, two-rank runs with
+   ``kill@rank=1,step=3`` with and without a spare against a golden
+   two-rank run; with one card a line says it did not run.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
-under the int8 wire, each counted from 0 just before the path and read
-just after) and their sum, and its numbers at each new path's shape. The last
+under the int8 wire, GPT-2 under elastic training over both attempts of
+(a) and under the reset of (b), each counted from 0 just before the path
+and read just after) and their sum, and its numbers at each new path's
+shape. The last
 line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops after
 the kernel checks.
 """
@@ -109,6 +127,7 @@ import argparse
 import json
 import math
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1198,7 +1217,7 @@ def phase_tiny_transformers(dev):
                floor=0.0)
 
 
-def build_path(name, dev, **opt_extra):
+def build_path(name, dev, rows=None, **opt_extra):
     """One training path at full width, on ``dev``, from seed 0: (model,
     optimizer, loss closure, info: the items a step and their unit, the
     model's input, the LM head's multiply-adds a step outside ``Dense``,
@@ -1207,7 +1226,8 @@ def build_path(name, dev, **opt_extra):
     ``:289-319`` and ``:552-586``, all without the bench's remat (not
     ported); ViT-B/16 as ``:322-353`` with ``attention="flash"``.
     ``opt_extra`` goes to ``DistributedOptimizer`` (phase 7: ``overlap``,
-    ``compression``, ``error_feedback``)."""
+    ``compression``, ``error_feedback``). ``rows`` (GPT-2 medium) takes
+    this rank's slice of the batch (phase 8's two-rank worlds)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1225,7 +1245,7 @@ def build_path(name, dev, **opt_extra):
         b, t = 8, 1024
         tokens = torch.randint(0, model.cfg.vocab_size, (b, t),
                                generator=torch.Generator().manual_seed(0))
-        inputs = tokens.to(dev)
+        inputs = (tokens if rows is None else tokens[rows]).to(dev)
 
         def loss():
             return loss_fn(model(inputs), inputs)
@@ -1907,15 +1927,385 @@ def phase_collective_depth(card, main_path):
             "two_rank_bench": bench}
 
 
+# ---------------------------------------------------------------- phase 8
+
+ELASTIC_WORKER = "tools/torch_elastic_worker.py"
+# Absolute band between a two-rank golden run's losses and a run whose
+# world shrank to one rank after the restore: the same global batch, the
+# gradient summed in another order (phase 8 (c)). On two H100s a correct
+# shrink lands 6.6e-05 from the golden losses, a restore that leaves
+# AdamW's moments fresh 2.8e-02 and one that trains on the old half batch
+# 8.4e-02 (tools/torch_elastic_band.py).
+SHRINK_LOSS_TOL = 1e-3
+
+
+def elastic_job(state_dir, np_, spares=0, plan="", steps=5,
+                model="gpt2_medium", device="cuda", max_pending=2,
+                timeout=900):
+    """``runner.run_elastic`` of ``tools/torch_elastic_worker.py`` under the
+    fault plan ``plan``; returns (restarts, the lines of its steps.jsonl,
+    the lines of its exits.jsonl, wall seconds). The first attempt waits
+    for the spares to register, so the fault cannot come before a spare
+    could be promoted."""
+    import os
+    from horovod_tpu_torch.runner import run_elastic
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.join(root, ELASTIC_WORKER), "--steps",
+           str(steps), "--model", model, "--device", device,
+           "--max-pending", str(max_pending)]
+    if spares:
+        cmd += ["--wait-spares", str(spares)]
+    env = {"HOROVOD_FAULT_PLAN": plan} if plan else {}
+    t0 = time.perf_counter()
+    restarts = run_elastic(cmd, np=np_, spares=spares, state_dir=state_dir,
+                           extra_env=env, timeout=timeout, max_restarts=1)
+    wall = time.perf_counter() - t0
+
+    def jsonl(name):
+        path = os.path.join(state_dir, name)
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            return [json.loads(x) for x in f if x.strip()]
+    return restarts, jsonl("steps.jsonl"), jsonl("exits.jsonl"), wall
+
+
+# What a rank's error says when its peer's process died under it (the
+# controller's gloo round reads from or writes to a closed socket).
+PEER_LOST = ("by peer", "Broken pipe")
+
+
+def check_elastic_job(tag, restarts, lines, exits, want_losses, tol, steps,
+                      world_after, kill_step, planted, layers=None,
+                      promoted=True):
+    """Holds one faulted elastic run to its contract: one restart, caused
+    by the planted kill: rank ``planted`` died of SIGKILL and every other
+    rank of the first attempt was still running when that was seen, or had
+    failed in step ``kill_step`` on a lost peer; the promoted spare (when
+    ``promoted``) held no CUDA context in standby; the relaunched attempt
+    restored the newest published step and re-ran every step after it;
+    every step's loss within ``tol`` of ``want_losses``; each kernel
+    launched ``layers`` times in every step that ran (when given). Returns
+    a summary; raises AssertionError naming the fault."""
+    runs = [x for x in lines if "event" not in x]
+    done = {x["attempt"]: x for x in lines if x.get("event") == "done"}
+    promo = [x for x in lines if x.get("event") == "promoted"]
+    errors = {x["rank"]: x for x in lines if x.get("event") == "error"
+              and x["attempt"] == 0}
+    assert restarts == 1, f"{tag}: {restarts} restarts, expected 1"
+    assert [e["attempt"] for e in exits] == [0], \
+        f"{tag}: failed attempts {exits}"
+    codes = {int(r): c for r, c in exits[0]["exits"].items()}
+    assert codes.get(planted) == -signal.SIGKILL, \
+        f"{tag}: rank {planted} was to die of the planted SIGKILL; the " \
+        f"first attempt's exit codes {codes}, errors {errors}"
+    for r, c in codes.items():
+        if r == planted or c is None:
+            continue
+        e = errors.get(r)
+        assert e is not None and e["step"] == kill_step and \
+            any(m in e["error"] for m in PEER_LOST), \
+            f"{tag}: rank {r} failed on its own (exit {c}): {e}"
+    assert 1 in done and 0 not in done, f"{tag}: attempts done {sorted(done)}"
+    if promoted:
+        assert len(promo) == 1 and \
+            promo[0]["cuda_initialized_in_standby"] is False, \
+            f"{tag}: promotion records {promo}"
+    first = sorted(x["step"] for x in runs if x["attempt"] == 0)
+    if planted == 0:
+        # rank 0 logs every step it finishes, and is the one killed
+        assert first == list(range(kill_step)), \
+            f"{tag}: the first attempt ran steps {first}, killed at " \
+            f"{kill_step}"
+    else:
+        # Rank 0 logs a step after its save() returns: it can be torn down
+        # while a save waits for the writer, before it logs the last steps.
+        assert first == list(range(len(first))) and \
+            len(first) <= kill_step, \
+            f"{tag}: the first attempt ran steps {first}, killed at " \
+            f"{kill_step}"
+    back = done[1]
+    assert back["restored_step"] is not None, \
+        f"{tag}: nothing was published before the fault; the relaunch " \
+        f"started from step 0"
+    published = back["checkpoints_seen"]["published"]
+    r = back["restored_step"]
+    assert r is not None and r == max(published) and r < kill_step, \
+        f"{tag}: restored step {r}, published {published}"
+    again = sorted(x["step"] for x in runs if x["attempt"] == 1)
+    assert again == list(range(r + 1, steps)), \
+        f"{tag}: the relaunch ran {again}, restored at {r}"
+    assert all(x["world"] == world_after for x in runs
+               if x["attempt"] == 1), f"{tag}: worlds after the restart " \
+        f"{sorted({x['world'] for x in runs if x['attempt'] == 1})}"
+    diffs = [abs(x["loss"] - want_losses[x["step"]]) for x in runs]
+    got = [(x["attempt"], x["step"], x["loss"]) for x in runs]
+    assert max(diffs) <= tol, \
+        f"{tag}: losses {got} differ from {want_losses} by up to " \
+        f"{max(diffs):.3e} (limit {tol})"
+    if layers is not None:
+        bad = [x["launches"] for x in runs
+               if any(v != layers for v in x["launches"].values())]
+        assert not bad, f"{tag}: launches per step {bad}"
+    launches = {}
+    for x in runs:
+        for k, v in x["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"restored_step": r, "published_at_restore": published,
+            "unpublished_at_restore":
+                back["checkpoints_seen"]["unpublished"],
+            "steps_rerun": again, "max_loss_diff": max(diffs),
+            "first_attempt_exits": codes,
+            "launches": launches, "done": back, "runs": runs,
+            "promoted": promo}
+
+
+def phase_elastic(card, main_path):
+    """Phase 8: elastic training of phase 3's GPT-2 medium. (a) relaunch:
+    ``run_elastic(np=1, spares=1)`` with ``kill@rank=0,step=4``; (b) an
+    in-process reset under ``@elastic.run`` on a new one-rank NCCL world;
+    (c) with two cards, two-rank runs with ``kill@rank=1,step=3`` with and
+    without a spare against a golden two-rank run."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from horovod_tpu_torch.models import get_model
+    steps = len(main_path["losses"])
+    kill = 4
+    with torch.device("meta"):
+        meta = get_model("gpt2_medium", attention="flash")
+    n_params = sum(p.numel() for p in meta.parameters())
+    layers = meta.cfg.num_layers
+    save_bytes = n_params * 4 * 3      # fp32 weights and AdamW's two moments
+    keep = 2
+    sdir = tempfile.mkdtemp(prefix="chip_smoke_phase8_")
+    free = shutil.disk_usage(sdir).free
+    log(f"phase 8: {n_params} params, {save_bytes / 1e9:.2f} GB a save; "
+        f"{free / 1e9:.1f} GB free under {sdir}")
+    if free < (keep + 1) * save_bytes:
+        fail(f"phase 8: {free / 1e9:.1f} GB free under {sdir}, a sharded "
+             f"checkpoint with max_to_keep={keep} needs "
+             f"{(keep + 1) * save_bytes / 1e9:.1f} GB")
+
+    # (a) a SIGKILLed worker replaced by the promoted spare
+    restarts, lines, exits, wall = elastic_job(
+        sdir, 1, spares=1, plan=f"kill@rank=0,step={kill}", steps=steps)
+    try:
+        a = check_elastic_job("phase 8 (a)", restarts, lines, exits,
+                              main_path["losses"], LOSS_TOL, steps, 1, kill,
+                              0, layers=layers)
+    except AssertionError as e:
+        fail(str(e))
+    shutil.rmtree(sdir, ignore_errors=True)
+    done, runs = a["done"], a["runs"]
+    saves = done["checkpoint_save_seconds"]
+    holds = [x["save_hold_s"] for x in runs]
+    with_save = [x["step_with_save_s"] * 1e3 for x in runs]
+    trained = [x["step_s"] * 1e3 for x in runs]
+    split = {
+        "promotion_s": done["t_promoted"] - done["failed_at"],
+        "init_s": done["t_init"] - done["t_promoted"],
+        "build_s": done["t_built"] - done["t_init"],
+        "adopt_and_sync_s": done["t_restored"] - done["t_built"],
+        "spare_import_s": done["t_imported"] - done["t_start"]}
+    ea = {"restarts": restarts, "wall_s": wall,
+          "first_attempt_exits": a["first_attempt_exits"],
+          "restored_step": a["restored_step"],
+          "published_at_restore": a["published_at_restore"],
+          "unpublished_at_restore": a["unpublished_at_restore"],
+          "steps_rerun": a["steps_rerun"],
+          "elastic_recovery_seconds": done["elastic_recovery_seconds"],
+          "recovery_split": split,
+          "checkpoint_save_seconds_mean": saves["sum"] / saves["count"],
+          "checkpoint_restore_seconds":
+              done["checkpoint_restore_seconds"]["sum"],
+          "bytes_a_save": done["checkpoint_bytes_total"] / saves["count"],
+          "save_hold_s": holds, "step_with_save_ms": with_save,
+          "step_ms": trained,
+          "step_with_save_ms_median": statistics.median(with_save),
+          "step_ms_median": statistics.median(trained),
+          "phase3_step_ms_median": main_path["step_ms_median"],
+          "losses": [(x["attempt"], x["step"], x["loss"]) for x in runs],
+          "max_loss_diff": a["max_loss_diff"]}
+    log(f"phase 8 (a): kill@rank=0,step={kill} with one spare: {restarts} "
+        f"restart (the first attempt's exit codes "
+        f"{a['first_attempt_exits']}), the spare (no CUDA context in "
+        f"standby) restored step "
+        f"{a['restored_step']} (published {a['published_at_restore']}, "
+        f"unpublished {a['unpublished_at_restore']}) and re-ran steps "
+        f"{a['steps_rerun']}; losses within {a['max_loss_diff']:.3e} of "
+        f"phase 3's, {layers} launches of each kernel a step; "
+        f"elastic_recovery_seconds {done['elastic_recovery_seconds']:.3f} "
+        f"(promotion {split['promotion_s']:.3f}, init {split['init_s']:.3f},"
+        f" build {split['build_s']:.3f}, adopt + sync "
+        f"{split['adopt_and_sync_s']:.3f} s; the spare's import "
+        f"{split['spare_import_s']:.3f} s, paid before the fault); "
+        f"checkpoint_save_seconds {ea['checkpoint_save_seconds_mean']:.3f} "
+        f"s a save (writer), {ea['bytes_a_save'] / 1e9:.3f} GB a save, "
+        f"restore {ea['checkpoint_restore_seconds']:.3f} s; save() held the "
+        f"step {', '.join(f'{h:.3f}' for h in holds)} s; step "
+        f"{ea['step_ms_median']:.1f} ms median, with the save "
+        f"{ea['step_with_save_ms_median']:.1f} ms, against phase 3's "
+        f"{main_path['step_ms_median']:.1f} ms; run {wall:.1f} s")
+
+    eb = phase_elastic_reset(card, main_path)
+
+    ec = None
+    if torch.cuda.device_count() >= 2:
+        ec = two_rank_elastic(steps=steps)
+        log(f"phase 8 (c): two ranks, kill@rank=1,step=3: {ec}")
+    else:
+        log("phase 8 (c): the two-rank elastic runs (kill@rank=1,step=3 "
+            "with and without a spare) did not run for want of a second "
+            f"card (cards: {torch.cuda.device_count()})")
+    return {"relaunch": ea, "reset": eb, "two_rank": ec,
+            "launches": {"gpt2_medium_elastic": a["launches"],
+                         "gpt2_medium_elastic_reset": eb.pop("launches")}}
+
+
+def two_rank_elastic(steps=5, model="gpt2_medium", device="cuda"):
+    """Phase 8 (c), also run by ``tests/test_torch_port_card.py``: a golden
+    two-rank run, then ``kill@rank=1,step=3`` without a spare (the world
+    shrinks to one rank and resumes from a manifest written at two) and
+    with one (the spare is promoted into rank 1, on GPU 1). One save in
+    flight: rank 1 has nothing to write and would otherwise reach the kill
+    before rank 0's writer publishes anything; with one, step 1's save
+    returns only after step 0 is published."""
+    import shutil
+    import tempfile
+    out = {}
+    gdir = tempfile.mkdtemp(prefix="chip_smoke_phase8c_")
+    restarts, lines, exits, wall = elastic_job(gdir, 2, steps=steps,
+                                               model=model, device=device)
+    shutil.rmtree(gdir, ignore_errors=True)
+    golden = {x["step"]: x["loss"] for x in lines if "event" not in x}
+    assert restarts == 0 and not exits and \
+        sorted(golden) == list(range(steps)), \
+        f"golden two-rank run: {restarts} restarts, steps {sorted(golden)}"
+    want = [golden[s] for s in range(steps)]
+    out["golden_losses"] = want
+    for spares, world, tol in ((0, 1, SHRINK_LOSS_TOL), (1, 2, LOSS_TOL)):
+        d = tempfile.mkdtemp(prefix="chip_smoke_phase8c_")
+        restarts, lines, exits, wall = elastic_job(
+            d, 2, spares=spares, plan="kill@rank=1,step=3", steps=steps,
+            model=model, device=device, max_pending=1)
+        shutil.rmtree(d, ignore_errors=True)
+        c = check_elastic_job(f"two ranks, {spares} spare(s)", restarts,
+                              lines, exits, want, tol, steps, world, 3, 1,
+                              promoted=bool(spares))
+        out[f"spares_{spares}"] = {
+            "world_after": world, "restored_step": c["restored_step"],
+            "first_attempt_exits": c["first_attempt_exits"],
+            "steps_rerun": c["steps_rerun"],
+            "max_loss_diff": c["max_loss_diff"], "tol": tol,
+            "elastic_recovery_seconds":
+                c["done"]["elastic_recovery_seconds"], "wall_s": wall}
+    return out
+
+
+def phase_elastic_reset(card, main_path):
+    """Phase 8 (b): phase 3's GPT-2 medium under ``@elastic.run`` on a new
+    one-rank NCCL world, committing every step. A ``DeviceDiscovery`` whose
+    probe changes after step 2's commit makes step 3 end in
+    ``HostsUpdatedInterrupt`` before its commit: the state rolls back to
+    step 2's commit, the NCCL group is re-formed (``init_epoch`` + 1) and
+    the run finishes. Every step's loss, step 3's both times, must equal
+    phase 3's within ``LOSS_TOL``, with ``num_layers`` launches of each
+    kernel a step."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import core, elastic, metrics
+    from horovod_tpu_torch.elastic import driver
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    steps = len(main_path["losses"])
+    model, opt, loss_of, _ = build_path("gpt2_medium", hvd.device())
+    model_layers = model.cfg.num_layers
+    state = elastic.TorchState(model=model, optimizer=opt, step=0)
+    generation = [0]
+    disco = elastic.DeviceDiscovery(
+        probe=lambda: [f"cuda:0 generation {generation[0]}"])
+    epoch0 = core.init_epoch()
+    ran, commits = [], []
+
+    @elastic.run
+    def train(state):
+        while state.step < steps:
+            s = state.step
+            before = dict(fa.launches)
+            opt.zero_grad()
+            loss = loss_of()
+            loss.backward()
+            opt.step()
+            ran.append((s, loss.item(), core.init_epoch(),
+                        {k: fa.launches[k] - before[k] for k in fa.KERNELS}))
+            if s == 3 and len(ran) == 4:      # step 3's first run
+                deadline = time.monotonic() + 30
+                while not driver.notification_manager.changed:
+                    if time.monotonic() > deadline:
+                        fail("phase 8 (b): discovery never saw the change")
+                    time.sleep(0.01)
+                state.check_host_updates()
+            state.step = s + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state.commit()
+            torch.cuda.synchronize()
+            commits.append(time.perf_counter() - t0)
+            if s == 2:
+                generation[0] = 1
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    train(state, discovery=disco)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    reset_s = metrics.gauge("elastic_recovery_seconds").value
+    epoch1 = core.init_epoch()
+    hvd.shutdown()
+    del model, opt, state
+    torch.cuda.empty_cache()
+    order = [s for s, _, _, _ in ran]
+    if order != [0, 1, 2, 3, 3, 4] or epoch1 != epoch0 + 1 or \
+            [e for *_, e, _ in ran] != [epoch0] * 4 + [epoch1] * 2:
+        fail(f"phase 8 (b): steps ran {order} in init epochs "
+             f"{[e for *_, e, _ in ran]} ({epoch0} -> {epoch1})")
+    diffs = [abs(v - main_path["losses"][s]) for s, v, _, _ in ran]
+    if max(diffs) > LOSS_TOL:
+        fail(f"phase 8 (b): losses {[(s, v) for s, v, _, _ in ran]} differ "
+             f"from phase 3's {main_path['losses']} by up to "
+             f"{max(diffs):.3e} (limit {LOSS_TOL})")
+    layers = model_layers
+    if any(v != layers for *_, grew in ran for v in grew.values()):
+        fail(f"phase 8 (b): launches a step {[g for *_, g in ran]}")
+    log(f"phase 8 (b): in-process reset after step 2's commit: steps ran "
+        f"{order}, init epoch {epoch0} -> {epoch1} (NCCL group re-formed), "
+        f"losses within {max(diffs):.3e} of phase 3's, {layers} launches of "
+        f"each kernel a step; commit (device copy of the model and AdamW state) "
+        f"{statistics.median(commits) * 1e3:.1f} ms median "
+        f"({', '.join(f'{c * 1e3:.1f}' for c in commits)}), reset "
+        f"{reset_s:.3f} s; run {wall:.1f} s")
+    return {"steps_ran": order, "init_epochs": [epoch0, epoch1],
+            "losses": [(s, v) for s, v, _, _ in ran],
+            "max_loss_diff": max(diffs), "commit_ms": [c * 1e3
+                                                       for c in commits],
+            "reset_s": reset_s, "wall_s": wall, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7; 6 and 7 need 3)")
+                         "1,2,3,4,5,6,7,8; 6, 7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
-    if phases & {6, 7} and 3 not in phases:
-        fail("phases 6 and 7 compare their losses with phase 3's: run 3")
+    if phases & {6, 7, 8} and 3 not in phases:
+        fail("phases 6, 7 and 8 compare their losses with phase 3's: run 3")
 
     import torch
     if not torch.cuda.is_available():
@@ -1950,6 +2340,10 @@ def main(argv=None) -> int:
         depth = phase_collective_depth(card, main_path)
         launches.update(depth.pop("launches"))
         print(json.dumps({"phase7": depth}), flush=True)
+    if 8 in phases:
+        el = phase_elastic(card, main_path)
+        launches.update(el.pop("launches"))
+        print(json.dumps({"phase8": el}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -30,7 +30,11 @@ forms over ``topology()``, ``swing``, or ``auto``; ``wire=`` and
 (``ops/quantized.py``), and in ``DistributedOptimizer`` gradient overlap
 in the backward (``overlap=True``), error feedback (``error_feedback=``,
 ``reset_error_feedback``), ``gradient_predivide_factor`` and the online
-tuner (``HOROVOD_AUTOTUNE``, ``autotune.py``). The
+tuner (``HOROVOD_AUTOTUNE``, ``autotune.py``). Fault tolerance:
+``elastic`` (``TorchState``, ``TensorState``, ``@elastic.run``, discovery,
+hot spares), ``checkpoint_sharded`` (async two-phase sharded checkpoints in
+the reference's on-disk format), ``checkpoint`` (full state), ``faults``
+(``HOROVOD_FAULT_PLAN``) and ``runner.run_elastic``. The
 flash-attention kernels are CUDA C++ for Hopper (``ops/csrc``), built with
 nvcc at first use. This package imports nothing
 of JAX or of ``horovod_tpu``.
@@ -66,6 +70,15 @@ from horovod_tpu_torch.process_set import (
     global_process_set, remove_process_set)
 from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
 from horovod_tpu_torch.timeline import start_timeline, stop_timeline
+# Fault tolerance: elastic states and the run decorator (hvd.elastic), async
+# sharded checkpoints (hvd.checkpoint_sharded), full-state checkpoints
+# (hvd.checkpoint) and the fault plan (hvd.faults).
+from horovod_tpu_torch import checkpoint  # noqa: E402,F401
+from horovod_tpu_torch import checkpoint_sharded  # noqa: E402,F401
+from horovod_tpu_torch import elastic  # noqa: E402,F401
+from horovod_tpu_torch import faults  # noqa: E402,F401
+from horovod_tpu_torch.checkpoint_sharded import (  # noqa: E402,F401
+    ShardedCheckpointManager, TornCheckpointError)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
@@ -89,4 +102,6 @@ __all__ = [
     "negotiation_arrival_stats", "topology", "topology_str",
     "reset_error_feedback", "quantized_allreduce", "Autotuner",
     "BayesianAutotuner", "AutotuneResult", "autotune_fusion_threshold",
+    "checkpoint", "checkpoint_sharded", "elastic", "faults",
+    "ShardedCheckpointManager", "TornCheckpointError",
 ]

@@ -43,6 +43,11 @@ not at the first collective.
   rank 0 appends the converged point to; ``HOROVOD_AUTOTUNE_PROBES`` /
   ``HOROVOD_AUTOTUNE_SAMPLES`` -- the Bayesian budget (6 probes of 10
   steps).
+* ``HOROVOD_FAULT_PLAN`` -- the fault-injection schedule of ``faults.py``,
+  parsed here so a typo'd plan fails at ``init()``;
+  ``HOROVOD_ELASTIC_TIMEOUT`` -- seconds (600) of the elastic rendezvous;
+  ``HOROVOD_PREEMPTION_NOTICE`` -- seconds (30, at least 0) of notice a
+  preempted host gets, the budget a checkpoint cadence is judged against.
 """
 
 from __future__ import annotations
@@ -108,6 +113,9 @@ class Config:
     autotune_mode: str = "ladder"
     autotune_probes: int = 6
     autotune_samples: int = 10
+    elastic_timeout_seconds: float = 600.0
+    preemption_notice_seconds: float = 30.0
+    fault_plan: str = ""
 
 
 def _env_algorithm() -> str:
@@ -155,6 +163,14 @@ def _env_chunks() -> int:
         raise ValueError(
             f"HOROVOD_OVERLAP_CHUNKS={n}: chunk count must be >= 1")
     return n
+
+
+def _env_fault_plan() -> str:
+    v = os.environ.get("HOROVOD_FAULT_PLAN", "").strip()
+    if v:
+        from horovod_tpu_torch.faults import parse_plan
+        parse_plan(v)   # grammar check: a bad plan fails here, at init
+    return v
 
 
 def _read() -> Config:
@@ -210,7 +226,11 @@ def _read() -> Config:
         autotune_mode=(os.environ.get("HOROVOD_AUTOTUNE_MODE", "ladder")
                        .strip().lower() or "ladder"),
         autotune_probes=int(_env_float("HOROVOD_AUTOTUNE_PROBES", 6)),
-        autotune_samples=int(_env_float("HOROVOD_AUTOTUNE_SAMPLES", 10)))
+        autotune_samples=int(_env_float("HOROVOD_AUTOTUNE_SAMPLES", 10)),
+        elastic_timeout_seconds=_env_float("HOROVOD_ELASTIC_TIMEOUT", 600.0),
+        preemption_notice_seconds=max(
+            0.0, _env_float("HOROVOD_PREEMPTION_NOTICE", 30.0)),
+        fault_plan=_env_fault_plan())
 
 
 _CONFIG: Optional[Config] = None

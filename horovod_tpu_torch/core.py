@@ -34,6 +34,7 @@ the torus along each dim, on every rank in one order: the phases of the
 from __future__ import annotations
 
 import datetime
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -101,9 +102,24 @@ def init(device: Union[str, torch.device, None] = None) -> None:
 
     ``device`` None or ``"cuda"``: this process's GPU (``LOCAL_RANK``) and
     NCCL; ``"cpu"``: the CPU and gloo. Re-entrant: a second call with the
-    same device is a no-op.
+    same device is a no-op. After ``shutdown()`` it forms a new group (an
+    elastic reset: ``init_epoch()`` + 1, an ``elastic_epoch`` marker and a
+    fresh clock anchor in the timeline). A hot spare
+    (``HVD_TPU_ELASTIC_SPARE=1``) must be promoted first.
     """
     global _CTX, _INIT_EPOCH
+    if os.environ.get("HVD_TPU_ELASTIC_SPARE") == "1":
+        # A spare that skipped the standby barrier would form a world of
+        # its own and could publish manifests into the job's directory.
+        raise RuntimeError(
+            "this process was launched as an elastic hot spare "
+            "(HVD_TPU_ELASTIC_SPARE=1) and has not been promoted: call "
+            "hvd.elastic.standby_if_spare() before hvd.init(); promotion "
+            "installs the rendezvous contract and clears the flag")
+    # The launcher's failure stamp is consumed process-wide: only the
+    # first restore after this (re)init may record the recovery time.
+    from horovod_tpu_torch import checkpoint_sharded as _cks
+    _cks.stash_failure_stamp()
     with _LOCK:
         t0 = time.perf_counter()
         cfg = _config.refresh()
@@ -167,6 +183,9 @@ def init(device: Union[str, torch.device, None] = None) -> None:
             # only some ranks cannot deadlock init.
             dist.barrier(group=control)
         _tl.emit_clock_anchor(epoch=_INIT_EPOCH)
+        if _INIT_EPOCH > 1 and _tl.get_timeline() is not None:
+            _tl.get_timeline().marker("elastic_epoch", category="trace",
+                                      epoch=_INIT_EPOCH, world=_CTX.size)
         _set_config_gauges(cfg, topo)
         _metrics.on_init(cfg, init_seconds=time.perf_counter() - t0,
                          world=_CTX.size)

@@ -1,0 +1,386 @@
+"""Elastic state with commit/restore semantics.
+
+Port of ``horovod_tpu/elastic/state.py`` (upstream
+``horovod/common/elastic.py:State`` / ``ObjectState``): ``State``;
+``TorchState``, a model and an optimizer (the reference's own torch state,
+whose behaviour this one keeps: its snapshots are ``copy.deepcopy`` of the
+state dicts, on the tensors' own device); and ``TensorState``, the
+counterpart of the reference's ``JaxState``: any number of named trees of
+tensors plus plain attributes, snapshotted to host memory. ``sync()``
+broadcasts the commit from rank 0 through ``broadcast_object`` and zeros
+the error-feedback residuals of the quantized wire, as the reference's
+``JaxState.sync`` does through ``reset_error_feedback``.
+
+The reference's ``FsdpState`` waits for ``parallel/fsdp.py`` and its
+``TensorFlowKerasState`` for the frontends (``ROADMAP.md`` §A items 8 and
+11).
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+import os
+import pickle
+from typing import Any, Dict
+
+import torch
+
+__all__ = ["State", "TensorState", "TorchState"]
+
+logger = logging.getLogger("horovod_tpu_torch")
+
+
+def _copy_attrs(attrs: Dict[str, Any], warned: set):
+    """Deep-copy tracked attributes, falling back to by-reference (with a
+    one-time warning) for values deepcopy cannot handle (locks, loggers,
+    loader handles): every public attribute is tracked so counters roll
+    back on restore(), but a stateful helper must not turn commit() into a
+    crash.
+
+    Returns ``(copied, uncopyable_keys)``: the caller records which keys
+    fell back by reference so ``restore()`` can say, every time, that
+    rolling those attributes back is a no-op."""
+    out = {}
+    failed = []
+    for k, v in attrs.items():
+        try:
+            out[k] = copy.deepcopy(v)
+        except Exception:
+            failed.append(k)
+            if k not in warned:
+                warned.add(k)
+                logger.warning(
+                    "elastic state attribute %r is not deep-copyable; it "
+                    "is kept by reference and will NOT roll back on "
+                    "restore()", k)
+            out[k] = v
+    return out, failed
+
+
+def _warn_no_rollback(no_rollback: set) -> None:
+    """Per-restore (not once-per-process) warning that some attributes
+    cannot roll back."""
+    if no_rollback:
+        logger.warning(
+            "elastic restore(): attribute(s) %s could not be deep-copied "
+            "at commit; their rollback is a NO-OP — the live (possibly "
+            "post-failure) object is kept by reference",
+            sorted(no_rollback))
+
+
+def _picklable_attrs(attrs: Dict[str, Any], warned: set) -> Dict[str, Any]:
+    """Subset of attributes that survive pickling (save()/sync() wire
+    format); the rest are dropped with a one-time warning."""
+    out = {}
+    for k, v in attrs.items():
+        try:
+            pickle.dumps(v)
+            out[k] = v
+        except Exception:
+            key = ("pickle", k)
+            if key not in warned:
+                warned.add(key)
+                logger.warning(
+                    "elastic state attribute %r is not picklable; it is "
+                    "excluded from save()/sync()", k)
+    return out
+
+
+def _rank() -> int:
+    from horovod_tpu_torch import core
+    return core.rank() if core.is_initialized() else 0
+
+
+def _world() -> int:
+    from horovod_tpu_torch import core
+    return core.size() if core.is_initialized() else 1
+
+
+def _sync_attrs(saved: Dict[str, Any], warned: set,
+                broadcast_fn=None) -> Dict[str, Any]:
+    """Broadcast committed attrs from the coordinator. The coordinator also
+    announces which keys its pickle filter dropped: every rank keeps its
+    local value for exactly those keys, keys picklable on the coordinator
+    converge on all ranks, and keys the coordinator never had are
+    removed."""
+    if broadcast_fn is None:
+        from horovod_tpu_torch.collective import broadcast_object
+        broadcast_fn = broadcast_object
+    if _rank() == 0:
+        filtered = _picklable_attrs(saved, warned)
+        payload = (filtered, sorted(set(saved) - set(filtered)))
+    else:
+        payload = ({}, [])   # ignored: broadcast ships the root's payload
+    wire, dropped = broadcast_fn(payload, 0)
+    merged = dict(wire)
+    for k in dropped:
+        if k in saved:
+            merged[k] = saved[k]
+    return merged
+
+
+def _is_tree(v) -> bool:
+    if isinstance(v, dict):
+        return all(_is_tree(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return all(_is_tree(x) for x in v)
+    return isinstance(v, torch.Tensor)
+
+
+def _has_tensor(v) -> bool:
+    if isinstance(v, dict):
+        return any(_has_tensor(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return any(_has_tensor(x) for x in v)
+    return isinstance(v, torch.Tensor)
+
+
+def _is_tree_of_tensors(v) -> bool:
+    """A non-empty tree whose every leaf is a tensor (the reference's
+    ``_is_pytree_of_arrays``)."""
+    return _has_tensor(v) and _is_tree(v)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _zero_error_feedback(opt_state):
+    """An optimizer state dict with its error-feedback residuals (the
+    port's ``DistributedOptimizer.state_dict()["error_feedback"]``) at
+    zero: they are local error of the previous world."""
+    if isinstance(opt_state, dict) and opt_state.get("error_feedback"):
+        opt_state = dict(opt_state)
+        opt_state["error_feedback"] = [
+            None if r is None else torch.zeros_like(r)
+            for r in opt_state["error_feedback"]]
+    return opt_state
+
+
+class State:
+    """Interface: ``commit`` snapshots, ``restore`` rolls back to the last
+    commit, ``sync`` re-broadcasts from the coordinator after a re-init."""
+
+    def commit(self) -> None:
+        raise NotImplementedError
+
+    def restore(self) -> None:
+        raise NotImplementedError
+
+    def sync(self) -> None:
+        raise NotImplementedError
+
+    def check_host_updates(self) -> None:
+        """Raise HostsUpdatedInterrupt if membership changed (wired up by
+        the elastic driver; standalone states never raise)."""
+        from horovod_tpu_torch.elastic.driver import _check_host_updates
+        _check_host_updates()
+
+
+class TensorState(State):
+    """Elastic state of named trees of tensors (``params``, ``buffers``,
+    ...) plus plain attributes (``epoch``, ``step``): the reference's
+    ``JaxState``. Snapshots are host copies, so a commit survives the loss
+    of the device; ``restore`` puts each tensor back on the device it was
+    committed from."""
+
+    def __init__(self, **kwargs: Any):
+        self._pytrees: Dict[str, Any] = {}
+        self._attrs: Dict[str, Any] = {}
+        self._saved_pytrees: Dict[str, Any] = {}
+        self._saved_attrs: Dict[str, Any] = {}
+        self._devices: Dict[str, Any] = {}
+        self._warn: set = set()
+        for k, v in kwargs.items():
+            if _is_tree_of_tensors(v):
+                self._pytrees[k] = v
+            else:
+                self._attrs[k] = v
+        self.commit_count = 0
+        self.commit()
+
+    def __getattr__(self, name):
+        pytrees = object.__getattribute__(self, "_pytrees")
+        attrs = object.__getattribute__(self, "_attrs")
+        if name in pytrees:
+            return pytrees[name]
+        if name in attrs:
+            return attrs[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name.startswith("_") or name == "commit_count":
+            object.__setattr__(self, name, value)
+        elif "_pytrees" in self.__dict__ and name in self._pytrees:
+            self._pytrees[name] = value
+        elif _is_tree_of_tensors(value) and "_pytrees" in self.__dict__:
+            self._pytrees[name] = value
+        elif "_attrs" in self.__dict__:
+            # Every public attribute is tracked state: an untracked
+            # counter would survive restore() with its post-failure value.
+            self._attrs[name] = value
+        else:
+            object.__setattr__(self, name, value)
+
+    def commit(self) -> None:
+        self._saved_pytrees = {k: _tree_map(_to_host, v)
+                               for k, v in self._pytrees.items()}
+        self._devices = {k: _tree_map(lambda t: t.device, v)
+                         for k, v in self._pytrees.items()}
+        self._saved_attrs, failed = _copy_attrs(self._attrs, self._warn)
+        self._no_rollback = set(failed)
+        self.commit_count += 1
+
+    def _placed(self, name: str, tree):
+        devs = self._devices.get(name)
+        if devs is None:
+            return _tree_map(lambda t: t.clone(), tree)
+        flat = []
+        _tree_map(flat.append, devs)
+        it = iter(flat)
+        return _tree_map(lambda t: t.to(next(it), copy=True), tree)
+
+    def restore(self) -> None:
+        self._pytrees = {k: self._placed(k, v)
+                         for k, v in self._saved_pytrees.items()}
+        attrs, failed = _copy_attrs(self._saved_attrs, self._warn)
+        self._attrs = attrs
+        _warn_no_rollback(getattr(self, "_no_rollback", set())
+                          | set(failed))
+
+    def sync(self) -> None:
+        """After re-init: broadcast the committed state from the
+        coordinator so joiners agree, then restore locally."""
+        if _world() > 1:
+            from horovod_tpu_torch.collective import broadcast_object
+            self._saved_pytrees = broadcast_object(self._saved_pytrees, 0)
+            self._saved_attrs = _sync_attrs(self._saved_attrs, self._warn)
+        self.restore()
+
+    def save(self, path: str) -> None:
+        """Persist the last commit to disk (atomic write): ``run_elastic``
+        relaunches processes, so the commit must survive their death."""
+        tmp = path + ".tmp"
+        torch.save({"pytrees": self._saved_pytrees,
+                    "attrs": _picklable_attrs(self._saved_attrs,
+                                              self._warn),
+                    "commit_count": self.commit_count}, tmp)
+        os.replace(tmp, path)
+
+    def load(self, path: str) -> None:
+        """Load a saved commit (see :meth:`save`) and restore it."""
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        self._saved_pytrees = blob["pytrees"]
+        self._saved_attrs = blob["attrs"]
+        self.commit_count = blob["commit_count"]
+        self.restore()
+
+
+class _AttrState(State):
+    """Plain-attribute bookkeeping (epoch/step counters) for the framework
+    states, committed, restored and synced beside the framework objects
+    (upstream ``ObjectState``)."""
+
+    def __init__(self, **kwargs: Any):
+        self._attrs: Dict[str, Any] = dict(kwargs)
+        self._saved_attrs: Dict[str, Any] = {}
+        self._warn: set = set()
+
+    def save(self, path: str) -> None:
+        """Persist the last commit to disk (atomic write)."""
+        tmp = path + ".tmp"
+        torch.save({"saved": self._saved,
+                    "attrs": _picklable_attrs(self._saved_attrs,
+                                              self._warn),
+                    "commit_count": self.commit_count}, tmp)
+        os.replace(tmp, path)
+
+    def load(self, path: str) -> None:
+        """Load a saved commit (see :meth:`save`) and restore it."""
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        self._saved = blob["saved"]
+        self._saved_attrs = blob["attrs"]
+        self.commit_count = blob["commit_count"]
+        self.restore()
+
+    def __getattr__(self, name):
+        attrs = object.__getattribute__(self, "_attrs")
+        if name in attrs:
+            return attrs[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name.startswith("_") or name in ("model", "optimizer",
+                                            "commit_count"):
+            object.__setattr__(self, name, value)
+        elif "_attrs" in self.__dict__:
+            self._attrs[name] = value
+        else:
+            object.__setattr__(self, name, value)
+
+
+class TorchState(_AttrState):
+    """Elastic state for torch training (upstream
+    ``horovod/torch/elastic/state.py:TorchState``): snapshots
+    ``model.state_dict()`` + ``optimizer.state_dict()`` (deep copies, on
+    the tensors' device); ``restore`` loads them back, ``sync`` broadcasts
+    the committed snapshot from rank 0 so restarted or joining workers
+    agree, with error-feedback residuals at zero."""
+
+    def __init__(self, model=None, optimizer=None, **kwargs: Any):
+        super().__init__(**kwargs)
+        self.model = model
+        self.optimizer = optimizer
+        self._saved: Dict[str, Any] = {}
+        self.commit_count = 0
+        self.commit()
+
+    def _snapshot(self) -> Dict[str, Any]:
+        snap: Dict[str, Any] = {}
+        if self.model is not None:
+            snap["model"] = copy.deepcopy(self.model.state_dict())
+        if self.optimizer is not None:
+            snap["optimizer"] = copy.deepcopy(self.optimizer.state_dict())
+        return snap
+
+    def commit(self) -> None:
+        self._saved = self._snapshot()
+        self._saved_attrs, failed = _copy_attrs(self._attrs, self._warn)
+        self._no_rollback = set(failed)
+        self.commit_count += 1
+
+    def restore(self) -> None:
+        if "model" in self._saved and self.model is not None:
+            self.model.load_state_dict(copy.deepcopy(self._saved["model"]))
+        if "optimizer" in self._saved and self.optimizer is not None:
+            self.optimizer.load_state_dict(
+                copy.deepcopy(self._saved["optimizer"]))
+        attrs, failed = _copy_attrs(self._saved_attrs, self._warn)
+        self._attrs = attrs
+        _warn_no_rollback(getattr(self, "_no_rollback", set())
+                          | set(failed))
+
+    def sync(self) -> None:
+        if _world() > 1:
+            from horovod_tpu_torch.collective import broadcast_object
+            # Host copies on the wire: a receiver must not unpickle
+            # tensors onto the root's card.
+            host = self._saved if _rank() != 0 else _tree_map(
+                lambda v: _to_host(v) if isinstance(v, torch.Tensor)
+                else v, self._saved)
+            self._saved = broadcast_object(host, 0)
+            self._saved_attrs = _sync_attrs(self._saved_attrs, self._warn,
+                                            broadcast_fn=broadcast_object)
+        if "optimizer" in self._saved:
+            self._saved["optimizer"] = _zero_error_feedback(
+                self._saved["optimizer"])
+        self.restore()

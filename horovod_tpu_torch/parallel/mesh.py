@@ -1,6 +1,7 @@
 """Topology of the world, for the ``_2d`` allreduce lowerings.
 
-Port of ``parse_topology`` and ``detect_topology`` of
+Port of ``parse_topology``, ``detect_topology`` and ``parse_mesh`` (the
+``"dpXxmpY"`` grammar that sharded checkpoints record) of
 ``horovod_tpu/parallel/mesh.py``; the rest of that module (named meshes,
 dp x mp) is not ported yet (ROADMAP.md section A item 8).
 
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-__all__ = ["parse_topology", "detect_topology"]
+__all__ = ["parse_topology", "detect_topology", "parse_mesh"]
 
 
 def parse_topology(spec: str) -> Tuple[int, ...]:
@@ -37,6 +38,22 @@ def parse_topology(spec: str) -> Tuple[int, ...]:
             f"invalid HOROVOD_TOPOLOGY {spec!r}; expected positive torus "
             f"dims like '2x2' or '4x8'")
     return dims
+
+
+def parse_mesh(spec: str) -> Tuple[int, int]:
+    """Parse a ``HOROVOD_MESH`` spec like ``"dp2xmp4"`` into ``(dp, mp)``
+    (data-parallel degree first, model-parallel last)."""
+    import re
+    m = re.fullmatch(r"dp(\d+)xmp(\d+)", str(spec).strip().lower())
+    if not m:
+        raise ValueError(
+            f"invalid HOROVOD_MESH {spec!r}; expected 'dpXxmpY' like "
+            f"'dp2xmp4' (data-parallel degree X, model-parallel degree Y)")
+    dp, mp = int(m.group(1)), int(m.group(2))
+    if dp < 1 or mp < 1:
+        raise ValueError(
+            f"invalid HOROVOD_MESH {spec!r}: both degrees must be >= 1")
+    return dp, mp
 
 
 def detect_topology(world: int, local_size: int = 1,

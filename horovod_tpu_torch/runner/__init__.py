@@ -1,6 +1,10 @@
-"""Local launcher for multi-process runs (``python -m
-horovod_tpu_torch.runner -np N script.py``)."""
+"""The launcher: ``python -m horovod_tpu_torch.runner`` (``horovodrun``),
+``run``, ``run_func`` and ``run_elastic`` (see ``launcher.py``)."""
 
-from horovod_tpu_torch.runner.launcher import free_port, run, worker_env
+from horovod_tpu_torch.runner.launcher import (
+    HostSpec, WorkerFailed, build_worker_env, free_port, parse_hosts, run,
+    run_elastic, run_func, worker_commands)
 
-__all__ = ["free_port", "run", "worker_env"]
+__all__ = ["HostSpec", "WorkerFailed", "build_worker_env", "free_port",
+           "parse_hosts", "run", "run_elastic", "run_func",
+           "worker_commands"]

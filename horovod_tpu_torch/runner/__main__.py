@@ -1,25 +1,9 @@
-"""``python -m horovod_tpu_torch.runner -np N [--timeout S] script.py
-[args...]``: run a script as N local ranks (see ``launcher.py``)."""
+"""``python -m horovod_tpu_torch.runner -np N [--elastic --spares K]
+[--start-timeout S] command...``: see ``launcher.main``."""
 
-from __future__ import annotations
-
-import argparse
 import sys
 
-from horovod_tpu_torch.runner.launcher import run
-
-
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="python -m horovod_tpu_torch.runner")
-    p.add_argument("-np", "--num-proc", dest="np", type=int, required=True,
-                   help="number of local ranks")
-    p.add_argument("--timeout", type=float, default=None,
-                   help="seconds before every rank is stopped")
-    p.add_argument("script")
-    p.add_argument("args", nargs=argparse.REMAINDER)
-    a = p.parse_args(argv)
-    return run(a.script, a.np, a.args, timeout_s=a.timeout)
-
+from horovod_tpu_torch.runner.launcher import main
 
 if __name__ == "__main__":
     sys.exit(main())

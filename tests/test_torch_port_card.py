@@ -469,3 +469,49 @@ def test_algorithms_over_nccl_match_psum(tmp_path, nranks):
         np.testing.assert_allclose(res[rank]["model_overlap"],
                                    res[rank]["model_plain"], rtol=1e-6,
                                    atol=1e-7)
+
+
+# ------------------------------------------- elastic training and checkpoints
+
+def test_sharded_save_snapshots_before_an_in_place_change(cuda_card,
+                                                          tmp_path):
+    """``ShardedCheckpointManager.save`` of card tensors starts the
+    device-to-host copies on a side stream behind an event of the caller's
+    stream and returns: the file holds the values the caller's queued work
+    gave the tensors (an add queued behind a device sleep), not the in-place
+    change the caller queues right after ``save()``; bf16 travels as its
+    raw words. Exact equality."""
+    from horovod_tpu_torch import checkpoint_sharded as cs
+    g = torch.Generator(device=cuda_card).manual_seed(0)
+    x = torch.randn(2, 1 << 21, device=cuda_card, generator=g)
+    b = torch.randn(3, 5, device=cuda_card, generator=g).to(torch.bfloat16)
+    want_x, want_b = (x + 1).cpu(), b.cpu()
+    m = cs.ShardedCheckpointManager(str(tmp_path / "c"))
+    torch.cuda._sleep(20_000_000)        # the add below waits behind this
+    x.add_(1)
+    m.save(1, shards={"x": x}, replicated={"b": b})
+    x.mul_(0)                            # after save() returned
+    b.zero_()
+    m.wait()
+    r = m.restore()
+    assert torch.equal(r.shards["['x']"], want_x)
+    assert r.replicated["['b']"].dtype == torch.bfloat16
+    assert torch.equal(r.replicated["['b']"], want_b)
+    m.close()
+
+
+def test_elastic_two_ranks_over_nccl():
+    """``chip_smoke.py`` phase 8 (c): GPT-2 medium under ``run_elastic`` on
+    two ranks, each on its card: a golden run, then ``kill@rank=1,step=3``
+    without a spare (the world shrinks to one rank and resumes from a
+    manifest written at two: losses within ``SHRINK_LOSS_TOL`` of the
+    golden run's) and with one (the spare, holding no CUDA context while it
+    waits, is promoted onto GPU 1: losses within ``LOSS_TOL``)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from horovod_tpu_torch.ops import _build
+    _build.build()           # once, before the workers load the kernels
+    out = chip_smoke.two_rank_elastic(steps=4)
+    print(out)
+    assert out["spares_1"]["world_after"] == 2
+    assert out["spares_0"]["world_after"] == 1

@@ -3,6 +3,7 @@ package, builds nothing at import, runs on the GPU unless asked for the CPU,
 and its CUDA wrappers refuse what their kernels do not take."""
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -120,6 +121,60 @@ def test_collective_depth_modules_load_no_jax_and_build_nothing(tmp_path,
     assert r.returncode == 0, r.stderr[-3000:]
     assert "FORBIDDEN: [] THREADS: 0" in r.stdout, r.stdout
     assert not build.exists(), "import must not run nvcc"
+
+
+ELASTIC_MODULES = ["horovod_tpu_torch.elastic",
+                   "horovod_tpu_torch.elastic.state",
+                   "horovod_tpu_torch.elastic.driver",
+                   "horovod_tpu_torch.elastic.discovery",
+                   "horovod_tpu_torch.checkpoint",
+                   "horovod_tpu_torch.checkpoint_sharded",
+                   "horovod_tpu_torch.faults",
+                   "horovod_tpu_torch.runner",
+                   "horovod_tpu_torch.runner.launcher"]
+
+
+@pytest.fixture(scope="module")
+def elastic_imports(tmp_path_factory):
+    """One interpreter imports the elastic modules one after another and
+    reads, after each, what the imports so far have loaded, started and
+    built: a module that loads JAX, starts a thread, runs nvcc or makes a
+    CUDA context shows at the first module that imports it."""
+    tmp = tmp_path_factory.mktemp("elastic_imports")
+    build = tmp / "kernels"
+    code = textwrap.dedent(f"""
+        import importlib, json, os, sys, threading
+        sys.path.insert(0, {str(REPO)!r})
+        import torch
+        before = threading.active_count()
+        for module in {ELASTIC_MODULES!r}:
+            importlib.import_module(module)
+            print(json.dumps({{
+                "module": module,
+                "forbidden": sorted(n for n in sys.modules
+                                    if n.split(".")[0] in {FORBIDDEN!r}),
+                "threads": threading.active_count() - before,
+                "cuda": torch.cuda.is_initialized(),
+                "built": os.path.exists({str(build)!r})}}), flush=True)
+    """)
+    env = dict(os.environ, HOROVOD_TORCH_BUILD_DIR=str(build))
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return {x["module"]: x for x in map(json.loads,
+                                        r.stdout.strip().splitlines())}
+
+
+@pytest.mark.parametrize("module", ELASTIC_MODULES)
+def test_elastic_modules_load_no_jax_build_nothing_and_touch_no_gpu(
+        elastic_imports, module):
+    """Elastic training, the checkpoints, the fault plan and the launcher
+    import with no JAX, no module of ``horovod_tpu``, no thread, no nvcc
+    and no CUDA context (a hot spare imports them and must hold no GPU
+    while it waits)."""
+    assert elastic_imports[module] == {
+        "module": module, "forbidden": [], "threads": 0, "cuda": False,
+        "built": False}
 
 
 def test_import_starts_no_thread_and_init_starts_the_watchdog(tmp_path):
