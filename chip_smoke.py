@@ -109,16 +109,43 @@ Phases, in order; any failure exits nonzero and prints no result:
    commit's and the reset's times; (c) with two cards, two-rank runs with
    ``kill@rank=1,step=3`` with and without a spare against a golden
    two-rank run; with one card a line says it did not run.
+9. the rest of the model zoo, on a new one-rank NCCL world, every run
+   bf16, 5 steps, seed 0, ``broadcast_parameters`` and
+   ``DistributedOptimizer(AdamW(1e-4))``: (a) the three kernels against
+   their plain versions, with times, bounds and SDPA under the same mask,
+   at GPT-2 medium's 4k shape (B 2, H 16, T 4096, causal) and at the
+   packed batch (B 8, T 1024, ``bench.py:611-616``'s segment ids); (b)
+   GPT-2 medium as phase 3 without remat, under ``remat_policy="dots"``
+   and under ``"full"``: phase 3's losses within ``LOSS_TOL``, peak memory
+   full < dots < none, and the forward kernel launched twice a layer under
+   remat (a block's ``Dense`` layers must reach ``mm`` / ``addmm``, which
+   ``dots`` saves); (c) ``gpt2_long``, GPT-2 medium at 4096 tokens (B 2,
+   dots); (d) ``gpt2_packed`` (packed positions and loss, dots) after a
+   tiny fp32 packed GPT-2 on the card against the CPU; (e) a Mixtral-style
+   Llama (Llama-340M's shape with 8 experts, top-2, capacity 1.25, dots,
+   ``loss_fn_moe``; the aux loss and the share of dropped choices a step)
+   after a tiny fp32 MoE Llama on the card against the CPU and a check that
+   its block's dispatch and combine reach ``mm`` and its experts ``bmm``;
+   (f) T5-small (B 16, 512/512, dots), on which no kernel may launch; (g)
+   greedy decode with bf16 weights of GPT-2 medium (B 8, prompt 32, 480
+   new), Llama-340M (64 new) and T5-small (``t5_generate``, 32 new): the
+   decode logits at every position within ``DECODE_ATOL`` of the dense
+   forward's, and every generated token equal to the forward's
+   ``greedy_token`` where its top two logits differ by more than
+   ``DECODE_CLEAR_GAP``; tokens/s, ms a step beside its HBM bound, aten ops
+   a step. Every loss must be finite and falling and every kernel launch
+   count as stated.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
-(a) and under the reset of (b), each counted from 0 just before the path
-and read just after) and their sum, and its numbers at each new path's
-shape. The last
-line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops after
-the kernel checks.
+(a) and under the reset of (b), phase 9's paths, each counted from 0 just
+before the path and read just after) and their sum, and its numbers at
+each new path's shape (phases 5 and 9). The last line is ``{"ok": true,
+"device": {...}}``. ``--phases 1,2`` stops after the kernel checks;
+``--phases 1,9`` runs phase 9 alone (its remat losses then compare with
+its own run without remat).
 """
 
 from __future__ import annotations
@@ -458,15 +485,15 @@ def kernel_times(case, b, h, d, causal=True):
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
-    q, k, v, do, kb, _, lse, delta, _ = case
+    q, k, v, do, kb, sg, lse, delta, _ = case
     t_ = q.shape[1]
     scale = d ** -0.5
     runs = {
-        "flash_fwd": lambda: fa.flash_fwd(q, k, v, kb, None, h, scale,
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, kb, sg, h, scale,
                                           causal),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, kb, None, do, lse,
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, kb, sg, do, lse,
                                                 delta, h, scale, causal),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, kb, None, do,
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, kb, sg, do,
                                                   lse, delta, h, scale,
                                                   causal),
     }
@@ -478,10 +505,19 @@ def kernel_times(case, b, h, d, causal=True):
     sq, sk, sv = bhtd(q), bhtd(k), bhtd(v)
     sdo = do.view(b, h, t_, d)
     mask = None if kb is None else (kb > -1e29)[:, None, None, :]
+    sdpa_causal = causal
+    if sg is not None:
+        # Segment ids become a boolean mask that also holds the diagonal.
+        vis = sg[:, :, None] == sg[:, None, :]
+        if causal:
+            vis = vis & torch.ones(t_, t_, dtype=torch.bool,
+                                   device=q.device).tril()
+        mask = vis[:, None] if mask is None else mask & vis[:, None]
+        sdpa_causal = False
 
     def sdpa():
         return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
-                                              is_causal=causal)
+                                              is_causal=sdpa_causal)
     sout = sdpa()
     runs["fwd"] = sdpa
     runs["bwd"] = lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
@@ -497,27 +533,27 @@ def kernel_times(case, b, h, d, causal=True):
 def plain_times(case, h, d, causal=True, reps=5):
     """Median ms of each kernel's plain version on one case's inputs."""
     from horovod_tpu_torch.ops import flash_attention as fa
-    q, k, v, do, kb, _, lse, delta, _ = case
+    q, k, v, do, kb, sg, lse, delta, _ = case
     scale = d ** -0.5
     return {
         "flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(
-            q, k, v, kb, None, h, scale, causal), reps),
+            q, k, v, kb, sg, h, scale, causal), reps),
         "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_plain(
-            q, k, v, kb, None, do, lse, delta, h, scale, causal), reps),
+            q, k, v, kb, sg, do, lse, delta, h, scale, causal), reps),
         "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
-            q, k, v, kb, None, do, lse, delta, h, scale, causal), reps),
+            q, k, v, kb, sg, do, lse, delta, h, scale, causal), reps),
     }
 
 
-def kernel_work(bh, tq, tk, d, pairs, bias_rows=0):
+def kernel_work(bh, tq, tk, d, pairs, bias_rows=0, seg_rows=0):
     """{kernel: (FLOPs, bytes)} of the function each kernel computes:
     4·d, 6·d and 8·d FLOPs per visible (q, k) pair; each input read once
     and each output written once: bf16 (BH, T, d) tensors, fp32 (BH, T)
-    rows (lse, delta; the bias gradient), and a (B, Tk) fp32 key bias of
-    ``bias_rows`` rows."""
+    rows (lse, delta; the bias gradient), a (B, Tk) fp32 key bias of
+    ``bias_rows`` rows and (B, T) int32 segment ids of ``seg_rows``."""
     el_q, el_k = bh * tq * d * 2, bh * tk * d * 2
     row = bh * tq * 4
-    kb = bias_rows * tk * 4
+    kb = bias_rows * tk * 4 + seg_rows * tq * 4
     return {
         "flash_fwd": (4 * d * pairs, 2 * el_q + 2 * el_k + row + kb),
         "flash_bwd_dq": (6 * d * pairs, 3 * el_q + 2 * el_k + 2 * row + kb),
@@ -774,23 +810,27 @@ def phase_resnet_reference(dev):
         _close("s2d logits", s2d(xd), conv(xd), LOGIT_TOL)
 
 
-def _conv_macs(model, x):
-    """Multiply-adds of one forward of ``model`` on ``x``: every conv and
-    dense layer, counted from the shapes this run gives them."""
+def _conv_macs(model, *x):
+    """Multiply-adds of one forward of ``model`` on ``x``: every conv,
+    dense and MoE layer (``MoEMLP.macs``: router, dispatch, combine and
+    experts), counted from the shapes this run gives them."""
     import torch
     from horovod_tpu_torch.models.gpt2 import Dense
     from horovod_tpu_torch.models.resnet import Conv
+    from horovod_tpu_torch.ops.moe import MoEMLP
     macs = [0]
 
     def hook(mod, inp, out):
         if isinstance(mod, Conv):
             macs[0] += out.numel() * mod.weight[0].numel()
+        elif isinstance(mod, MoEMLP):
+            macs[0] += mod.macs(out[0].shape[0] * out[0].shape[1])
         else:
             macs[0] += out.numel() * mod.weight.shape[1]
     hs = [m.register_forward_hook(hook) for m in model.modules()
-          if isinstance(m, (Conv, Dense))]
+          if isinstance(m, (Conv, Dense, MoEMLP))]
     with torch.no_grad():
-        model(x)
+        model(*x)
     for h in hs:
         h.remove()
     return macs[0]
@@ -1101,7 +1141,6 @@ def phase_path_kernels():
     shape (and at BERT's with two rows padded), then their times, bounds,
     plain times and SDPA with the same mask: {path: {kernel: numbers}}."""
     import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
     out = {}
     for path, c in PATHS.items():
         b, h, t, causal = c["b"], c["h"], c["t"], c["causal"]
@@ -1116,34 +1155,45 @@ def phase_path_kernels():
                                                   **c),
                                      b, h, 64, causal, 0, BF16_TOL)[0]
             errs = {k: max(v, padded[k]) for k, v in errs.items()}
-        one, ten, (sdpa, sdpa10) = kernel_times(case, b, h, 64, causal)
-        plain = plain_times(case, h, 64, causal)
-        pairs = _visible_pairs(b * h, t, t, causal, 0, h, bias=case[4])
-        work = kernel_work(b * h, t, t, 64, pairs,
-                           bias_rows=b if c["bias"] else 0)
-        library = {"flash_fwd": (sdpa["fwd"], sdpa10["fwd"]),
-                   "flash_bwd_dq": (None, None),
-                   "flash_bwd_dkv": (sdpa["bwd"], sdpa10["bwd"])}
-        out[path] = {}
-        for name in fa.KERNELS:
-            flops, nbytes = work[name]
-            bound_ms, bound_by = bound(flops, nbytes)
-            out[path][name] = {
-                "max_abs_err": errs[name], "ms": one[name],
-                "ms_back_to_back": ten[name], "plain_ms": plain[name],
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library[name][0],
-                "library_ms_back_to_back": library[name][1],
-                "flops": flops, "bytes": nbytes}
-            log(f"  {name}: {one[name]:.4f} / {ten[name]:.4f} ms (one call /"
-                f" back to back), plain {plain[name]:.4f}, bound "
-                f"{bound_ms:.4f} ms ({bound_by}), "
-                f"{flops / ten[name] / 1e9:.1f} TFLOP/s back to back")
-        log(f"  sdpa with the same mask: fwd {sdpa['fwd']:.4f} / "
-            f"{sdpa10['fwd']:.4f}, bwd {sdpa['bwd']:.4f} / "
-            f"{sdpa10['bwd']:.4f} ms (yardstick; the port never calls it)")
+        out[path] = shape_report(case, errs, b, h, t, causal,
+                                 bias_rows=b if c["bias"] else 0)
         del case
         torch.cuda.empty_cache()
+    return out
+
+
+def shape_report(case, errs, b, h, t, causal, bias_rows=0):
+    """Times (one call / back to back), plain times, bounds and SDPA with
+    the same mask of the three kernels on one checked case (d 64):
+    {kernel: numbers}."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    one, ten, (sdpa, sdpa10) = kernel_times(case, b, h, 64, causal)
+    plain = plain_times(case, h, 64, causal)
+    seg = case[5]
+    pairs = _visible_pairs(b * h, t, t, causal, 0, h, bias=case[4], seg=seg)
+    work = kernel_work(b * h, t, t, 64, pairs, bias_rows=bias_rows,
+                       seg_rows=0 if seg is None else b)
+    library = {"flash_fwd": (sdpa["fwd"], sdpa10["fwd"]),
+               "flash_bwd_dq": (None, None),
+               "flash_bwd_dkv": (sdpa["bwd"], sdpa10["bwd"])}
+    out = {}
+    for name in fa.KERNELS:
+        flops, nbytes = work[name]
+        bound_ms, bound_by = bound(flops, nbytes)
+        out[name] = {
+            "max_abs_err": errs[name], "ms": one[name],
+            "ms_back_to_back": ten[name], "plain_ms": plain[name],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library[name][0],
+            "library_ms_back_to_back": library[name][1],
+            "flops": flops, "bytes": nbytes}
+        log(f"  {name}: {one[name]:.4f} / {ten[name]:.4f} ms (one call /"
+            f" back to back), plain {plain[name]:.4f}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), "
+            f"{flops / ten[name] / 1e9:.1f} TFLOP/s back to back")
+    log(f"  sdpa with the same mask: fwd {sdpa['fwd']:.4f} / "
+        f"{sdpa10['fwd']:.4f}, bwd {sdpa['bwd']:.4f} / "
+        f"{sdpa10['bwd']:.4f} ms (yardstick; the port never calls it)")
     return out
 
 
@@ -1217,31 +1267,100 @@ def phase_tiny_transformers(dev):
                floor=0.0)
 
 
-def build_path(name, dev, rows=None, **opt_extra):
+# GPT-2 medium's weights as built on the CPU from seed 0 (the main path's),
+# kept after the first build so that later GPT-2 medium paths of this
+# process start from the same weights without building them again.
+_GPT2_MEDIUM_CPU = {}
+
+
+def packed_batch(b, t, vocab, seed=0):
+    """``bench.py:598-616``'s packed batch: tokens from
+    ``default_rng(seed)``, then three fixed cuts a row (~4 documents),
+    segment ids counting the cuts passed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (b, t))
+    bounds = np.sort(rng.integers(t // 8, t - t // 8, (b, 3)), axis=1)
+    seg = np.zeros((b, t), np.int32)
+    for row in range(b):
+        for cut in bounds[row]:
+            seg[row, cut:] += 1
+    return tokens, seg
+
+
+def _gpt2_medium(dev, **cfg_extra):
+    """GPT-2 medium with flash attention and the main path's weights."""
+    import torch
+    from horovod_tpu_torch.models import get_model
+    if not _GPT2_MEDIUM_CPU:
+        cpu = get_model("gpt2_medium", attention="flash",
+                        generator=torch.Generator().manual_seed(0))
+        _GPT2_MEDIUM_CPU.update(cpu.state_dict())
+    with torch.device(dev):
+        model = get_model("gpt2_medium", attention="flash",
+                          generator=torch.Generator(device=dev).manual_seed(
+                              0), **cfg_extra)
+    model.load_state_dict(_GPT2_MEDIUM_CPU)
+    return model
+
+
+def _moe_hooks(model):
+    """A list that each MoE layer's forward appends (aux loss, kept
+    assignments: the dispatch tensor's sum) to, through forward hooks."""
+    from horovod_tpu_torch.ops.moe import MoEMLP
+    seen = []
+    for m in list(model.modules()):
+        if isinstance(m, MoEMLP):
+            kept = {}
+            m.router.register_forward_hook(
+                lambda mod, i, o, kept=kept: kept.update(n=o[0].detach()
+                                                         .sum()))
+            m.register_forward_hook(
+                lambda mod, i, o, kept=kept: seen.append((o[1].detach(),
+                                                          kept["n"])))
+    return seen
+
+
+def _moe_step_stats(seen, n, k):
+    """(mean aux loss, share of the k choices a token makes that found no
+    slot) over one forward's MoE layers, as device tensors."""
+    import torch
+    aux = torch.stack([a for a, _ in seen]).mean()
+    kept = torch.stack([c for _, c in seen]).sum()
+    return aux, 1.0 - kept / (k * n * len(seen))
+
+
+def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
     """One training path at full width, on ``dev``, from seed 0: (model,
     optimizer, loss closure, info: the items a step and their unit, the
-    model's input, the LM head's multiply-adds a step outside ``Dense``,
-    the attention's (B, heads, T, causal), the optimizer's name). GPT-2
-    medium as ``bench.py:258-286``, BERT-large and Llama-340M as
-    ``:289-319`` and ``:552-586``, all without the bench's remat (not
-    ported); ViT-B/16 as ``:322-353`` with ``attention="flash"``.
-    ``opt_extra`` goes to ``DistributedOptimizer`` (phase 7: ``overlap``,
-    ``compression``, ``error_feedback``). ``rows`` (GPT-2 medium) takes
-    this rank's slice of the batch (phase 8's two-rank worlds)."""
+    model's inputs, the LM head's multiply-adds a step outside ``Dense``,
+    the attention's (B, heads, T, causal) or its visible pairs summed over
+    layers, the launches of each kernel a step, the optimizer's name).
+    GPT-2 medium as ``bench.py:258-286``, BERT-large and Llama-340M as
+    ``:289-319`` and ``:552-586`` without the bench's remat, ViT-B/16 as
+    ``:322-353`` with ``attention="flash"``; phase 9's paths with the
+    bench's ``remat_policy="dots"``: ``gpt2_long`` (``:520-549``),
+    ``gpt2_packed`` (``:589-630``), ``llama_moe`` (``:552-586``'s Llama
+    with 8 experts, top-2, capacity 1.25) and ``t5_small``
+    (``:632-667``). ``cfg_extra`` replaces fields of GPT-2 medium's config
+    (phase 9 (b): ``remat``, ``remat_policy``). ``opt_extra`` goes to
+    ``DistributedOptimizer`` (phase 7: ``overlap``, ``compression``,
+    ``error_feedback``). ``rows`` (GPT-2 medium) takes this rank's slice
+    of the batch (phase 8's two-rank worlds)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     opt_kw = {}
+    dots = dict(remat=True, remat_policy="dots")
+    info = {}
     if name == "gpt2_medium":
         from horovod_tpu_torch.models.gpt2 import loss_fn
-        # Built on the CPU, as in every earlier run, so its losses compare.
-        cpu = torch.Generator().manual_seed(0)
-        model = get_model("gpt2_medium", attention="flash",
-                          generator=cpu).to(dev)
+        model = _gpt2_medium(dev, **(cfg_extra or {}))
         b, t = 8, 1024
         tokens = torch.randint(0, model.cfg.vocab_size, (b, t),
                                generator=torch.Generator().manual_seed(0))
@@ -1249,6 +1368,33 @@ def build_path(name, dev, rows=None, **opt_extra):
 
         def loss():
             return loss_fn(model(inputs), inputs)
+    elif name == "gpt2_long":
+        from horovod_tpu_torch.models.gpt2 import loss_fn
+        with torch.device(dev):
+            model = get_model("gpt2_medium", max_seq_len=4096,
+                              attention="flash", generator=g, **dots)
+        b, t = 2, 4096
+        inputs = torch.tensor(rng.integers(0, model.cfg.vocab_size, (b, t)),
+                              device=dev)
+
+        def loss():
+            return loss_fn(model(inputs), inputs)
+    elif name == "gpt2_packed":
+        from horovod_tpu_torch.models.gpt2 import loss_fn
+        from horovod_tpu_torch.ops.attention import packed_positions
+        model = _gpt2_medium(dev, **dots)
+        b, t = 8, 1024
+        tokens, seg = packed_batch(b, t, model.cfg.vocab_size)
+        inputs = torch.tensor(tokens, device=dev)
+        seg = torch.tensor(seg, device=dev)
+        pos = packed_positions(seg)
+        h = model.cfg.num_heads
+        info["pairs"] = _visible_pairs(b * h, t, t, True, 0, h,
+                                       seg=seg) * model.cfg.num_layers
+
+        def loss():
+            return loss_fn(model(inputs, segment_ids=seg, positions=pos),
+                           inputs, segment_ids=seg)
     elif name == "bert_large":
         from horovod_tpu_torch.models.bert import mlm_loss
         with torch.device(dev):
@@ -1270,27 +1416,68 @@ def build_path(name, dev, rows=None, **opt_extra):
 
         def loss():
             return F.cross_entropy(model(inputs), labels)
+    elif name == "t5_small":
+        from horovod_tpu_torch.models.t5 import seq2seq_loss, shift_right
+        with torch.device(dev):
+            model = get_model("t5_small", generator=g, **dots)
+        cfg = model.cfg
+        b, t = 16, 512
+        src = torch.tensor(rng.integers(1, cfg.vocab_size, (b, t)),
+                           device=dev)
+        inputs = torch.tensor(rng.integers(1, cfg.vocab_size, (b, t)),
+                              device=dev)
+        h = cfg.num_heads
+        # Encoder self (all pairs), decoder self (causal) and cross.
+        info.update(
+            pairs=b * h * (cfg.num_encoder_layers * t * t
+                           + cfg.num_decoder_layers * (t * (t + 1) // 2
+                                                       + t * t)),
+            head_dim=cfg.head_dim,
+            layers=cfg.num_encoder_layers + cfg.num_decoder_layers,
+            macs_args=(src, shift_right(inputs, cfg.pad_id)),
+            launches={k: 0 for k in fa.KERNELS})
+
+        def loss():
+            return seq2seq_loss(model, src, inputs)
     else:
-        from horovod_tpu_torch.models.llama import loss_fn
+        from horovod_tpu_torch.models.llama import loss_fn, loss_fn_moe
+        moe = dict(num_experts=8, moe_router="top2",
+                   expert_capacity_factor=1.25, **dots) \
+            if name == "llama_moe" else {}
         with torch.device(dev):
             model = get_model("llama", vocab_size=32000, max_seq_len=2048,
                               num_layers=24, num_heads=16, num_kv_heads=4,
                               d_model=1024, d_ff=2816, attention="flash",
-                              generator=g)
+                              generator=g, **moe)
         b, t = 4, 2048
         inputs = torch.tensor(rng.integers(0, model.cfg.vocab_size, (b, t)),
                               device=dev)
+        if moe:
+            info["moe_steps"] = moe_steps = []
+            seen = _moe_hooks(model)
 
         def loss():
-            return loss_fn(model(inputs), inputs)
+            if not moe:
+                return loss_fn(model(inputs), inputs)
+            seen.clear()
+            out = loss_fn_moe(model, inputs)
+            # The forward's layers only (the recompute comes later).
+            moe_steps.append(_moe_step_stats(seen, b * t, 2))
+            return out
     cfg = model.cfg
     lm = name != "vit_b16"
-    info = dict(items=b * t if lm else b, unit="tokens" if lm else "images",
-                inputs=inputs,
-                head_macs=b * t * cfg.vocab_size * cfg.d_model if lm else 0,
-                attention=(b, cfg.num_heads, t, name in ("gpt2_medium",
-                                                         "llama_340m")),
-                optimizer="AdamW, op=" + ("Adasum" if opt_kw else "Average"))
+    layers = info.get("layers", getattr(cfg, "num_layers", 0))
+    # The path's own entries (T5's pairs and launches) replace these.
+    info = {"items": b * t if lm else b, "unit": "tokens" if lm else "images",
+            "inputs": inputs,
+            "head_macs": b * t * cfg.vocab_size * cfg.d_model if lm else 0,
+            "attention": (b, cfg.num_heads, t,
+                          name not in ("bert_large", "vit_b16")),
+            "launches": {k: layers * (2 if getattr(cfg, "remat", False)
+                                      and k == "flash_fwd" else 1)
+                         for k in fa.KERNELS},
+            "optimizer": "AdamW, op=" + ("Adasum" if opt_kw else "Average"),
+            **info}
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
         model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **opt_kw,
@@ -1299,19 +1486,21 @@ def build_path(name, dev, rows=None, **opt_extra):
     return model, opt, loss, info
 
 
-def phase_train_path(name, card, dev, steps=5, **opt_extra):
+def phase_train_path(name, card, dev, steps=5, cfg_extra=None, **opt_extra):
     """Trains one path of ``build_path`` for ``steps`` steps: the loss must
-    be finite and falling and each kernel must launch ``num_layers`` times
-    a step (the counts set to 0 just before the steps and read just
-    after). Returns tokens or images/s, the step split, peak memory, the
-    share of the tensor-core bound, the losses and the launches, and per
-    step the negotiation rounds and, under ``overlap=True``, what the
+    be finite and falling and each kernel must launch as the path says a
+    step (``num_layers`` times; the forward twice that under remat, which
+    runs it again in the backward; never on T5), the counts set to 0 just
+    before the steps and read just after. Returns tokens or images/s, the
+    step split, peak memory, the share of the tensor-core bound, the
+    losses and the launches, and per step the negotiation rounds and, under ``overlap=True``, what the
     gradient hooks did; under error feedback the largest residual."""
     import torch
     from horovod_tpu_torch import collective as C
     from horovod_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    model, opt, loss_of, info = build_path(name, dev, **opt_extra)
+    model, opt, loss_of, info = build_path(name, dev, cfg_extra=cfg_extra,
+                                           **opt_extra)
     cfg, items, unit = model.cfg, info["items"], info["unit"]
     n_params = sum(p.numel() for p in model.parameters())
     from horovod_tpu_torch import fusion
@@ -1320,19 +1509,23 @@ def phase_train_path(name, card, dev, steps=5, **opt_extra):
     buckets = len(fusion.make_plan(
         [p.numel() for p in grads], [p.dtype for p in grads],
         get_config().fusion_threshold_bytes).buckets)
-    log(f"{name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.num_heads} heads, {n_params} params, {items} {unit} a step, "
-        f"{cfg.dtype}, attention {cfg.attention}, {info['optimizer']}, "
-        f"built in {time.perf_counter() - t0:.1f} s")
-    macs = _conv_macs(model, info["inputs"])
-    b, h, t, causal = info["attention"]
-    pairs = _visible_pairs(b * h, t, t, causal, 0, h)
-    hd = cfg.d_model // cfg.num_heads
-    # Model FLOPs: forward 2 per multiply-add of every dense layer, conv
-    # and LM head, plus 4·d per visible (q, k) pair and layer; backward
-    # twice the forward.
-    flops = 3 * (2 * (macs + info["head_macs"])
-                 + 4 * hd * pairs * cfg.num_layers)
+    want = info["launches"]
+    remat = cfg.remat_policy if getattr(cfg, "remat", False) else "none"
+    log(f"{name}: d {cfg.d_model}, {cfg.num_heads} heads, {n_params} "
+        f"params, {items} {unit} a step, {cfg.dtype}, attention "
+        f"{getattr(cfg, 'attention', 'dense')}, remat {remat}, "
+        f"{info['optimizer']}, kernel launches a step {want}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    macs = _conv_macs(model, *info.get("macs_args", (info["inputs"],)))
+    pairs = info.get("pairs")
+    if pairs is None:
+        b, h, t, causal = info["attention"]
+        pairs = _visible_pairs(b * h, t, t, causal, 0, h) * cfg.num_layers
+    hd = info.get("head_dim", cfg.d_model // cfg.num_heads)
+    # Model FLOPs: forward 2 per multiply-add of every dense layer, conv,
+    # MoE layer and LM head, plus 4·d per visible (q, k) pair and layer;
+    # backward twice the forward (remat's recompute is not counted).
+    flops = 3 * (2 * (macs + info["head_macs"]) + 4 * hd * pairs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
@@ -1361,9 +1554,9 @@ def phase_train_path(name, card, dev, steps=5, **opt_extra):
         log(f"{name} step {step}: loss {losses[-1]:.6f}  {wall[-1]:.3f} s  "
             f"forward {parts[-1][0]:.1f} ms  backward {parts[-1][1]:.1f} ms"
             f"  allreduce+adamw {parts[-1][2]:.1f} ms  launches {grew}")
-        if any(v != cfg.num_layers for v in grew.values()):
-            fail(f"{name}: each kernel must launch {cfg.num_layers} times a "
-                 f"step, got {grew}")
+        if grew != want:
+            fail(f"{name}: the kernels must launch {want} a step, got "
+                 f"{grew}")
     launches = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(v) for v in losses):
@@ -1387,6 +1580,12 @@ def phase_train_path(name, card, dev, steps=5, **opt_extra):
     if opt._ef:
         out["ef_residual_max"] = max(float(r.abs().max())
                                      for r in opt._residual.values())
+    if "moe_steps" in info:
+        out["moe_aux"], out["moe_dropped_share"] = (
+            [float(x[i]) for x in info["moe_steps"][-steps:]]
+            for i in (0, 1))
+        log(f"{name}: aux loss a step {out['moe_aux']}, share of the "
+            f"top-2 choices dropped a step {out['moe_dropped_share']}")
     log(f"{name} on {card}: {out[f'{unit}_per_s']:.1f} {unit}/s (steps "
         f"1-{steps - 1}, wall), step {step_ms:.1f} ms median (forward "
         f"{med[0]:.1f}, backward {med[1]:.1f}, allreduce+adamw {med[2]:.1f} "
@@ -2297,11 +2496,368 @@ def phase_elastic_reset(card, main_path):
             "reset_s": reset_s, "wall_s": wall, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 9
+
+# The kernels' two new shapes (bf16, 16 heads, d 64, causal): GPT-2 medium
+# at 4k tokens (bench.py:527-533) and its packed batch (bench.py:598-616).
+NEW_SHAPES = {"gpt2_4k": dict(b=2, t=4096, packed=False),
+              "gpt2_packed": dict(b=8, t=1024, packed=True)}
+DECODE_ATOL = 0.02      # decode logits against the forward's (the
+                        # reference's bound, tests/test_generate.py:96-98)
+DECODE_CLEAR_GAP = 0.04  # a greedy token is held where the top two differ
+                         # by more
+
+
+def phase_shape_kernels():
+    """(a) The three kernels against their plain versions at NEW_SHAPES,
+    then their times, bounds, plain times and SDPA with the same mask:
+    {path: {kernel: numbers}}."""
+    import torch
+    h, d = 16, 64
+    out = {}
+    for path, c in NEW_SHAPES.items():
+        b, t = c["b"], c["t"]
+        g = torch.Generator(device="cuda").manual_seed(t + 9)
+        q, k, v, do = (torch.randn(b * h, t, d, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        sg = None
+        if c["packed"]:
+            sg = torch.tensor(packed_batch(b, t, 50304)[1], device="cuda")
+        log(f"path {path}: B {b} H {h} T {t} d {d} bf16 causal, segment "
+            f"ids {c['packed']}")
+        errs, case, outs = compare_kernels((q, k, v, do, None, sg), b, h, d,
+                                           True, 0, BF16_TOL)
+        del outs, q, k, v, do
+        out[path] = shape_report(case, errs, b, h, t, True)
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dispatched_ops(fn):
+    """{aten op: calls} that ``fn()`` dispatches, without autograd."""
+    import collections
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] += 1
+            return func(*args, **(kwargs or {}))
+    with torch.no_grad(), Count() as c:
+        fn()
+    return c.ops
+
+
+def check_block_ops(tag, block, args, want_saved, want_bmm):
+    """One block's forward on the card: the products the "dots" policy
+    saves (``utils.remat.SAVED_OPS``: ``mm`` / ``addmm``, each ``Dense``
+    and the MoE dispatch / combine) and the batched ones it recomputes
+    (``bmm``: the MoE experts)."""
+    import torch
+    from horovod_tpu_torch.utils.remat import SAVED_OPS
+    ops = _dispatched_ops(lambda: block(*args))
+    saved = sum(n for op, n in ops.items() if op in SAVED_OPS)
+    bmm = ops.get(torch.ops.aten.bmm.default, 0)
+    log(f"{tag} block on the card: {saved} mm/addmm (saved under dots), "
+        f"{bmm} bmm (recomputed); {sum(ops.values())} aten ops")
+    if (saved, bmm) != (want_saved, want_bmm):
+        fail(f"{tag}: a block dispatched {saved} mm/addmm and {bmm} bmm, "
+             f"want {want_saved} and {want_bmm}")
+    return {"saved": saved, "bmm": bmm}
+
+
+def phase_remat(card, dev, main_path):
+    """(b) GPT-2 medium as phase 3 without remat, under "dots" and under
+    "full": phase 3's losses within LOSS_TOL (the run without remat's
+    when phase 3 did not run), peak memory full < dots < none, the forward
+    kernel launched twice a layer under remat."""
+    import torch
+    blk = _gpt2_medium(dev).h[0]
+    x = torch.randn(8, 1024, 1024, device=dev).to(torch.bfloat16)
+    ops = check_block_ops("gpt2_medium", blk, (x,), 4, 0)
+    del blk, x
+    runs = {}
+    for policy in ("none", "dots", "full"):
+        extra = {} if policy == "none" else dict(remat=True,
+                                                 remat_policy=policy)
+        runs[policy] = run = phase_train_path("gpt2_medium", card, dev,
+                                              cfg_extra=extra)
+        want = (main_path or runs["none"])["losses"]
+        diff = max(abs(a - b) for a, b in zip(run["losses"], want))
+        log(f"remat {policy}: largest loss difference to phase 3 "
+            f"{diff:.3e} (limit {LOSS_TOL:.0e}), peak {run['peak_gib']:.2f}"
+            f" GiB, step {run['step_ms_median']:.1f} ms")
+        if diff > LOSS_TOL:
+            fail(f"remat {policy}: losses differ from phase 3's by {diff}")
+    peak = {p: r["peak_gib"] for p, r in runs.items()}
+    if not peak["full"] < peak["dots"] < peak["none"]:
+        fail(f"peak memory must read full < dots < none, got {peak}")
+    return runs, ops
+
+
+def _tiny_on_card(tag, build, loss_of, dev, pnames):
+    """A tiny fp32 model on the card against the same on the CPU: its
+    output, aux or loss and the gradients of ``pnames`` (the CPU tests'
+    tolerances)."""
+    import copy
+    cpu = build()
+    runs = {}
+    for where, model in (("cpu", cpu), ("card", copy.deepcopy(cpu).to(dev))):
+        outs = loss_of(model, "cpu" if where == "cpu" else dev)
+        outs[-1].backward()
+        params = dict(model.named_parameters())
+        runs[where] = list(outs) + [params[n].grad for n in pnames]
+    log(f"tiny fp32 {tag} on the card against the CPU:")
+    names = [f"out{i}" for i in range(len(runs["cpu"]) - len(pnames))]
+    for i, name in enumerate(names + [f"{n} grad" for n in pnames]):
+        tol = LOGIT_TOL if i < len(names) else GRAD_TOL
+        _close(f"{tag} {name}", runs["card"][i], runs["cpu"][i], tol,
+               floor=0.0)
+
+
+def phase_tiny_zoo(dev):
+    """Tiny fp32 packed GPT-2 and MoE Llama (8 experts, top-2) on the card
+    against the CPU: logits, the loss (with the aux loss), a gradient."""
+    import torch
+    from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    from horovod_tpu_torch.ops.attention import packed_positions
+    tokens, seg = packed_batch(2, 100, 256, seed=3)
+    tokens, seg = torch.tensor(tokens), torch.tensor(seg)
+
+    def packed(m, where):
+        t, s = tokens.to(where), seg.to(where)
+        logits = m(t, segment_ids=s, positions=packed_positions(s))
+        return logits, loss_fn(logits, t, segment_ids=s)
+    _tiny_on_card("packed GPT-2",
+                  lambda: GPT2(GPT2Config.tiny(dtype=torch.float32,
+                                               attention="flash")),
+                  packed, dev, ["h.0.attn.qkv.weight"])
+
+    def moe(m, where):
+        t = tokens.to(where)
+        logits, aux = m(t, return_aux=True)
+        return logits, aux, loss_fn(logits, t) + 1e-2 * aux.mean()
+    _tiny_on_card("MoE Llama",
+                  lambda: Llama(LlamaConfig.tiny(
+                      dtype=torch.float32, attention="flash", num_experts=8,
+                      expert_capacity_factor=1.25)),
+                  moe, dev, ["h.0.mlp.moe.w_gate", "h.1.mlp.moe.router.router"])
+
+
+# Parameters a decode step does not read whole, by config: the lookup
+# tables (one row a token; GPT-2's wte is read whole by its tied head), and
+# T5's encoder and cross-attention K / V projections (run once).
+_NOT_READ_A_STEP = {
+    "GPT2Config": ("wpe",),
+    "LlamaConfig": ("wte",),
+    "T5Config": ("embedding", "enc.", "enc_rel.", "enc_norm.", "dec_rel."),
+}
+
+
+def _decode_bound_ms(model, cache_bytes):
+    """(least ms of one decode step, weight bytes it reads): the weights a
+    step reads and ``cache_bytes`` of cache, over the HBM rate."""
+    skip = _NOT_READ_A_STEP[type(model.cfg).__name__]
+    nbytes = sum(p.numel() * p.element_size()
+                 for n, p in model.named_parameters()
+                 if not n.startswith(skip) and ".cross_attn.k." not in n
+                 and ".cross_attn.v." not in n)
+    return (nbytes + cache_bytes) / PEAK_HBM_BYTES * 1e3, nbytes
+
+
+def _check_decode(tag, step, model, tokens, fwd, first, extras=None):
+    """Teacher-forces ``tokens`` through the decode step: its logits at
+    every position within DECODE_ATOL of the forward's ``fwd``, and each
+    token from position ``first`` on equal to ``greedy_token`` of the
+    forward wherever its top two logits differ by more than
+    DECODE_CLEAR_GAP. ``fwd[:, i]`` are the logits that choose token
+    ``i + 1`` (decoder-only) or ``i`` (T5: ``first`` 0)."""
+    import torch
+    from horovod_tpu_torch.models import generate as G
+    cfg = model.cfg
+    b, total = tokens.shape
+    steps = fwd.shape[1]
+    # The forward's length: the softmax then reduces over as many keys.
+    cache = G.init_cache(cfg, b, total, device=tokens.device)
+    err = torch.zeros((), device=tokens.device)
+    inputs = tokens if extras is None else torch.cat(
+        [torch.full_like(tokens[:, :1], cfg.pad_id), tokens[:, :-1]], 1)
+    for t in range(steps):
+        cache, logits = step(model, cache, inputs[:, t], t, extras)
+        err = torch.maximum(err, (logits - fwd[:, t]).abs().max())
+    err = err.item()
+    lo = first - 1 if extras is None else 0
+    chosen = fwd[:, lo:steps]
+    top2 = chosen.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > DECODE_CLEAR_GAP
+    gen = tokens[:, lo + 1:] if extras is None else tokens
+    wrong = int(((gen != G.greedy_token(chosen)) & clear).sum().item())
+    log(f"{tag} decode: logits max_abs_err {err:.3e} against the dense "
+        f"forward at {steps} positions (limit {DECODE_ATOL}); "
+        f"{int(clear.sum())} of {clear.numel()} generated tokens clear of a "
+        f"near-tie, {wrong} of them differ from the forward's greedy token")
+    if not err <= DECODE_ATOL:
+        fail(f"{tag}: decode logits differ from the forward's by {err}")
+    if wrong:
+        fail(f"{tag}: {wrong} generated tokens differ from the forward's "
+             "greedy choice")
+    return err
+
+
+def _decode_run(tag, card, model, prompt, new, src=None):
+    """Greedy decode through ``generate`` (``t5_generate`` with ``src``):
+    tokens/s as ``bench.py:716`` counts them (every decode step, the
+    prompt's included), ms a step beside its HBM bound, the aten ops a
+    step dispatches, no flash launch; then the check."""
+    import torch
+    from horovod_tpu_torch.models import generate as G
+    from horovod_tpu_torch.ops import flash_attention as fa
+    cfg = model.cfg
+    b = prompt.shape[0]
+    run = ((lambda n: G.t5_generate(model, src, n)) if src is not None
+           else (lambda n: G.generate(model, prompt, n)))
+    run(4)                                           # warm-up
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = run(new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    if any(launches.values()):
+        fail(f"{tag} decode launched a flash kernel: {launches}")
+    steps = new if src is not None else prompt.shape[1] + new - 1
+    step = G.decode_step(cfg)
+    fam = G.decode_family(cfg)
+    kv_row = (fam.num_layers(cfg) * 2 * fam.kv_heads(cfg)
+              * fam.head_dim(cfg) * 2)                 # bytes a position
+    extras = None
+    if src is not None:
+        mask = src != cfg.pad_id
+        extras = {"cross": G.t5_encode(model, cfg, src, mask),
+                  "src_mask": mask,
+                  "dec_bias": G.t5_decoder_bias(cfg, model, new)}
+        with torch.no_grad():
+            fwd = model(src, torch.cat([torch.full_like(out[:, :1],
+                                                        cfg.pad_id),
+                                        out[:, :-1]], 1))
+        cross = b * src.shape[1] * kv_row
+    else:
+        with torch.no_grad():
+            fwd = model(out)[:, :-1]
+        cross = 0
+    # The step at position t reads t + 1 cached positions: the mean.
+    cache_bytes = b * kv_row * (steps + 1) / 2 + cross
+    bound_ms, weight_bytes = _decode_bound_ms(model, cache_bytes)
+    tok = torch.zeros(b, dtype=torch.long, device=prompt.device)
+    ops = _dispatched_ops(lambda: step(model, G.init_cache(
+        cfg, b, 2, device=prompt.device), tok, 0, extras))
+    err = _check_decode(tag, step, model, out, fwd,
+                        0 if src is not None else prompt.shape[1], extras)
+    res = {"tokens_per_s": b * steps / wall, "ms_per_step":
+           wall * 1e3 / steps, "steps": steps, "batch": b,
+           "bound_ms_per_step": bound_ms, "weight_bytes": weight_bytes,
+           "cache_bytes_mean": cache_bytes,
+           "aten_ops_per_step": sum(ops.values()),
+           "flash_launches_per_step": 0, "max_abs_err": err}
+    log(f"{tag} decode on {card}: {res['tokens_per_s']:.1f} tokens/s "
+        f"(B {b}, {steps} steps), {res['ms_per_step']:.3f} ms a step "
+        f"against an HBM bound of {bound_ms:.4f} ms ({weight_bytes / 1e9:.3f}"
+        f" GB of weights, {cache_bytes / 1e9:.3f} GB of cache read a step on"
+        f" average) = {bound_ms / res['ms_per_step']:.4f} of the step; "
+        f"{res['aten_ops_per_step']} aten ops a step, no flash launch")
+    return res
+
+
+def phase_decode(card, dev, gpt2_new=480):
+    """(g) Greedy decode with bf16 parameters: GPT-2 medium (B 8, prompt
+    32, ``gpt2_new`` new, ``bench.py:681-723``), Llama-340M (B 4, prompt
+    32, 64 new) and ``t5_generate`` on T5-small (B 4, 64 source tokens, 32
+    new), each checked against its dense forward."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models import get_model
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    res = {}
+    with torch.device(dev):
+        model = get_model("gpt2_medium", attention="dense", generator=g)
+    model = model.to(torch.bfloat16)
+    prompt = torch.tensor(rng.integers(1, model.cfg.vocab_size, (8, 32)),
+                          device=dev)
+    res["gpt2_medium"] = _decode_run("gpt2_medium", card, model, prompt,
+                                     gpt2_new)
+    del model
+    with torch.device(dev):
+        model = get_model("llama", vocab_size=32000, max_seq_len=2048,
+                          num_layers=24, num_heads=16, num_kv_heads=4,
+                          d_model=1024, d_ff=2816, attention="dense",
+                          generator=g)
+    model = model.to(torch.bfloat16)
+    prompt = torch.tensor(rng.integers(1, model.cfg.vocab_size, (4, 32)),
+                          device=dev)
+    res["llama_340m"] = _decode_run("llama_340m", card, model, prompt, 64)
+    del model
+    with torch.device(dev):
+        model = get_model("t5_small", generator=g)
+    model = model.to(torch.bfloat16)
+    src = torch.tensor(rng.integers(1, model.cfg.vocab_size, (4, 64)),
+                       device=dev)
+    res["t5_small"] = _decode_run("t5_small", card, model, src[:, :1], 32,
+                                  src=src)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zoo(card, main_path):
+    """Phase 9 on a new one-rank NCCL world: returns its report."""
+    import torch
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    t0 = time.perf_counter()
+    kernels = phase_shape_kernels()
+    remat, remat_ops = phase_remat(card, dev, main_path)
+    phase_tiny_zoo(dev)
+    trained = {f"gpt2_medium_remat_{p}": r for p, r in remat.items()}
+    for name in ("gpt2_long", "gpt2_packed", "llama_moe", "t5_small"):
+        if name == "llama_moe":
+            from horovod_tpu_torch.models import get_model
+            with torch.device(dev):
+                blk = get_model(
+                    "llama", num_layers=1, num_heads=16, num_kv_heads=4,
+                    d_model=1024, d_ff=2816, num_experts=8,
+                    moe_router="top2", attention="flash",
+                    generator=torch.Generator(device=dev).manual_seed(0)).h[0]
+            x = torch.randn(4, 2048, 1024, device=dev).to(torch.bfloat16)
+            remat_ops["llama_moe"] = check_block_ops(
+                "llama_moe", blk, (x, torch.arange(2048, device=dev)), 7, 3)
+            del blk, x
+        trained[name] = phase_train_path(name, card, dev)
+    decode = phase_decode(card, dev)
+    launches = {k: r.pop("launches") for k, r in trained.items()}
+    launches["decode"] = {}
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "trained": trained, "block_ops": remat_ops,
+            "decode": decode, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8; 6, 7 and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9; 6, 7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -2344,6 +2900,11 @@ def main(argv=None) -> int:
         el = phase_elastic(card, main_path)
         launches.update(el.pop("launches"))
         print(json.dumps({"phase8": el}), flush=True)
+    if 9 in phases:
+        zoo = phase_zoo(card, main_path if 3 in phases else None)
+        launches.update(zoo.pop("launches"))
+        shapes.update(zoo.pop("kernels"))
+        print(json.dumps({"phase9": zoo}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

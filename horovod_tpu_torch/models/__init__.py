@@ -1,4 +1,4 @@
-"""Models of the port (MNIST, ResNet, GPT-2, BERT, ViT, Llama) and parameter
+"""Models of the port (MNIST, ResNet, GPT-2, BERT, ViT, Llama, T5) and parameter
 conversion from the JAX package's trees.
 
 ``get_model(name, **kw)`` builds the ported models by the reference's
@@ -9,7 +9,8 @@ to ``ROADMAP.md``, which lists the reference's models still to be ported.
 __all__ = ["get_model", "PORTED"]
 
 PORTED = ("mnist", "resnet18", "resnet50", "gpt2", "gpt2_medium", "bert",
-          "bert_large", "vit", "vit_b16", "llama", "llama7b", "llama_small")
+          "bert_large", "vit", "vit_b16", "llama", "llama7b", "llama_small",
+          "t5", "t5_small")
 
 
 def get_model(name: str, **kw):
@@ -20,7 +21,9 @@ def get_model(name: str, **kw):
     (``Bert`` of ``BertConfig(**kw)`` / ``BertConfig.large(**kw)``), ``vit``
     / ``vit_b16`` (``ViT`` of ``ViTConfig(**kw)`` / ``ViTConfig.b16(**kw)``),
     ``llama`` / ``llama_small`` / ``llama7b`` (``Llama`` of the small or
-    7B preset with ``kw`` replacing its fields). A ``generator`` goes to
+    7B preset with ``kw`` replacing its fields), ``t5`` / ``t5_small``
+    (``T5`` of ``T5Config(**kw)`` / ``T5Config.small(**kw)``). A
+    ``generator`` goes to
     the model's constructor, as do the other ``kw`` of ``mnist`` and the
     ResNets."""
     key = name.lower().replace("-", "_")
@@ -48,6 +51,10 @@ def get_model(name: str, **kw):
         from horovod_tpu_torch.models.llama import Llama, LlamaConfig
         return Llama(LlamaConfig.llama7b(**kw) if key == "llama7b"
                      else LlamaConfig.small(**kw), **gen)
+    if key in ("t5", "t5_small"):
+        from horovod_tpu_torch.models.t5 import T5, T5Config
+        return T5(T5Config.small(**kw) if key == "t5_small"
+                  else T5Config(**kw), **gen)
     raise ValueError(f"model {name!r} is not ported (ported: "
                      f"{', '.join(PORTED)}); ROADMAP.md section A lists the "
                      "reference's models still to be ported")

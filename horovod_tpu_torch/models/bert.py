@@ -20,8 +20,9 @@ pretraining" configuration) with the reference's numerics, in the layers of
   the NSP head read the first token in fp32.
 
 ``models/convert.py`` carries the reference's parameters over
-(``bert_params_from_jax``). Sequence parallelism and rematerialization are
-not ported yet and raise when asked for.
+(``bert_params_from_jax``). ``remat=True`` checkpoints each layer
+(``utils/remat.py``). Sequence parallelism is not ported yet and raises
+when asked for.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from horovod_tpu_torch.models.gpt2 import Dense, LayerNorm
 from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
                                              packed_positions, sp_attention)
+from horovod_tpu_torch.utils.remat import maybe_remat, remat_context
 
 __all__ = ["BertConfig", "EncoderLayer", "Bert", "mlm_loss"]
 
@@ -77,7 +79,7 @@ def _validate(cfg: BertConfig) -> None:
     if cfg.use_ring_attention:
         raise NotImplementedError("sequence-parallel BERT: not yet ported")
     if cfg.remat:
-        raise NotImplementedError("rematerialization: not yet ported")
+        remat_context(cfg)
     if cfg.d_model % cfg.num_heads:
         raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
                          f"num_heads {cfg.num_heads}")
@@ -169,7 +171,8 @@ class Bert(nn.Module):
             cfg.dtype)
         x = self.ln_emb(x)
         for layer in self.layer:
-            x = layer(x, attention_mask.bool(), segment_ids)
+            x = maybe_remat(cfg, layer)(x, attention_mask.bool(),
+                                        segment_ids)
         mlm = torch.einsum("btd,vd->btv", x.float(), self.wte)
         pooled = torch.tanh(self.pooler(x[:, 0].float()))
         return mlm, self.nsp(pooled)

@@ -7,11 +7,15 @@ arrays; nested dicts or "/"-joined keys) onto the ``state_dict`` of
 (in, out); the port stores ``nn.Linear``-style (out, in) weights, so kernels
 are transposed. LayerNorm ``scale`` becomes ``weight``.
 
-``bert_params_from_jax``, ``vit_params_from_jax`` and
-``llama_params_from_jax`` do the same for the reference's ``Bert``, ``ViT``
-and ``Llama``: a numbered module (``layer3``, ``block3``, ``h3``) becomes a
-list entry (``layer.3``), RMSNorm ``scale`` becomes ``weight``, and ViT's
-patchify kernel (kh, kw, in, out) becomes (out, in, kh, kw).
+``bert_params_from_jax``, ``vit_params_from_jax``,
+``llama_params_from_jax`` and ``t5_params_from_jax`` do the same for the
+reference's ``Bert``, ``ViT``, ``Llama`` and ``T5``: a numbered module
+(``layer3``, ``block3``, ``h3``, ``enc3``) becomes a list entry
+(``layer.3``), RMSNorm ``scale`` becomes ``weight``, and ViT's patchify
+kernel (kh, kw, in, out) becomes (out, in, kh, kw). The MoE leaves of GPT-2
+and Llama (``mlp/moe/router/router`` (d, E), ``w_in`` / ``w_gate`` (E, d,
+F), ``w_out`` (E, F, d), ``b_in``, ``b_out``) and T5's ``rel_bias`` tables
+keep their layout: the port stores them as the reference does.
 
 ``resnet_params_from_jax`` and ``mnist_params_from_jax`` do the same for
 ``horovod_tpu.models.resnet.ResNet`` (with its ``batch_stats``) and
@@ -32,6 +36,7 @@ import torch
 
 __all__ = ["gpt2_params_from_jax", "bert_params_from_jax",
            "vit_params_from_jax", "llama_params_from_jax",
+           "t5_params_from_jax",
            "resnet_params_from_jax", "mnist_params_from_jax", "flatten_tree"]
 
 
@@ -66,15 +71,15 @@ def _flat(tree: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def gpt2_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax GPT-2, BERT, ViT or Llama params -> the port's ``state_dict``
-    (fp32 tensors): one mapping serves the four models."""
+    """flax GPT-2, BERT, ViT, Llama or T5 params -> the port's
+    ``state_dict`` (fp32 tensors): one mapping serves the five models."""
     return {_port_name(key): _tensor(key, val)
             for key, val in _flat(params).items()}
 
 
 # The same mapping under each model's name.
 bert_params_from_jax = vit_params_from_jax = llama_params_from_jax = \
-    gpt2_params_from_jax
+    t5_params_from_jax = gpt2_params_from_jax
 
 
 def _tensor(key: str, val) -> torch.Tensor:

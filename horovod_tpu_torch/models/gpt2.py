@@ -13,9 +13,15 @@ Port of ``horovod_tpu/models/gpt2.py`` with the reference's numerics:
   tied LM head runs in fp32 (``x.float() @ wte.T``).
 
 Dense weights are stored as ``nn.Linear`` stores them, (out, in);
-``models/convert.py`` transposes flax's (in, out) kernels. Sequence
-parallelism, mixture-of-experts MLPs and rematerialization are not ported
-yet and raise when asked for.
+``models/convert.py`` transposes flax's (in, out) kernels.
+
+``num_experts > 0`` replaces every block's MLP with a Switch top-1 (or
+``moe_router="top2"``) mixture of GELU experts of width 4d
+(``ops/moe.py``); each block's aux load-balance loss leaves the forward
+with ``return_aux=True`` and :func:`loss_fn_moe` adds their mean.
+``remat=True`` checkpoints each block under ``remat_policy`` ``"full"`` or
+``"dots"`` (``utils/remat.py``). Sequence parallelism is not ported yet and
+raises when asked for.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
                                              packed_positions, sp_attention)
+from horovod_tpu_torch.ops.moe import ROUTERS, MoEMLP
+from horovod_tpu_torch.utils.remat import maybe_remat, remat_context
 
-__all__ = ["GPT2Config", "GPT2", "loss_fn"]
+__all__ = ["GPT2Config", "GPT2", "loss_fn", "loss_fn_moe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,13 +80,20 @@ def _validate(cfg: GPT2Config) -> None:
     if cfg.use_ring_attention:
         raise NotImplementedError(
             "sequence-parallel GPT-2: not yet ported")
-    if cfg.num_experts > 0:
-        raise NotImplementedError("mixture-of-experts GPT-2: not yet ported")
-    if cfg.remat:
-        raise NotImplementedError("rematerialization: not yet ported")
+    validate_moe_and_remat(cfg)
     if cfg.d_model % cfg.num_heads:
         raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
                          f"num_heads {cfg.num_heads}")
+
+
+def validate_moe_and_remat(cfg) -> None:
+    """The reference's errors for an unknown router or remat policy,
+    raised when the model is built."""
+    if cfg.num_experts > 0 and cfg.moe_router not in ROUTERS:
+        raise ValueError(f"unknown router_type {cfg.moe_router!r}; "
+                         "expected 'top1' or 'top2'")
+    if cfg.remat:
+        remat_context(cfg)
 
 
 class Dense(nn.Module):
@@ -145,13 +160,22 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
+    """``forward(x)`` -> (out, the MoE aux loss or None)."""
+
     def __init__(self, cfg: GPT2Config):
         super().__init__()
-        self.fc = Dense(cfg.d_model, 4 * cfg.d_model, cfg.dtype)
-        self.proj = Dense(4 * cfg.d_model, cfg.d_model, cfg.dtype)
+        if cfg.num_experts > 0:
+            self.moe = MoEMLP(cfg.d_model, cfg.num_experts, 4 * cfg.d_model,
+                              cfg.expert_capacity_factor, cfg.dtype,
+                              router_type=cfg.moe_router)
+        else:
+            self.fc = Dense(cfg.d_model, 4 * cfg.d_model, cfg.dtype)
+            self.proj = Dense(4 * cfg.d_model, cfg.d_model, cfg.dtype)
 
     def forward(self, x):
-        return self.proj(F.gelu(self.fc(x), approximate="tanh"))
+        if hasattr(self, "moe"):
+            return self.moe(x)
+        return self.proj(F.gelu(self.fc(x), approximate="tanh")), None
 
 
 class Block(nn.Module):
@@ -163,8 +187,11 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, segment_ids=None):
+        """-> (x, the MoE aux loss or None): the aux loss leaves as a
+        return value, so a recomputed block adds it only once."""
         x = x + self.attn(self.ln1(x), segment_ids)
-        return x + self.mlp(self.ln2(x))
+        y, aux = self.mlp(self.ln2(x))
+        return x + y, aux
 
 
 class GPT2(nn.Module):
@@ -194,12 +221,16 @@ class GPT2(nn.Module):
             self.wte.normal_(0.0, 0.02, generator=generator)
             self.wpe.normal_(0.0, 0.01, generator=generator)
         for m in self.modules():
-            if isinstance(m, Dense):
+            if isinstance(m, (Dense, MoEMLP)):
                 m.reset_parameters(generator)
 
     def forward(self, tokens: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
+        """fp32 logits (B, T, vocab); with ``return_aux`` also the (L,)
+        fp32 aux losses of the MoE blocks (empty for a dense model), the
+        reference's sown ``losses`` collection."""
         cfg = self.cfg
         b, t = tokens.shape
         if positions is not None:
@@ -209,11 +240,22 @@ class GPT2(nn.Module):
         else:
             pos = torch.arange(t, device=tokens.device)
         x = self.wte[tokens].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
+        aux = []
         for block in self.h:
-            x = block(x, segment_ids)
+            x, a = maybe_remat(cfg, block)(x, segment_ids)
+            if a is not None:
+                aux.append(a)
         x = self.ln_f(x)
         # Tied LM head in fp32 (logits precision matters for the loss).
-        return torch.einsum("btd,vd->btv", x.float(), self.wte)
+        logits = torch.einsum("btd,vd->btv", x.float(), self.wte.float())
+        if not return_aux:
+            return logits
+        return logits, stack_aux(aux, logits)
+
+
+def stack_aux(aux, like: torch.Tensor) -> torch.Tensor:
+    """The blocks' aux losses as one (L,) tensor (empty without MoE)."""
+    return torch.stack(aux) if aux else like.new_zeros((0,))
 
 
 def loss_fn(logits: torch.Tensor, tokens: torch.Tensor,
@@ -226,3 +268,15 @@ def loss_fn(logits: torch.Tensor, tokens: torch.Tensor,
         return -ll.mean()
     w = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ll.dtype)
     return -(ll * w).sum() / w.sum().clamp_min(1)
+
+
+def loss_fn_moe(model: nn.Module, tokens: torch.Tensor,
+                aux_weight: float = 1e-2) -> torch.Tensor:
+    """Cross entropy plus ``aux_weight`` times the mean of the MoE blocks'
+    aux load-balance losses (GPT-2 or Llama with ``num_experts > 0``)."""
+    if model.cfg.num_experts <= 0:
+        raise ValueError("loss_fn_moe needs an MoE config "
+                         f"(num_experts={model.cfg.num_experts}); use "
+                         "loss_fn for dense models")
+    logits, aux = model(tokens, return_aux=True)
+    return loss_fn(logits, tokens) + aux_weight * aux.mean()

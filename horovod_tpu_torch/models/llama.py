@@ -19,9 +19,11 @@ the layers of ``gpt2.py``:
   next-token cross entropy (:func:`loss_fn`).
 
 ``models/convert.py`` carries the reference's parameters over
-(``llama_params_from_jax``). Mixture-of-experts layers, tensor-parallel
-partition rules, sequence parallelism and rematerialization are not ported
-yet and raise when asked for.
+(``llama_params_from_jax``). ``num_experts > 0`` swaps every SwiGLU for a
+Mixtral-style layer: bias-free SwiGLU experts behind a top-2 router
+(``ops/moe.py``), trained with :func:`loss_fn_moe`. ``remat=True``
+checkpoints each block (``utils/remat.py``). Tensor-parallel partition
+rules and sequence parallelism are not ported yet; the latter raises.
 """
 
 from __future__ import annotations
@@ -33,11 +35,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from horovod_tpu_torch.models.gpt2 import Dense, loss_fn
+from horovod_tpu_torch.models.gpt2 import (Dense, loss_fn, loss_fn_moe,
+                                           stack_aux, validate_moe_and_remat)
 from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
                                              packed_positions, sp_attention)
+from horovod_tpu_torch.ops.moe import MoEMLP
+from horovod_tpu_torch.utils.remat import maybe_remat
 
-__all__ = ["LlamaConfig", "Llama", "RMSNorm", "apply_rope", "loss_fn"]
+__all__ = ["LlamaConfig", "Llama", "RMSNorm", "apply_rope", "loss_fn",
+           "loss_fn_moe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,14 +92,9 @@ def _validate(cfg: LlamaConfig) -> None:
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl {cfg.attention!r}; "
                          f"expected one of {ATTENTION_IMPLS}")
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts Llama (num_experts > 0): not yet ported; "
-            "ROADMAP.md section A lists it")
     if cfg.use_ring_attention:
         raise NotImplementedError("sequence-parallel Llama: not yet ported")
-    if cfg.remat:
-        raise NotImplementedError("rematerialization: not yet ported")
+    validate_moe_and_remat(cfg)
     if cfg.d_model % cfg.num_heads:
         raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
                          f"num_heads {cfg.num_heads}")
@@ -163,14 +164,24 @@ class Attention(nn.Module):
 
 
 class SwiGLU(nn.Module):
+    """``forward(x)`` -> (out, the MoE aux loss or None)."""
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        self.gate = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False)
-        self.up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False)
-        self.down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, False)
+        if cfg.num_experts > 0:
+            self.moe = MoEMLP(cfg.d_model, cfg.num_experts, cfg.d_ff,
+                              cfg.expert_capacity_factor, cfg.dtype,
+                              router_type=cfg.moe_router,
+                              activation="swiglu")
+        else:
+            self.gate = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False)
+            self.up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False)
+            self.down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, False)
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        if hasattr(self, "moe"):
+            return self.moe(x)
+        return self.down(F.silu(self.gate(x)) * self.up(x)), None
 
 
 class Block(nn.Module):
@@ -182,15 +193,18 @@ class Block(nn.Module):
         self.mlp = SwiGLU(cfg)
 
     def forward(self, x, positions, segment_ids=None):
+        """-> (x, the MoE aux loss or None)."""
         x = x + self.attn(self.norm_attn(x), positions, segment_ids)
-        return x + self.mlp(self.norm_mlp(x))
+        y, aux = self.mlp(self.norm_mlp(x))
+        return x + y, aux
 
 
 class Llama(nn.Module):
     """Decoder-only LM. ``forward(tokens, segment_ids=None,
     positions=None)`` -> fp32 logits (B, T, vocab). ``segment_ids`` packs
     documents (attention blocked across them, RoPE positions restarting at
-    each); ``positions`` overrides the RoPE positions.
+    each); ``positions`` overrides the RoPE positions; ``return_aux`` also
+    returns the MoE blocks' (L,) aux losses.
 
     ``generator`` (default: a CPU generator seeded with 0) draws the
     initial weights as the reference's initializers shape them.
@@ -215,12 +229,13 @@ class Llama(nn.Module):
             self.wte.normal_(0.0, 0.02, generator=generator)
             self.lm_head.normal_(0.0, 0.02, generator=generator)
         for m in self.modules():
-            if isinstance(m, Dense):
+            if isinstance(m, (Dense, MoEMLP)):
                 m.reset_parameters(generator)
 
     def forward(self, tokens: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
         cfg = self.cfg
         t = tokens.shape[1]
         if positions is not None:
@@ -230,7 +245,11 @@ class Llama(nn.Module):
         else:
             pos = torch.arange(t, device=tokens.device)
         x = self.wte[tokens].to(cfg.dtype)
+        aux = []
         for block in self.h:
-            x = block(x, pos, segment_ids)
+            x, a = maybe_remat(cfg, block)(x, pos, segment_ids)
+            if a is not None:
+                aux.append(a)
         x = self.norm_f(x)
-        return torch.einsum("btd,vd->btv", x.float(), self.lm_head)
+        logits = torch.einsum("btd,vd->btv", x.float(), self.lm_head.float())
+        return (logits, stack_aux(aux, logits)) if return_aux else logits

@@ -106,8 +106,10 @@ def test_config_fields_match_reference():
     assert BertConfig.large().dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
         Bert(BertConfig.tiny(use_ring_attention=True))
-    with pytest.raises(NotImplementedError, match="remat"):
-        Bert(BertConfig.tiny(remat=True))
+    for policy in ("full", "dots"):
+        Bert(BertConfig.tiny(remat=True, remat_policy=policy))
+    with pytest.raises(ValueError, match="unknown remat_policy 'all'"):
+        Bert(BertConfig.tiny(remat=True, remat_policy="all"))
 
 
 def test_converted_state_dict_covers_every_parameter(jax_params):

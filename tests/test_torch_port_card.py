@@ -500,6 +500,39 @@ def test_sharded_save_snapshots_before_an_in_place_change(cuda_card,
     m.close()
 
 
+@pytest.mark.parametrize("family", ["gpt2", "llama", "t5"])
+def test_bf16_decode_matches_forward_on_card(cuda_card, family):
+    """Tiny bf16 models decoded through the KV cache on the card: the
+    logits at every position within the reference's bound (atol 0.02,
+    ``tests/test_generate.py``) of the dense training forward's over the
+    same tokens."""
+    from horovod_tpu_torch.models import generate as G
+    from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    from horovod_tpu_torch.models.t5 import T5, T5Config
+    g = torch.Generator(device=cuda_card).manual_seed(0)
+    tok = torch.randint(1, 256, (4, 24), generator=g, device=cuda_card)
+    with torch.device(cuda_card):
+        m = {"gpt2": lambda: GPT2(GPT2Config.tiny(), g),
+             "llama": lambda: Llama(LlamaConfig.tiny(), g),
+             "t5": lambda: T5(T5Config.tiny(), g)}[family]()
+    step = G.decode_step(m.cfg)
+    cache = G.init_cache(m.cfg, 4, 24, device=cuda_card)
+    extras = None
+    with torch.no_grad():
+        if family == "t5":
+            mask = tok != 0
+            extras = {"cross": G.t5_encode(m, m.cfg, tok, mask),
+                      "src_mask": mask,
+                      "dec_bias": G.t5_decoder_bias(m.cfg, m, 24)}
+            fwd = m(tok, tok)
+        else:
+            fwd = m(tok)
+    for t in range(24):
+        cache, logits = step(m, cache, tok[:, t], t, extras)
+        torch.testing.assert_close(logits, fwd[:, t], rtol=0, atol=0.02)
+
+
 def test_elastic_two_ranks_over_nccl():
     """``chip_smoke.py`` phase 8 (c): GPT-2 medium under ``run_elastic`` on
     two ranks, each on its card: a golden run, then ``kill@rank=1,step=3``

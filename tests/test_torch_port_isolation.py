@@ -308,7 +308,7 @@ def test_get_model_builds_ported_names_and_points_to_roadmap():
     from horovod_tpu_torch.models.vit import ViT
     assert PORTED == ("mnist", "resnet18", "resnet50", "gpt2",
                       "gpt2_medium", "bert", "bert_large", "vit", "vit_b16",
-                      "llama", "llama7b", "llama_small")
+                      "llama", "llama7b", "llama_small", "t5", "t5_small")
     with torch.device("meta"):          # shapes only, no CPU init
         assert isinstance(get_model("mnist"), MnistCNN)
         r18 = get_model("resnet18", num_classes=10)
@@ -331,6 +331,11 @@ def test_get_model_builds_ported_names_and_points_to_roadmap():
     assert vit.cfg.attention == "flash"
     assert isinstance(llama, Llama) and llama.cfg.num_kv_heads == 4
     assert llama.cfg.rms_eps == 1e-6 and llama.cfg.max_seq_len == 2048
-    for name in ("t5_small", "alexnet"):
+    from horovod_tpu_torch.models.t5 import T5
+    with torch.device("meta"):
+        t5 = get_model("t5-small", num_decoder_layers=2)
+    assert isinstance(t5, T5) and t5.cfg.num_encoder_layers == 6
+    assert t5.cfg.num_decoder_layers == 2
+    for name in ("gpt2_pipeline", "alexnet"):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             get_model(name)

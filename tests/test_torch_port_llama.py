@@ -81,8 +81,10 @@ def test_config_fields_match_reference():
                 assert getattr(getattr(JConfig, preset)(), name) == \
                     getattr(getattr(LlamaConfig, preset)(), name), name
     assert LlamaConfig.tiny().num_kv_heads < LlamaConfig.tiny().num_heads
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Llama(LlamaConfig.tiny(num_experts=4))
+    moe = Llama(LlamaConfig.tiny(num_experts=4))
+    assert moe.h[0].mlp.moe.w_gate.shape == (4, 64, 128)
+    with pytest.raises(ValueError, match="unknown router_type 'top3'"):
+        Llama(LlamaConfig.tiny(num_experts=4, moe_router="top3"))
     with pytest.raises(ValueError, match="must divide"):
         Llama(LlamaConfig.tiny(num_kv_heads=3))
 

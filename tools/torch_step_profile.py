@@ -3,15 +3,19 @@
 host or device, and which kernels.
 
     python3 tools/torch_step_profile.py [--model gpt2_medium|resnet50|
-                                        bert_large|vit_b16|llama_340m]
-                                        [--root DIR]
+                                        bert_large|vit_b16|llama_340m|
+                                        gpt2_medium_dots|gpt2_medium_full|
+                                        gpt2_long|gpt2_packed|llama_moe|
+                                        t5_small] [--root DIR]
 
 ``gpt2_medium`` (default) drives ``chip_smoke.py``'s main path (GPT-2
 medium, 24 layers, d 1024, B 8, T 1024, bf16, ``attention="flash"``,
 ``DistributedOptimizer(AdamW)``); ``resnet50`` its phase 4 (ResNet-50,
 B 128, 224x224, bf16, ``channels_last``, local BN,
 ``DistributedOptimizer(SGD(0.1, momentum 0.9))``); ``bert_large``,
-``vit_b16`` and ``llama_340m`` its phase 5 paths, built by
+``vit_b16`` and ``llama_340m`` its phase 5 paths, and the others its
+phase 9 paths (GPT-2 medium under ``remat_policy="dots"`` / ``"full"``,
+at 4k tokens, packed; the Mixtral-style Llama; T5-small), built by
 ``chip_smoke.build_path`` of this checkout. All on one NCCL rank,
 random weights and data from seed 0, with the ``horovod_tpu_torch``
 package found under ``--root`` (default: this checkout), so that two trees
@@ -114,15 +118,31 @@ def top_kernels(trace: dict, n: int = 10) -> list:
                   key=lambda t: -t[1])[:n]
 
 
+# chip_smoke.build_path's paths measured here, with the config fields that
+# differ from the path's own (GPT-2 medium under remat, phase 9 (b)).
+CHIP_SMOKE_PATHS = {
+    "bert_large": ("bert_large", None), "vit_b16": ("vit_b16", None),
+    "llama_340m": ("llama_340m", None),
+    "gpt2_medium_dots": ("gpt2_medium", dict(remat=True,
+                                             remat_policy="dots")),
+    "gpt2_medium_full": ("gpt2_medium", dict(remat=True,
+                                             remat_policy="full")),
+    "gpt2_long": ("gpt2_long", None), "gpt2_packed": ("gpt2_packed", None),
+    "llama_moe": ("llama_moe", None), "t5_small": ("t5_small", None),
+}
+
+
 def build(model_name: str, dev):
     """(model, optimizer, forward-and-loss closure) of one configuration."""
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
-    if model_name in ("bert_large", "vit_b16", "llama_340m"):
+    if model_name in CHIP_SMOKE_PATHS:
         sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
         import chip_smoke
-        _, opt, loss, _ = chip_smoke.build_path(model_name, dev)
+        name, cfg_extra = CHIP_SMOKE_PATHS[model_name]
+        _, opt, loss, _ = chip_smoke.build_path(name, dev,
+                                                cfg_extra=cfg_extra)
         return opt, loss
     if model_name == "gpt2_medium":
         from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
@@ -151,8 +171,8 @@ def build(model_name: str, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="gpt2_medium",
-                    choices=("gpt2_medium", "resnet50", "bert_large",
-                             "vit_b16", "llama_340m"))
+                    choices=("gpt2_medium", "resnet50")
+                    + tuple(CHIP_SMOKE_PATHS))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose horovod_tpu_torch is measured")
     args = ap.parse_args(argv)
