@@ -135,17 +135,41 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``DECODE_CLEAR_GAP``; tokens/s, ms a step beside its HBM bound, aten ops
    a step. Every loss must be finite and falling and every kernel launch
    count as stated.
+10. long context, on a new one-rank NCCL world, bf16, seed 0: (a) the
+   three kernels against their plain versions at a ring hop's shape (B 2,
+   H 16, 4096 tokens a shard, d 64) with the queries' packed segment ids
+   against the neighbour shard's (``seg_q != seg_k``) in the full, causal
+   and strict (``offset=-1``) modes, the backward given an outside lse and
+   delta, under ``BF16_TOL``; kernels fed ``seg_q`` as their ``seg_k`` must
+   fail; times, bounds and SDPA under the same mask; (b) four virtual ranks
+   of a 16384-token sequence (B 1, H 16) through ``ops/ring_flash.py``'s
+   per-hop functions, each hop fed the block the ring would deliver, for
+   the contiguous and striped causal rings, a non-causal ring with a key
+   mask and a causal ring with packed segment ids: the assembled O, dQ,
+   dK, dV against ``flash_attention`` over the whole sequence within the
+   bound ``RING_ROUNDING`` derives from one bf16 rounding per hop, and r +
+   1 hops launched on virtual rank r under the contiguous causal mask, n
+   otherwise; (c) ``gpt2_long`` with ``use_ring_attention=True`` under the
+   contiguous ring, the striped ring (``striped_lm_loss``) and Ulysses:
+   phase 9 (c)'s losses within ``LOSS_TOL`` (its own ``gpt2_long`` run when
+   phase 9 did not run), 48 / 24 / 24 launches a step, ms a step, tokens/s
+   and peak memory beside phase 9 (c)'s; (d) with two cards
+   ``tools/torch_ring_bench.py --np 2``: GPT-2 medium at 8192 tokens over
+   two ranks, striped and Ulysses, against one card within
+   ``SP_LOSS_BAND``, and a hop's exchange against its kernels; with one
+   card a line says it did not run.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
-(a) and under the reset of (b), phase 9's paths, each counted from 0 just
-before the path and read just after) and their sum, and its numbers at
-each new path's shape (phases 5 and 9). The last line is ``{"ok": true,
-"device": {...}}``. ``--phases 1,2`` stops after the kernel checks;
-``--phases 1,9`` runs phase 9 alone (its remat losses then compare with
-its own run without remat).
+(a) and under the reset of (b), phase 9's and phase 10 (c)'s paths, each
+counted from 0 just before the path and read just after) and their sum,
+and its numbers at each new path's shape (phases 5, 9 and 10 (a)). The
+last line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops
+after the kernel checks; ``--phases 1,9`` runs phase 9 alone (its remat
+losses then compare with its own run without remat); ``--phases 1,10``
+runs phase 10 alone.
 """
 
 from __future__ import annotations
@@ -285,8 +309,10 @@ def _inputs(bh, b, tq, tk, d, dtype, seed, bias=False, seg=False):
     return q, k, v, do, kb, sg
 
 
-def _visible_pairs(bh, tq, tk, causal, offset, h, bias=None, seg=None):
-    """Visible (q, k) pairs of this run's masks, summed over BH."""
+def _visible_pairs(bh, tq, tk, causal, offset, h, bias=None, seg=None,
+                   seg_k=None):
+    """Visible (q, k) pairs of this run's masks, summed over BH (``seg_k``:
+    the keys' own segment ids, default the queries')."""
     import torch
     qp = torch.arange(tq, device="cuda")[:, None]
     kp = torch.arange(tk, device="cuda")[None, :]
@@ -295,7 +321,8 @@ def _visible_pairs(bh, tq, tk, causal, offset, h, bias=None, seg=None):
         vis = qp + offset >= kp
     vis = vis[None].expand(bh // h, tq, tk)
     if seg is not None:
-        vis = vis & (seg[:, :, None] == seg[:, None, :])
+        seg_k = seg if seg_k is None else seg_k
+        vis = vis & (seg[:, :, None] == seg_k[:, None, :])
     if bias is not None:
         vis = vis & (bias[:, None, :] > -1e29)
     return int(vis.sum().item()) * h
@@ -323,16 +350,16 @@ def _stats(got, want, tol):
 WORST = {BF16_TOL: 0.0, F32_TOL: 0.0}
 
 
-def _check(name, got, want, tol):
+def _check(name, got, want, tol, against="its plain version"):
     """Fails unless ``got`` holds ``tol`` against ``want``; returns the max
     abs error."""
     err, worst, rel, ok = _stats(got, want, tol)
-    WORST[tol] = max(WORST[tol], worst)
+    WORST[tol] = max(WORST.get(tol, 0.0), worst)
     log(f"  {name}: max_abs_err {err:.3e}, max err/bound {worst:.3f}, "
         f"rms err/rms {rel:.3e} (rtol {tol[0]:.3e}, atol {tol[1]:.0e} rms, "
         f"rel rms <= {tol[2]:.0e})")
     if not ok:
-        fail(f"{name} disagrees with its plain version")
+        fail(f"{name} disagrees with {against}")
     return err
 
 
@@ -349,17 +376,26 @@ def compare_case(label, b, tq, tk, h, d, dtype, causal, offset, bias, seg,
                            dead_row=bias)
 
 
-def compare_kernels(inputs, b, h, d, causal, offset, tol, dead_row=False):
+def compare_kernels(inputs, b, h, d, causal, offset, tol, dead_row=False,
+                    sg_k=None, outside=False):
     """The three kernels against their plain versions on packed ``inputs``
     (q, k, v, dO, key bias, segment ids); with ``dead_row`` the last batch
-    row sees no key and must give O = 0 and lse = -1e30."""
+    row sees no key and must give O = 0 and lse = -1e30. ``sg_k`` gives the
+    keys their own segment ids (default: the queries'). With ``outside``
+    the backward takes an lse and a delta from outside, as a ring hop
+    takes the global ones: this hop's lse merged with another hop's of
+    about the same mass, and a delta scaled per row. Returns the errors,
+    the case (q, k, v, dO, key bias, segment ids, the backward's lse and
+    delta, the plain O, the keys' segment ids) and the kernels' O, dQ, dK,
+    dV."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
     q, k, v, do, kb, sg = inputs
+    sg_k = sg if sg_k is None else sg_k
     scale = d ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, kb, sg, h, scale, causal, offset)
-    o_p, lse_p = fa.flash_fwd_plain(q, k, v, kb, sg, h, scale, causal,
-                                    offset)
+    o, lse = fa.flash_fwd(q, k, v, kb, sg, sg_k, h, scale, causal, offset)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, kb, sg, sg_k, h, scale,
+                                    causal, offset)
     torch.cuda.synchronize()
     # lse is compared where a row sees any key; rows that see none must
     # hold -1e30 on both sides.
@@ -377,22 +413,29 @@ def compare_kernels(inputs, b, h, d, causal, offset, tol, dead_row=False):
         if o[(b - 1) * h:].abs().max().item() != 0.0:
             fail("fully masked rows must give O = 0")
     delta = (do.float() * o_p.float()).sum(-1)
-    dq = fa.flash_bwd_dq(q, k, v, kb, sg, do, lse_p, delta, h, scale,
-                         causal, offset)
-    dq_p = fa.flash_bwd_dq_plain(q, k, v, kb, sg, do, lse_p, delta, h,
-                                 scale, causal, offset)
-    dk, dv, db = fa.flash_bwd_dkv(q, k, v, kb, sg, do, lse_p, delta, h,
-                                  scale, causal, offset)
-    dk_p, dv_p, db_p = fa.flash_bwd_dkv_plain(q, k, v, kb, sg, do, lse_p,
-                                              delta, h, scale, causal,
-                                              offset)
+    if outside:
+        g = torch.Generator(device=q.device).manual_seed(1)
+        lse_p = torch.logaddexp(lse_p, lse_p + torch.randn(
+            lse_p.shape, generator=g, device=q.device))
+        delta = delta * torch.rand(delta.shape, generator=g,
+                                   device=q.device)
+    dq = fa.flash_bwd_dq(q, k, v, kb, sg, sg_k, do, lse_p, delta, h,
+                         scale, causal, offset)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, kb, sg, sg_k, do, lse_p, delta,
+                                 h, scale, causal, offset)
+    dk, dv, db = fa.flash_bwd_dkv(q, k, v, kb, sg, sg_k, do, lse_p, delta,
+                                  h, scale, causal, offset)
+    dk_p, dv_p, db_p = fa.flash_bwd_dkv_plain(q, k, v, kb, sg, sg_k, do,
+                                              lse_p, delta, h, scale,
+                                              causal, offset)
     torch.cuda.synchronize()
     errs["flash_bwd_dq"] = _check("dQ", dq, dq_p, tol)
     e = [_check("dK", dk, dk_p, tol), _check("dV", dv, dv_p, tol)]
     if kb is not None:
         e.append(_check("dbias", db, db_p, tol))
     errs["flash_bwd_dkv"] = max(e)
-    return errs, (q, k, v, do, kb, sg, lse_p, delta, o_p), (o, dq, dk, dv)
+    return errs, (q, k, v, do, kb, sg, lse_p, delta, o_p, sg_k), (o, dq, dk,
+                                                                  dv)
 
 
 def planted_faults(inputs, outs, b, h, d, tol):
@@ -413,13 +456,14 @@ def planted_faults(inputs, outs, b, h, d, tol):
         "last 64-key tile dropped": (scale, 0, drop),
     }
     for label, (sc, off, kb) in faults.items():
-        o_f, lse_f = fa.flash_fwd_plain(q, k, v, kb, None, h, sc, True, off)
+        o_f, lse_f = fa.flash_fwd_plain(q, k, v, kb, None, None, h, sc, True,
+                                        off)
         delta_f = (do.float() * o_f.float()).sum(-1)
-        dq_f = fa.flash_bwd_dq_plain(q, k, v, kb, None, do, lse_f, delta_f,
-                                     h, sc, True, off)
-        dk_f, dv_f, _ = fa.flash_bwd_dkv_plain(q, k, v, kb, None, do, lse_f,
-                                               delta_f, h, sc, True, off,
-                                               want_db=False)
+        dq_f = fa.flash_bwd_dq_plain(q, k, v, kb, None, None, do, lse_f,
+                                     delta_f, h, sc, True, off)
+        dk_f, dv_f, _ = fa.flash_bwd_dkv_plain(q, k, v, kb, None, None, do,
+                                               lse_f, delta_f, h, sc, True,
+                                               off, want_db=False)
         caught, loose = {}, []
         for name, got, want in zip(("O", "dQ", "dK", "dV"), outs,
                                    (o_f, dq_f, dk_f, dv_f)):
@@ -446,23 +490,23 @@ def planted_rounding(inputs, h, d, tol):
     import torch
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
-    q, k, v, do, _, _, lse_p, delta, o_p = inputs
+    q, k, v, do, _, _, lse_p, delta, o_p, _ = inputs
     scale = d ** -0.5
-    dq_p = fa.flash_bwd_dq_plain(q, k, v, None, None, do, lse_p, delta, h,
-                                 scale, True)
-    dk_p, dv_p, _ = fa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse_p,
-                                           delta, h, scale, True,
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, None, None, None, do, lse_p,
+                                 delta, h, scale, True)
+    dk_p, dv_p, _ = fa.flash_bwd_dkv_plain(q, k, v, None, None, None, do,
+                                           lse_p, delta, h, scale, True,
                                            want_db=False)
     st = torch.cuda.current_stream().cuda_stream
     o, lse = torch.empty_like(q), torch.empty(q.shape[:2], device="cuda")
     fa.launch_fwd(_build.load("flash_fwd_one_rounding"), q, k, v, None, None,
-                  o, lse, h, scale, True, 0, st)
+                  None, o, lse, h, scale, True, 0, st)
     bwd = _build.load("flash_bwd_one_rounding")
     dq = torch.empty_like(q)
-    fa.launch_bwd_dq(bwd, q, k, v, None, None, do, lse_p, delta, dq, h, scale,
-                     True, 0, st)
+    fa.launch_bwd_dq(bwd, q, k, v, None, None, None, do, lse_p, delta, dq, h,
+                     scale, True, 0, st)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fa.launch_bwd_dkv(bwd, q, k, v, None, None, do, lse_p, delta, dk, dv,
+    fa.launch_bwd_dkv(bwd, q, k, v, None, None, None, do, lse_p, delta, dk, dv,
                       None, h, scale, True, 0, st)
     torch.cuda.synchronize()
     for name, got, want in (("O", o, o_p), ("dQ", dq, dq_p), ("dK", dk, dk_p),
@@ -476,7 +520,7 @@ def planted_rounding(inputs, h, d, tol):
                  f"{name}")
 
 
-def kernel_times(case, b, h, d, causal=True):
+def kernel_times(case, b, h, d, causal=True, offset=0):
     """Median ms of each kernel and of SDPA forward and backward (the
     yardstick, with the same mask: the case's key bias as a boolean key
     mask, or the causal diagonal) on one case's inputs: ({kernel: one
@@ -485,17 +529,18 @@ def kernel_times(case, b, h, d, causal=True):
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
-    q, k, v, do, kb, sg, lse, delta, _ = case
+    q, k, v, do, kb, sg, lse, delta, _, sg_k = case
     t_ = q.shape[1]
     scale = d ** -0.5
     runs = {
-        "flash_fwd": lambda: fa.flash_fwd(q, k, v, kb, sg, h, scale,
-                                          causal),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, kb, sg, do, lse,
-                                                delta, h, scale, causal),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, kb, sg, do,
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, kb, sg, sg_k, h, scale,
+                                          causal, offset),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, kb, sg, sg_k, do,
+                                                lse, delta, h, scale, causal,
+                                                offset),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, kb, sg, sg_k, do,
                                                   lse, delta, h, scale,
-                                                  causal),
+                                                  causal, offset),
     }
 
     # SDPA on the same inputs in its (B, H, T, D) layout; its backward alone
@@ -505,13 +550,16 @@ def kernel_times(case, b, h, d, causal=True):
     sq, sk, sv = bhtd(q), bhtd(k), bhtd(v)
     sdo = do.view(b, h, t_, d)
     mask = None if kb is None else (kb > -1e29)[:, None, None, :]
-    sdpa_causal = causal
-    if sg is not None:
-        # Segment ids become a boolean mask that also holds the diagonal.
-        vis = sg[:, :, None] == sg[:, None, :]
+    sdpa_causal = causal and offset == 0
+    if sg is not None or (causal and offset):
+        # Segment ids and a shifted diagonal become a boolean mask that
+        # also holds the diagonal.
+        vis = torch.ones(b, t_, t_, dtype=torch.bool, device=q.device)
+        if sg is not None:
+            vis = sg[:, :, None] == sg_k[:, None, :]
         if causal:
             vis = vis & torch.ones(t_, t_, dtype=torch.bool,
-                                   device=q.device).tril()
+                                   device=q.device).tril(offset)
         mask = vis[:, None] if mask is None else mask & vis[:, None]
         sdpa_causal = False
 
@@ -530,30 +578,34 @@ def kernel_times(case, b, h, d, causal=True):
     return k1, k10, (s1, s10)
 
 
-def plain_times(case, h, d, causal=True, reps=5):
+def plain_times(case, h, d, causal=True, reps=5, offset=0):
     """Median ms of each kernel's plain version on one case's inputs."""
     from horovod_tpu_torch.ops import flash_attention as fa
-    q, k, v, do, kb, sg, lse, delta, _ = case
+    q, k, v, do, kb, sg, lse, delta, _, sk = case
     scale = d ** -0.5
     return {
         "flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(
-            q, k, v, kb, sg, h, scale, causal), reps),
+            q, k, v, kb, sg, sk, h, scale, causal, offset), reps),
         "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_plain(
-            q, k, v, kb, sg, do, lse, delta, h, scale, causal), reps),
+            q, k, v, kb, sg, sk, do, lse, delta, h, scale, causal, offset),
+            reps),
         "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
-            q, k, v, kb, sg, do, lse, delta, h, scale, causal), reps),
+            q, k, v, kb, sg, sk, do, lse, delta, h, scale, causal, offset),
+            reps),
     }
 
 
-def kernel_work(bh, tq, tk, d, pairs, bias_rows=0, seg_rows=0):
+def kernel_work(bh, tq, tk, d, pairs, bias_rows=0, seg_rows=0,
+                split_seg=False):
     """{kernel: (FLOPs, bytes)} of the function each kernel computes:
     4·d, 6·d and 8·d FLOPs per visible (q, k) pair; each input read once
     and each output written once: bf16 (BH, T, d) tensors, fp32 (BH, T)
     rows (lse, delta; the bias gradient), a (B, Tk) fp32 key bias of
-    ``bias_rows`` rows and (B, T) int32 segment ids of ``seg_rows``."""
+    ``bias_rows`` rows and (B, T) int32 segment ids of ``seg_rows`` (with
+    ``split_seg`` the keys' own (B, Tk) ids besides)."""
     el_q, el_k = bh * tq * d * 2, bh * tk * d * 2
     row = bh * tq * 4
-    kb = bias_rows * tk * 4 + seg_rows * tq * 4
+    kb = bias_rows * tk * 4 + seg_rows * (tq + (tk if split_seg else 0)) * 4
     return {
         "flash_fwd": (4 * d * pairs, 2 * el_q + 2 * el_k + row + kb),
         "flash_bwd_dq": (6 * d * pairs, 3 * el_q + 2 * el_k + 2 * row + kb),
@@ -613,7 +665,7 @@ def phase_kernels():
     # Times at the main-path shapes: one call between two events (the
     # kernels line's ms), and per call over 10 back-to-back calls, which
     # leaves the wrapper's host time out.
-    q, k, v, do, _, _, lse, delta, o = main
+    q, k, v, do, _, _, lse, delta, o, _ = main
     bh, scale = B * H, D ** -0.5
     t, t10, (sdpa, sdpa10) = kernel_times(main, B, H, D)
     p = plain_times(main, H, D)
@@ -629,10 +681,10 @@ def phase_kernels():
         f"{t['flash_bwd_dq'] + t['flash_bwd_dkv']:.4f} / "
         f"{t10['flash_bwd_dq'] + t10['flash_bwd_dkv']:.4f}")
     host = {
-        "flash_fwd": host_us(lambda: fa.flash_fwd(q, k, v, None, None, H,
-                                                  scale, True)),
+        "flash_fwd": host_us(lambda: fa.flash_fwd(q, k, v, None, None, None,
+                                                  H, scale, True)),
         "flash_bwd_dq": host_us(lambda: fa.flash_bwd_dq(
-            q, k, v, None, None, do, lse, delta, H, scale, True)),
+            q, k, v, None, None, None, do, lse, delta, H, scale, True)),
     }
     log("wrapper host time per call (us, median of 200; the kernel runs "
         "behind it): " + ", ".join(f"{n} {us:.1f}" for n, us in host.items()))
@@ -1162,17 +1214,19 @@ def phase_path_kernels():
     return out
 
 
-def shape_report(case, errs, b, h, t, causal, bias_rows=0):
+def shape_report(case, errs, b, h, t, causal, bias_rows=0, offset=0):
     """Times (one call / back to back), plain times, bounds and SDPA with
     the same mask of the three kernels on one checked case (d 64):
     {kernel: numbers}."""
     from horovod_tpu_torch.ops import flash_attention as fa
-    one, ten, (sdpa, sdpa10) = kernel_times(case, b, h, 64, causal)
-    plain = plain_times(case, h, 64, causal)
-    seg = case[5]
-    pairs = _visible_pairs(b * h, t, t, causal, 0, h, bias=case[4], seg=seg)
+    one, ten, (sdpa, sdpa10) = kernel_times(case, b, h, 64, causal, offset)
+    plain = plain_times(case, h, 64, causal, offset=offset)
+    seg, seg_k = case[5], case[9]
+    pairs = _visible_pairs(b * h, t, t, causal, offset, h, bias=case[4],
+                           seg=seg, seg_k=seg_k)
     work = kernel_work(b * h, t, t, 64, pairs, bias_rows=bias_rows,
-                       seg_rows=0 if seg is None else b)
+                       seg_rows=0 if seg is None else b,
+                       split_seg=seg_k is not seg)
     library = {"flash_fwd": (sdpa["fwd"], sdpa10["fwd"]),
                "flash_bwd_dq": (None, None),
                "flash_bwd_dkv": (sdpa["bwd"], sdpa10["bwd"])}
@@ -1343,7 +1397,9 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
     ``gpt2_packed`` (``:589-630``), ``llama_moe`` (``:552-586``'s Llama
     with 8 experts, top-2, capacity 1.25) and ``t5_small``
     (``:632-667``). ``cfg_extra`` replaces fields of GPT-2 medium's config
-    (phase 9 (b): ``remat``, ``remat_policy``). ``opt_extra`` goes to
+    (phase 9 (b): ``remat``, ``remat_policy``) and of ``gpt2_long``'s
+    (phase 10 (c): sequence parallelism; the striped layout trains on
+    ``striped_lm_loss``). ``opt_extra`` goes to
     ``DistributedOptimizer`` (phase 7: ``overlap``, ``compression``,
     ``error_feedback``). ``rows`` (GPT-2 medium) takes this rank's slice
     of the batch (phase 8's two-rank worlds)."""
@@ -1369,16 +1425,20 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
         def loss():
             return loss_fn(model(inputs), inputs)
     elif name == "gpt2_long":
-        from horovod_tpu_torch.models.gpt2 import loss_fn
+        from horovod_tpu_torch.models.gpt2 import loss_fn, striped_lm_loss
         with torch.device(dev):
             model = get_model("gpt2_medium", max_seq_len=4096,
-                              attention="flash", generator=g, **dots)
+                              attention="flash", generator=g, **dots,
+                              **(cfg_extra or {}))
         b, t = 2, 4096
         inputs = torch.tensor(rng.integers(0, model.cfg.vocab_size, (b, t)),
                               device=dev)
+        striped = model.cfg.use_ring_attention and \
+            model.cfg.ring_layout == "striped"
+        lm_loss = striped_lm_loss if striped else loss_fn
 
         def loss():
-            return loss_fn(model(inputs), inputs)
+            return lm_loss(model(inputs), inputs)
     elif name == "gpt2_packed":
         from horovod_tpu_torch.models.gpt2 import loss_fn
         from horovod_tpu_torch.ops.attention import packed_positions
@@ -2853,11 +2913,377 @@ def phase_zoo(card, main_path):
             "decode": decode, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# (a) The ring's per-hop shape: a GPT-2 medium shard of 4096 tokens; the
+# modes of a hop's kernels, mode -> (causal, causal_offset).
+RING_HOP = dict(b=2, h=16, t=4096, d=64)
+RING_MODES = {"full": (False, 0), "causal": (True, 0), "strict": (True, -1)}
+# (b) n virtual ranks of one sequence on one card.
+RING_ASSEMBLY = dict(n=4, b=1, h=16, t=16384, d=64)
+# The assembled ring against flash_attention over the whole sequence: each
+# hop rounds its share of O (of dQ; of dK and dV) to bf16 once before the
+# fp32 merge, 2^-9 of that share, and the shares may cancel (a row's dS sums
+# to 0 over all keys), so an element may move by 2^-9 of the sum of its
+# shares' magnitudes on the ring's side and by as much again on the whole
+# sequence's, whose one rounding of the sum is no larger: RING_ROUNDING
+# times that sum, on top of BF16_TOL's bound (which keeps its rms share).
+# The O so rounded enters delta = rowsum(dO * O): delta_i moves by up to
+# e_i = RING_ROUNDING * sum_d |dO_id| * (O's shares' sum)_id, dS_ij by
+# P_ij e_i, so dQ_i by scale * e_i * sum_j P_ij |K_j| and dK_j by scale *
+# sum_i P_ij e_i |Q_i| (``_ring_slack`` computes both with the kernels).
+RING_ROUNDING = 2 ** -8
+# (d) GPT-2 medium over two ranks against one card on the same 8192-token
+# batch, absolute on every step's loss: the striped ring merges two hops'
+# bf16 O where one call rounds once (~2^-9 of an element), which moves a
+# mean over 16,382 targets by ~1e-4 and five AdamW steps by a few times
+# that; Ulysses runs the same kernel calls as one card.
+SP_LOSS_BAND = 1e-3
+
+
+def planted_shared_ids(case, h, d, causal, offset):
+    """The check must catch kernels that read the queries' segment ids for
+    the keys': the kernels fed ``seg_q`` as their ``seg_k`` give an O, dQ,
+    dK and dV that must fail against the plain versions with the keys' own
+    ids."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, kb, sg, lse, delta, o_p, sk = case
+    scale = d ** -0.5
+    want = (o_p,
+            fa.flash_bwd_dq_plain(q, k, v, kb, sg, sk, do, lse, delta, h,
+                                  scale, causal, offset),
+            *fa.flash_bwd_dkv_plain(q, k, v, kb, sg, sk, do, lse, delta, h,
+                                    scale, causal, offset, want_db=False)[:2])
+    got = (fa.flash_fwd(q, k, v, kb, sg, sg, h, scale, causal, offset)[0],
+           fa.flash_bwd_dq(q, k, v, kb, sg, sg, do, lse, delta, h, scale,
+                           causal, offset),
+           *fa.flash_bwd_dkv(q, k, v, kb, sg, sg, do, lse, delta, h, scale,
+                             causal, offset, want_db=False)[:2])
+    caught = {}
+    for name, g, w in zip(("O", "dQ", "dK", "dV"), got, want):
+        err, worst, rel, ok = _stats(g, w, BF16_TOL)
+        caught[name] = not ok
+        log(f"  fault seg_q fed as seg_k: {name} max_abs_err {err:.3e}, max "
+            f"err/bound {worst:.3f}, rms err/rms {rel:.3e} -> "
+            f"{'caught' if not ok else 'MISSED'}")
+    if not (caught["O"] and caught["dQ"] and (caught["dK"] or caught["dV"])):
+        fail("the kernel check misses kernels that take the queries' "
+             "segment ids for the keys'")
+
+
+def phase_ring_hops():
+    """(a) The three kernels against their plain versions at the ring's hop
+    shape in each mode, the home shard's packed ids against the neighbour
+    shard's, the backward given an outside lse and delta; the planted
+    shared-ids fault; times, bounds and SDPA under the same mask."""
+    import torch
+    c = RING_HOP
+    b, h, t, d = c["b"], c["h"], c["t"], c["d"]
+    g = torch.Generator(device="cuda").manual_seed(t + 10)
+    q, k, v, do = (torch.randn(b * h, t, d, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    # A packed row of 2t tokens: the home shard holds its second half, the
+    # neighbour shard (the block a ring hop brings) its first.
+    seg = torch.tensor(packed_batch(b, 2 * t, 50304, seed=10)[1],
+                       device="cuda")
+    seg_q, seg_k = seg[:, t:].contiguous(), seg[:, :t].contiguous()
+    out = {}
+    for mode, (causal, offset) in RING_MODES.items():
+        log(f"ring hop {mode}: B {b} H {h} t_local {t} d {d} bf16, causal "
+            f"{causal} offset {offset}, seg_q != seg_k, outside lse and "
+            f"delta")
+        errs, case, outs = compare_kernels(
+            (q, k, v, do, None, seg_q), b, h, d, causal, offset, BF16_TOL,
+            sg_k=seg_k, outside=True)
+        del outs
+        planted_shared_ids(case, h, d, causal, offset)
+        out[f"ring_hop_{mode}"] = shape_report(case, errs, b, h, t, causal,
+                                               offset=offset)
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ring_shards(x, n, layout):
+    """Rank r's shard of (B, T, ...) ``x`` in ``layout``."""
+    t = x.shape[1] // n
+    return [(x[:, r::n] if layout == "striped" else x[:, r * t:(r + 1) * t])
+            .contiguous() for r in range(n)]
+
+
+def _ring_assemble(parts, n, layout, b, h):
+    """The whole (B, T, H, D) sequence from the ranks' packed shards."""
+    import torch
+    from horovod_tpu_torch.ops import ring_flash as rf
+    shards = [rf._unpack(p, b, h) for p in parts]
+    t = shards[0].shape[1]
+    out = shards[0].new_empty((b, n * t) + tuple(shards[0].shape[2:]))
+    for r, x in enumerate(shards):
+        if layout == "striped":
+            out[:, r::n] = x
+        else:
+            out[:, r * t:(r + 1) * t] = x
+    return out
+
+
+def _ring_slack(q, k, v, do, mag_o, causal, key_bias, seg):
+    """The delta terms of ``RING_ROUNDING``'s bound over the whole (B, T,
+    H, D) sequence: (dQ's, dK's). sum_j P_ij |K_j| is the forward with |K|
+    for V; sum_i P_ij x_i is the dV of upstream x."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    scale = q.shape[-1] ** -0.5
+    e = RING_ROUNDING * (do.float().abs() * mag_o).sum(-1, keepdim=True)
+    kw = dict(causal=causal, key_bias=key_bias, segment_ids=seg)
+    with torch.no_grad():
+        pk = fa.flash_attention(q, k, k.abs(), **kw).float()
+    vv = v.detach().clone().requires_grad_(True)
+    fa.flash_attention(q, k, vv, **kw).backward(
+        (e * q.float().abs()).to(q.dtype))
+    return scale * e * pk, scale * vv.grad.float()
+
+
+def _ring_check(name, got, want, mag, slack=None):
+    """``got`` against ``want`` within BF16_TOL's bound plus
+    ``RING_ROUNDING`` times ``mag``, the sum of the hops' share
+    magnitudes, plus ``slack`` (the delta terms); returns the max abs error
+    and the max share of the bound."""
+    import torch
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean().sqrt()
+    bound = (BF16_TOL[0] * w.abs() + BF16_TOL[1] * rms
+             + RING_ROUNDING * mag.float())
+    if slack is not None:
+        bound = bound + slack
+    err = (g - w).abs()
+    worst = (err / bound).max().item()
+    rel = (err.pow(2).mean().sqrt() / rms.clamp_min(1e-30)).item()
+    log(f"  {name}: max_abs_err {err.max().item():.3e}, max err/bound "
+        f"{worst:.3f}, rms err/rms {rel:.3e}, hop shares' sum / |whole| "
+        f"{(mag.float().mean() / w.abs().mean().clamp_min(1e-30)).item():.2f}"
+        f", delta terms / rms "
+        f"{0.0 if slack is None else (slack.mean() / rms).item():.2e}"
+        f" (bound: rtol {BF16_TOL[0]:.3e}, atol {BF16_TOL[1]:.0e} rms, "
+        f"{RING_ROUNDING:.3e} x the shares' sum, the delta terms; rel rms "
+        f"<= {BF16_TOL[2]:.0e})")
+    if not (bool(torch.all(err <= bound)) and rel <= BF16_TOL[2]):
+        fail(f"{name} disagrees with flash_attention over the whole "
+             f"sequence")
+    return err.max().item(), worst
+
+
+def phase_ring_assembly():
+    """(b) n virtual ranks of one sequence through ``ring_flash``'s per-hop
+    functions on one card, each hop fed the block the ring delivers at that
+    hop and the backward's dK/dV summed in the ring's order; the assembled
+    O, dQ, dK and dV against ``flash_attention`` over the whole sequence
+    (``_ring_check``), and the launches per virtual rank: r + 1 hops on
+    rank r under the contiguous causal mask, n otherwise."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import ring_flash as rf
+    c = RING_ASSEMBLY
+    n, b, h, T, d = c["n"], c["b"], c["h"], c["t"], c["d"]
+    scale = d ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn(b, T, h, d, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    key_bias = torch.where(
+        torch.rand(b, T, generator=g, device="cuda") > 0.1, 0.0, -1e30)
+    seg = torch.tensor(packed_batch(b, T, 50304, seed=16)[1], device="cuda")
+    configs = {"contiguous_causal": ("contiguous", True, None, None),
+               "striped_causal": ("striped", True, None, None),
+               "full_key_mask": ("contiguous", False, key_bias, None),
+               "causal_packed": ("contiguous", True, None, seg)}
+    report = {}
+    for name, (layout, causal, bias, sg) in configs.items():
+        t0 = time.perf_counter()
+        qq, kk, vv = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        o_ref = fa.flash_attention(qq, kk, vv, causal=causal, key_bias=bias,
+                                   segment_ids=sg)
+        o_ref.backward(do)
+        want = {"O": o_ref.detach(), "dQ": qq.grad, "dK": kk.grad,
+                "dV": vv.grad}
+        del qq, kk, vv, o_ref
+        Q, K, V, DO = ([rf._pack(x) for x in _ring_shards(y, n, layout)]
+                       for y in (q, k, v, do))
+        BI = _ring_shards(bias, n, layout) if bias is not None else [None] * n
+        S = _ring_shards(sg, n, layout) if sg is not None else [None] * n
+        striped = layout == "striped"
+        hops = [{kn: 0 for kn in fa.KERNELS} for _ in range(n)]
+
+        def block(src):
+            return K[src], V[src], BI[src], S[src]
+
+        def counted(r, fn):
+            before = dict(fa.launches)
+            res = fn()
+            for kn in fa.KERNELS:
+                hops[r][kn] += fa.launches[kn] - before[kn]
+            return res
+        zeros = [torch.zeros(x.shape, device="cuda") for x in Q]
+        o_acc, parts = list(zeros), [[] for _ in range(n)]
+        lse = [torch.full(x.shape[:2], -1e30, device="cuda") for x in Q]
+        for i in range(n):
+            for r in range(n):
+                src = (r - i) % n
+                hop = counted(r, lambda: rf.fwd_hop(
+                    Q[r], block(src), S[r], src, r, h, scale, causal,
+                    striped))
+                if hop is not None:
+                    o_acc[r], lse[r] = rf.safe_merge(o_acc[r], lse[r], *hop)
+                    parts[r].append(hop)
+        O = [x.to(torch.bfloat16) for x in o_acc]
+        # A hop's share of O is exp(lse_hop - lse) O_hop.
+        mag = {"O": [sum(torch.exp(lb - lse[r])[..., None] * ob.abs()
+                         for ob, lb in parts[r]) for r in range(n)]}
+        del parts
+        delta = [(DO[r].float() * O[r].float()).sum(-1) for r in range(n)]
+        got = {key: [torch.zeros(x.shape, device="cuda") for x in Q]
+               for key in ("dQ", "dK", "dV")}
+        mag.update({key: [torch.zeros(x.shape, device="cuda") for x in Q]
+                    for key in ("dQ", "dK", "dV")})
+        # Hop i outside, rank r inside: block src's partial sums grow in
+        # the order the ring carries them (ranks src, src + 1, ...).
+        for i in range(n):
+            for r in range(n):
+                src = (r - i) % n
+                hop = counted(r, lambda: rf.bwd_hop(
+                    Q[r], block(src), S[r], DO[r], lse[r], delta[r], src, r,
+                    h, scale, causal, striped))
+                if hop is None:
+                    continue
+                for key, at, part in (("dQ", r, hop[0]), ("dK", src, hop[1]),
+                                      ("dV", src, hop[2])):
+                    got[key][at] += part
+                    mag[key][at] += part.abs()
+        got["O"] = O
+        log(f"ring assembly {name}: n {n}, B {b} H {h} T {T} (t_local "
+            f"{T // n}) d {d} bf16, layout {layout}, causal {causal}, key "
+            f"mask {bias is not None}, packed {sg is not None}")
+        mag = {key: _ring_assemble(m, n, layout, b, h)
+               for key, m in mag.items()}
+        slack = dict(zip(("dQ", "dK"), _ring_slack(q, k, v, do, mag["O"],
+                                                   causal, bias, sg)))
+        errs = {}
+        for key in ("O", "dQ", "dK", "dV"):
+            whole = _ring_assemble([x.to(torch.bfloat16) for x in got[key]],
+                                   n, layout, b, h)
+            errs[key] = _ring_check(f"{name} {key}", whole, want[key],
+                                    mag[key], slack.get(key))
+        skips = not striped and causal
+        for r in range(n):
+            want_hops = r + 1 if skips else n
+            if any(v != want_hops for v in hops[r].values()):
+                fail(f"ring assembly {name}: virtual rank {r} launched "
+                     f"{hops[r]}, want {want_hops} of each kernel")
+        log(f"  launches per virtual rank (K1, K2, K3 each): "
+            f"{[hops[r]['flash_fwd'] for r in range(n)]}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        report[name] = {"max_abs_err": {k: e for k, (e, _) in errs.items()},
+                        "max_share_of_bound": {k: w for k, (_, w)
+                                               in errs.items()},
+                        "hops_per_rank": [hops[r]["flash_fwd"]
+                                          for r in range(n)]}
+        del Q, K, V, DO, got, want, O, o_acc, lse, delta, mag, slack
+        torch.cuda.empty_cache()
+    return report
+
+
+# (c) GPT-2 medium at 4096 tokens under sequence parallelism on one rank.
+SP_RUNS = {"ring_contiguous": dict(sp_impl="ring", ring_layout="contiguous"),
+           "ring_striped": dict(sp_impl="ring", ring_layout="striped"),
+           "ulysses": dict(sp_impl="ulysses", ring_layout="contiguous")}
+
+
+def phase_sp_gpt2(card, dev, long_run):
+    """(c) ``gpt2_long`` with ``use_ring_attention=True`` under the
+    contiguous ring, the striped ring (``striped_lm_loss``) and Ulysses:
+    phase 9 (c)'s losses within ``LOSS_TOL`` (its run, or one of its own
+    when phase 9 did not run), 48 / 24 / 24 launches a step."""
+    if long_run is None:
+        log("phase 10 (c): phase 9 did not run: gpt2_long without sequence "
+            "parallelism first")
+        long_run = phase_train_path("gpt2_long", card, dev)
+        long_run.pop("launches")
+    out = {}
+    for tag, extra in SP_RUNS.items():
+        log(f"phase 10 (c): gpt2_long, use_ring_attention=True, {extra}")
+        r = phase_train_path("gpt2_long", card, dev,
+                             cfg_extra=dict(use_ring_attention=True, **extra))
+        diffs = [abs(a - w) for a, w in zip(r["losses"], long_run["losses"])]
+        if max(diffs) > LOSS_TOL:
+            fail(f"phase 10 (c) {tag}: losses {r['losses']} differ from "
+                 f"phase 9 (c)'s {long_run['losses']} by up to "
+                 f"{max(diffs):.3e} (limit {LOSS_TOL})")
+        r["max_loss_diff"] = max(diffs)
+        r["bit_for_bit"] = r["losses"] == long_run["losses"]
+        log(f"phase 10 (c) {tag} on {card}: losses within {max(diffs):.3e} "
+            f"of phase 9 (c)'s (bit for bit: {r['bit_for_bit']}); "
+            f"{r['step_ms_median']:.1f} ms a step against "
+            f"{long_run['step_ms_median']:.1f}, "
+            f"{r['tokens_per_s']:.1f} tokens/s against "
+            f"{long_run['tokens_per_s']:.1f}, peak {r['peak_gib']:.2f} GiB "
+            f"against {long_run['peak_gib']:.2f}")
+        out[f"gpt2_long_sp_{tag}"] = r
+    return out
+
+
+def phase_sp_two_cards():
+    """(d) With two cards: ``tools/torch_ring_bench.py --np 2`` trains
+    GPT-2 medium at T_global 8192 striped and Ulysses against one card
+    (``SP_LOSS_BAND``) and times a hop's exchange against its kernels."""
+    import torch
+    if torch.cuda.device_count() < 2:
+        log("phase 10 (d): GPT-2 medium sequence-parallel over a two-rank "
+            "NCCL world (T_global 8192, striped and Ulysses, against one "
+            "card) and the per-hop exchange against the hop's kernels did "
+            "not run for want of a second card")
+        return None
+    out = {}
+    for mode in ("gpt2", "hop"):
+        r = subprocess.run(
+            [sys.executable, "tools/torch_ring_bench.py", "--np", "2",
+             "--mode", mode, "--band", str(SP_LOSS_BAND)],
+            capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"phase 10 (d): torch_ring_bench.py --mode {mode} failed "
+                 f"({r.returncode}):\n{r.stdout[-2000:]}\n"
+                 f"{r.stderr[-3000:]}")
+        out[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+        log(f"phase 10 (d) {mode}: {json.dumps(out[mode])}")
+    return out
+
+
+def phase_long_context(card, long_run):
+    """Phase 10 on a new one-rank NCCL world: returns its report."""
+    import torch
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    t0 = time.perf_counter()
+    kernels = phase_ring_hops()
+    assembly = phase_ring_assembly()
+    trained = phase_sp_gpt2(card, dev, long_run)
+    launches = {k: r.pop("launches") for k, r in trained.items()}
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    two = phase_sp_two_cards()
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "assembly": assembly, "trained": trained,
+            "two_cards": two, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9; 6, 7 and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10; 6, 7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -2900,11 +3326,18 @@ def main(argv=None) -> int:
         el = phase_elastic(card, main_path)
         launches.update(el.pop("launches"))
         print(json.dumps({"phase8": el}), flush=True)
+    long_run = None
     if 9 in phases:
         zoo = phase_zoo(card, main_path if 3 in phases else None)
         launches.update(zoo.pop("launches"))
         shapes.update(zoo.pop("kernels"))
+        long_run = zoo["trained"]["gpt2_long"]
         print(json.dumps({"phase9": zoo}), flush=True)
+    if 10 in phases:
+        lc = phase_long_context(card, long_run)
+        launches.update(lc.pop("launches"))
+        shapes.update(lc.pop("kernels"))
+        print(json.dumps({"phase10": lc}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

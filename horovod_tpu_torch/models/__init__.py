@@ -1,12 +1,15 @@
 """Models of the port (MNIST, ResNet, GPT-2, BERT, ViT, Llama, T5) and parameter
-conversion from the JAX package's trees.
+conversion from the JAX package's trees, and ``striped_lm_loss``, the exact
+loss of the striped sequence-parallel layout.
 
 ``get_model(name, **kw)`` builds the ported models by the reference's
 names (``horovod_tpu.models.get_model``); any other name raises, pointing
 to ``ROADMAP.md``, which lists the reference's models still to be ported.
 """
 
-__all__ = ["get_model", "PORTED"]
+from horovod_tpu_torch.models.gpt2 import striped_lm_loss  # noqa: F401
+
+__all__ = ["get_model", "PORTED", "striped_lm_loss"]
 
 PORTED = ("mnist", "resnet18", "resnet50", "gpt2", "gpt2_medium", "bert",
           "bert_large", "vit", "vit_b16", "llama", "llama7b", "llama_small",

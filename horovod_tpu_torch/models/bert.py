@@ -36,7 +36,8 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.models.gpt2 import Dense, LayerNorm
 from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
-                                             packed_positions, sp_attention)
+                                             model_positions, sp_attention,
+                                             validate_sp_config)
 from horovod_tpu_torch.utils.remat import maybe_remat, remat_context
 
 __all__ = ["BertConfig", "EncoderLayer", "Bert", "mlm_loss"]
@@ -76,8 +77,7 @@ def _validate(cfg: BertConfig) -> None:
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl {cfg.attention!r}; "
                          f"expected one of {ATTENTION_IMPLS}")
-    if cfg.use_ring_attention:
-        raise NotImplementedError("sequence-parallel BERT: not yet ported")
+    validate_sp_config(cfg)
     if cfg.remat:
         remat_context(cfg)
     if cfg.d_model % cfg.num_heads:
@@ -158,24 +158,35 @@ class Bert(nn.Module):
         b, t = tokens.shape
         if token_types is None:
             token_types = torch.zeros_like(tokens)
-        if attention_mask is None:
+        if attention_mask is None and not cfg.use_ring_attention:
             attention_mask = torch.ones((b, t), dtype=torch.bool,
                                         device=tokens.device)
-        if positions is not None:
-            pos = positions
-        elif segment_ids is not None:
-            pos = packed_positions(segment_ids)
-        else:
-            pos = torch.arange(t, device=tokens.device)
+        mask = None if attention_mask is None else attention_mask.bool()
+        pos = model_positions(cfg, t, tokens.device, segment_ids, positions)
         x = (self.wte[tokens] + self.wpe[pos] + self.wtt[token_types]).to(
             cfg.dtype)
         x = self.ln_emb(x)
         for layer in self.layer:
-            x = maybe_remat(cfg, layer)(x, attention_mask.bool(),
-                                        segment_ids)
+            x = maybe_remat(cfg, layer)(x, mask, segment_ids)
         mlm = torch.einsum("btd,vd->btv", x.float(), self.wte)
-        pooled = torch.tanh(self.pooler(x[:, 0].float()))
+        cls = x[:, 0]
+        if cfg.use_ring_attention:
+            # Global position 0 lives on rank 0 in both layouts: every
+            # rank's NSP head takes rank 0's [CLS], through a
+            # differentiable allreduce (the reference's psum).
+            cls = _cls_of_rank0(cls)
+        pooled = torch.tanh(self.pooler(cls.float()))
         return mlm, self.nsp(pooled)
+
+
+def _cls_of_rank0(cls: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.nn.functional import all_reduce
+    from horovod_tpu_torch.process_set import global_process_set
+    ps = global_process_set()
+    if ps.size() == 1:
+        return cls
+    mine = cls if ps.rank() == 0 else torch.zeros_like(cls)
+    return all_reduce(mine, group=ps.group)
 
 
 def mlm_loss(mlm_logits: torch.Tensor, tokens: torch.Tensor,

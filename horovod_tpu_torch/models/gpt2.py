@@ -20,8 +20,11 @@ Dense weights are stored as ``nn.Linear`` stores them, (out, in);
 (``ops/moe.py``); each block's aux load-balance loss leaves the forward
 with ``return_aux=True`` and :func:`loss_fn_moe` adds their mean.
 ``remat=True`` checkpoints each block under ``remat_policy`` ``"full"`` or
-``"dots"`` (``utils/remat.py``). Sequence parallelism is not ported yet and
-raises when asked for.
+``"dots"`` (``utils/remat.py``). ``use_ring_attention=True`` shards the
+sequence over the global process set (``ops/attention.sp_attention``): each
+rank feeds its shard of the tokens, wpe follows the shard's global
+positions, and :func:`striped_lm_loss` is the exact loss of the striped
+layout.
 """
 
 from __future__ import annotations
@@ -35,11 +38,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
-                                             packed_positions, sp_attention)
+                                             model_positions, sp_attention,
+                                             validate_sp_config)
 from horovod_tpu_torch.ops.moe import ROUTERS, MoEMLP
 from horovod_tpu_torch.utils.remat import maybe_remat, remat_context
 
-__all__ = ["GPT2Config", "GPT2", "loss_fn", "loss_fn_moe"]
+__all__ = ["GPT2Config", "GPT2", "loss_fn", "loss_fn_moe",
+           "striped_lm_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,9 +82,7 @@ def _validate(cfg: GPT2Config) -> None:
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl {cfg.attention!r}; "
                          f"expected one of {ATTENTION_IMPLS}")
-    if cfg.use_ring_attention:
-        raise NotImplementedError(
-            "sequence-parallel GPT-2: not yet ported")
+    validate_sp_config(cfg)
     validate_moe_and_remat(cfg)
     if cfg.d_model % cfg.num_heads:
         raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
@@ -233,12 +236,7 @@ class GPT2(nn.Module):
         reference's sown ``losses`` collection."""
         cfg = self.cfg
         b, t = tokens.shape
-        if positions is not None:
-            pos = positions
-        elif segment_ids is not None:
-            pos = packed_positions(segment_ids)
-        else:
-            pos = torch.arange(t, device=tokens.device)
+        pos = model_positions(cfg, t, tokens.device, segment_ids, positions)
         x = self.wte[tokens].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
         aux = []
         for block in self.h:
@@ -268,6 +266,39 @@ def loss_fn(logits: torch.Tensor, tokens: torch.Tensor,
         return -ll.mean()
     w = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ll.dtype)
     return -(ll * w).sum() / w.sum().clamp_min(1)
+
+
+def striped_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    process_set=None) -> torch.Tensor:
+    """Next-token cross entropy of the striped sequence-parallel layout,
+    exact over the whole sequence: local position j of rank r is global
+    position r + n*j, whose target is local j of rank r + 1 (the last rank
+    takes rank 0's tokens shifted one step). One hop fetches every target;
+    the sums go through a differentiable allreduce over ``process_set``
+    (default: the global set), so every rank returns the global mean, and
+    each rank's gradient is n times its share of it, as the reference's
+    ``psum`` gives under ``shard_map``: the optimizer's average cancels n."""
+    from torch.distributed.nn.functional import all_reduce
+    from horovod_tpu_torch.ops.ring_attention import Ring
+    ring = Ring(process_set)
+    n, r = ring.n, ring.rank
+    if n == 1:
+        # One rank holds the sequence in order: loss_fn's pairs and sums.
+        return loss_fn(logits, tokens)
+    t = tokens.shape[1]
+    recv = ring.shift([tokens], forward=False)[0]
+    targets = torch.cat([recv[:, 1:], recv[:, :1]], 1) if r == n - 1 \
+        else recv
+    # The last global position (last rank, last slot) predicts nothing.
+    valid = torch.ones(t, dtype=torch.bool, device=tokens.device)
+    if r == n - 1:
+        valid[-1] = False
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    s = torch.where(valid, ll, torch.zeros((), device=ll.device)).sum()
+    c = valid.to(ll.dtype).sum() * tokens.shape[0]
+    return -all_reduce(s, group=ring.group) / all_reduce(c,
+                                                         group=ring.group)
 
 
 def loss_fn_moe(model: nn.Module, tokens: torch.Tensor,

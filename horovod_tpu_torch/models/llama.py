@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from horovod_tpu_torch.models.gpt2 import (Dense, loss_fn, loss_fn_moe,
                                            stack_aux, validate_moe_and_remat)
 from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
-                                             packed_positions, sp_attention)
+                                             model_positions, sp_attention,
+                                             validate_sp_config)
 from horovod_tpu_torch.ops.moe import MoEMLP
 from horovod_tpu_torch.utils.remat import maybe_remat
 
@@ -92,8 +93,7 @@ def _validate(cfg: LlamaConfig) -> None:
     if cfg.attention not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl {cfg.attention!r}; "
                          f"expected one of {ATTENTION_IMPLS}")
-    if cfg.use_ring_attention:
-        raise NotImplementedError("sequence-parallel Llama: not yet ported")
+    validate_sp_config(cfg)
     validate_moe_and_remat(cfg)
     if cfg.d_model % cfg.num_heads:
         raise ValueError(f"d_model {cfg.d_model} is not a multiple of "
@@ -237,13 +237,10 @@ class Llama(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 return_aux: bool = False):
         cfg = self.cfg
-        t = tokens.shape[1]
-        if positions is not None:
-            pos = positions
-        elif segment_ids is not None:
-            pos = packed_positions(segment_ids)
-        else:
-            pos = torch.arange(t, device=tokens.device)
+        # Under sequence parallelism RoPE turns by the shard's global
+        # positions.
+        pos = model_positions(cfg, tokens.shape[1], tokens.device,
+                              segment_ids, positions)
         x = self.wte[tokens].to(cfg.dtype)
         aux = []
         for block in self.h:

@@ -147,14 +147,14 @@ _C_INT, _C_FLOAT, _C_PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # argtypes of every C entry point, by source file
 _SIGNATURES = {
     "flash_fwd.cu": {
-        "hvd_flash_fwd": [_C_PTR] * 7 + [_C_INT] * 5 + [_C_FLOAT]
+        "hvd_flash_fwd": [_C_PTR] * 8 + [_C_INT] * 5 + [_C_FLOAT]
         + [_C_INT] * 3 + [_C_PTR],
         "hvd_flash_fwd_smem": [_C_INT],
     },
     "flash_bwd.cu": {
-        "hvd_flash_bwd_dq": [_C_PTR] * 9 + [_C_INT] * 5 + [_C_FLOAT]
+        "hvd_flash_bwd_dq": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_FLOAT]
         + [_C_INT] * 3 + [_C_PTR],
-        "hvd_flash_bwd_dkv": [_C_PTR] * 11 + [_C_INT] * 5 + [_C_FLOAT]
+        "hvd_flash_bwd_dkv": [_C_PTR] * 12 + [_C_INT] * 5 + [_C_FLOAT]
         + [_C_INT] * 3 + [_C_PTR],
         "hvd_flash_bwd_dq_smem": [_C_INT],
         "hvd_flash_bwd_dkv_smem": [_C_INT],

@@ -1,10 +1,10 @@
-"""Multi-head attention dispatch shared by the models: dense or flash.
+"""Multi-head attention dispatch shared by the models: dense or flash, on
+one rank or sequence-parallel.
 
-Port of ``horovod_tpu/ops/attention.py`` (``multihead_attention``,
-``segment_mask``, ``packed_positions`` and the single-device branch of
-``sp_attention``). Layout (B, T, H, D) at every public function, masking
-constant -1e30, and a row whose keys are all masked gives 0 on both paths.
-Sequence-parallel attention (ring, Ulysses) is not ported yet.
+Port of ``horovod_tpu/ops/attention.py``. Layout (B, T, H, D) at every
+public function, masking constant -1e30, and a row whose keys are all
+masked gives 0 on every path. Sequence parallelism runs over the global
+process set, where the reference's models name the mesh axis ``"sp"``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 
 __all__ = ["multihead_attention", "ATTENTION_IMPLS", "segment_mask",
-           "packed_positions", "sp_attention"]
+           "packed_positions", "sp_attention", "validate_sp_config",
+           "sp_global_positions", "model_positions"]
 
 ATTENTION_IMPLS = ("dense", "flash")
 
@@ -84,6 +85,46 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v.to(p.dtype))
 
 
+def validate_sp_config(cfg) -> None:
+    """The sequence-parallel config guards of GPT-2, Llama and BERT
+    (``use_ring_attention / attention / sp_impl / ring_layout``): a typo
+    raises rather than training on the wrong path."""
+    if not cfg.use_ring_attention:
+        return
+    if cfg.attention not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"unknown attention impl {cfg.attention!r} for the ring "
+            "path; expected 'dense' or 'flash'")
+    if cfg.sp_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"unknown sp_impl {cfg.sp_impl!r}; expected 'ring' or "
+            "'ulysses'")
+    if cfg.ring_layout not in ("contiguous", "striped"):
+        raise ValueError(
+            f"unknown ring_layout {cfg.ring_layout!r}; expected "
+            "'contiguous' or 'striped'")
+    if cfg.sp_impl == "ulysses" and cfg.ring_layout == "striped":
+        raise ValueError(
+            "ulysses sequence parallelism gathers the full sequence "
+            "per head — positions are globally contiguous; use "
+            "ring_layout='contiguous' (striped positions would mask the "
+            "wrong pairs: wrong logits, no error)")
+
+
+def sp_global_positions(t: int, cfg, device=None) -> torch.Tensor:
+    """(t,) global token positions of this rank's sequence shard:
+    rank-major for the contiguous layout, rank-offset stride n for the
+    striped one; ``arange(t)`` without sequence parallelism."""
+    pos = torch.arange(t, device=device)
+    if not cfg.use_ring_attention:
+        return pos
+    from horovod_tpu_torch.process_set import global_process_set
+    ps = global_process_set()
+    if cfg.ring_layout == "striped":
+        return ps.rank() + ps.size() * pos
+    return pos + ps.rank() * t
+
+
 def segment_mask(seg_q: torch.Tensor, seg_k: torch.Tensor) -> torch.Tensor:
     """(B, Tq, Tk) bool: True where q and k share a packing segment."""
     return seg_q[:, :, None] == seg_k[:, None, :]
@@ -98,14 +139,61 @@ def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     return ar - torch.cummax(starts, dim=1).values
 
 
+def model_positions(cfg, t: int, device, segment_ids=None, positions=None):
+    """The position ids of GPT-2, Llama and BERT: ``positions`` when given;
+    else restarting per packed document; else the shard's global positions
+    under sequence parallelism (``arange(t)`` without it). A packed shard
+    cannot see where its documents began, so it needs ``positions``."""
+    if positions is not None:
+        return positions
+    if segment_ids is not None:
+        if cfg.use_ring_attention:
+            raise ValueError(
+                "packed sequences under sp need explicit positions= "
+                "(per-shard pos-in-segment; the shard cannot see "
+                "where its documents started)")
+        return packed_positions(segment_ids)
+    return sp_global_positions(t, cfg, device)
+
+
 def sp_attention(q, k, v, cfg, causal: bool = True, key_mask=None,
                  segment_ids=None) -> torch.Tensor:
-    """The models' self-attention dispatch. Without sequence parallelism
-    this is :func:`multihead_attention` with the config's impl, dtype and
-    flash tiles."""
+    """The models' self-attention dispatch (causal decoders and, with
+    ``causal=False``, bidirectional encoders), selected by ``cfg``:
+
+    * no sp             -> :func:`multihead_attention` (dense or flash);
+    * ``sp_impl="ring"``    -> the dense ring or the flash ring over the
+      global process set, in ``cfg.ring_layout``;
+    * ``sp_impl="ulysses"`` -> heads <-> sequence all-to-all, then local
+      attention (``cfg.attention``).
+
+    ``key_mask`` (B, t_local) bool and ``segment_ids`` (B, t_local) int
+    hold on every path.
+    """
     if cfg.use_ring_attention:
-        raise NotImplementedError(
-            "sequence-parallel attention (ring / ulysses): not yet ported")
+        if cfg.sp_impl == "ulysses":
+            from horovod_tpu_torch.ops.sequence import ulysses_attention
+            blocks = {}
+            if cfg.flash_blocks is not None:
+                blocks = {"block_q": int(cfg.flash_blocks[0]),
+                          "block_k": int(cfg.flash_blocks[1])}
+            return ulysses_attention(q, k, v, causal=causal,
+                                     impl=cfg.attention, key_mask=key_mask,
+                                     segment_ids=segment_ids, **blocks)
+        if cfg.attention == "flash":
+            from horovod_tpu_torch.ops.ring_flash import ring_flash_attention
+            return ring_flash_attention(q, k, v, causal=causal,
+                                        layout=cfg.ring_layout,
+                                        key_mask=key_mask,
+                                        segment_ids=segment_ids)
+        if cfg.attention == "dense":
+            from horovod_tpu_torch.ops.ring_attention import ring_attention
+            return ring_attention(q, k, v, causal=causal,
+                                  layout=cfg.ring_layout, key_mask=key_mask,
+                                  segment_ids=segment_ids)
+        raise ValueError(
+            f"unknown attention impl {cfg.attention!r} for the ring "
+            "path; expected 'dense' or 'flash'")
     return multihead_attention(q, k, v, impl=cfg.attention, causal=causal,
                                key_mask=key_mask, segment_ids=segment_ids,
                                out_dtype=cfg.dtype,

@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs a) {
   const size_t qoff = (size_t)bh * tq * d, koff = (size_t)bh * tk * d;
   const T* kh = static_cast<const T*>(a.k) + koff;
   const T* vh = static_cast<const T*>(a.v) + koff;
-  const bool has_bias = a.bias != nullptr, has_seg = a.seg != nullptr;
+  const bool has_bias = a.bias != nullptr, has_seg = a.seg_q != nullptr;
 
   float qr[32], dor[32], acc[32];
   load_row(qr, static_cast<const T*>(a.q) + qoff, qpos, tq, d, hs * 32,
@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs a) {
 #pragma unroll
   for (int c = 0; c < 32; ++c) acc[c] = 0.f;
   const bool qvalid = qpos < tq;
-  const int sq = (has_seg && qvalid) ? a.seg[(size_t)b * tq + qpos] : 0;
+  const int sq = (has_seg && qvalid) ? a.seg_q[(size_t)b * tq + qpos] : 0;
   const float lse = qvalid ? a.lse_in[(size_t)bh * tq + qpos] : 0.f;
   const float delta = qvalid ? a.delta[(size_t)bh * tq + qpos] : 0.f;
 
@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs a) {
     for (int j = tid; j < BK; j += kThreads) {
       const int kp = k0 + j;
       Bs[j] = (has_bias && kp < tk) ? a.bias[(size_t)b * tk + kp] : 0.f;
-      Ss[j] = (has_seg && kp < tk) ? a.seg[(size_t)b * tk + kp] : 0;
+      Ss[j] = (has_seg && kp < tk) ? a.seg_k[(size_t)b * tk + kp] : 0;
     }
     __syncthreads();
 
@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const size_t qoff = (size_t)bh * tq * d, koff = (size_t)bh * tk * d;
   const T* qh = static_cast<const T*>(a.q) + qoff;
   const T* doh = static_cast<const T*>(a.dout) + qoff;
-  const bool has_bias = a.bias != nullptr, has_seg = a.seg != nullptr;
+  const bool has_bias = a.bias != nullptr, has_seg = a.seg_q != nullptr;
   const bool kvalid = kpos < tk;
 
   float kr[32], vr[32], dk[32], dv[32];
@@ -170,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   float db = 0.f;
   const float bias = (has_bias && kvalid) ? a.bias[(size_t)b * tk + kpos]
                                           : 0.f;
-  const int sk = (has_seg && kvalid) ? a.seg[(size_t)b * tk + kpos] : 0;
+  const int sk = (has_seg && kvalid) ? a.seg_k[(size_t)b * tk + kpos] : 0;
 
   const int nqt = (tq + BQ - 1) / BQ;
   for (int qt = first_q_tile(kb * BK, BQ, a.causal, a.offset); qt < nqt;
@@ -184,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       const bool ok = qp < tq;
       Ls[i] = ok ? a.lse_in[(size_t)bh * tq + qp] : 0.f;
       Dl[i] = ok ? a.delta[(size_t)bh * tq + qp] : 0.f;
-      Sq[i] = (has_seg && ok) ? a.seg[(size_t)b * tq + qp] : 0;
+      Sq[i] = (has_seg && ok) ? a.seg_q[(size_t)b * tq + qp] : 0;
     }
     __syncthreads();
 
@@ -275,7 +275,8 @@ __device__ __forceinline__ void stage_q(const FlashArgs& a, const bf16* qh,
     const bool ok = qp < a.tq;
     Lb[i] = ok ? a.lse_in[(size_t)bh * a.tq + qp] * kLog2e : 0.f;
     Dlb[i] = ok ? a.delta[(size_t)bh * a.tq + qp] : 0.f;
-    Sqb[i] = (a.seg != nullptr && ok) ? a.seg[(size_t)b * a.tq + qp] : 0;
+    Sqb[i] = (a.seg_q != nullptr && ok) ? a.seg_q[(size_t)b * a.tq + qp]
+                                        : 0;
   }
 }
 
@@ -290,7 +291,7 @@ __device__ __forceinline__ void stage_keys(const FlashArgs& a, int b, int k0,
     Kb[j] = (a.bias != nullptr && ok)
                 ? a.bias[(size_t)b * a.tk + kp] * kLog2e
                 : 0.f;
-    Sk[j] = (a.seg != nullptr && ok) ? a.seg[(size_t)b * a.tk + kp] : 0;
+    Sk[j] = (a.seg_k != nullptr && ok) ? a.seg_k[(size_t)b * a.tk + kp] : 0;
   }
 }
 
@@ -317,7 +318,8 @@ __device__ __forceinline__ void probs_and_ds(
       if (full) {
         const int kr = kr0 + 8 * r;
         const float xm = mask_score(
-            x, a.bias != nullptr, Kb[kr], a.seg != nullptr, sqt[col], Sk[kr],
+            x, a.bias != nullptr, Kb[kr], a.seg_q != nullptr, sqt[col],
+            Sk[kr],
             visible(q0 + col, k0 + kr, a.tq, a.tk, a.causal, a.offset));
         p = xm > kNegInf * 0.5f ? ex2(xm - lt[col]) : 0.f;
         ds = p > 0.f ? p * (dp[j][e] - dlt[col]) : 0.f;
@@ -547,7 +549,7 @@ __device__ __forceinline__ void stage_kv(const FlashArgs& a, const bf16* kh,
     Bb[j] = (a.bias != nullptr && ok)
                 ? a.bias[(size_t)b * a.tk + kp] * kLog2e
                 : 0.f;
-    Sb[j] = (a.seg != nullptr && ok) ? a.seg[(size_t)b * a.tk + kp] : 0;
+    Sb[j] = (a.seg_k != nullptr && ok) ? a.seg_k[(size_t)b * a.tk + kp] : 0;
   }
 }
 
@@ -572,7 +574,8 @@ __device__ __forceinline__ void probs_and_ds_rows(
       float p, ds;
       if (full) {
         const float xm = mask_score(
-            x, a.bias != nullptr, Bt[col], a.seg != nullptr, sq[r], St[col],
+            x, a.bias != nullptr, Bt[col], a.seg_q != nullptr, sq[r],
+            St[col],
             visible(qp0 + 8 * r, k0 + col, a.tq, a.tk, a.causal, a.offset));
         p = xm > kNegInf * 0.5f ? ex2(xm - lse2[r]) : 0.f;
         ds = p > 0.f ? p * (dp[j][e] - dl[r]) : 0.f;
@@ -759,8 +762,13 @@ static bool bad_shape(int bh, int tq, int tk, int d, int heads, int dtype) {
          (tq + 31) / 32 > 65535 || (tk + 31) / 32 > 65535;
 }
 
+static bool bad_segs(const void* seg_q, const void* seg_k) {
+  return (seg_q == nullptr) != (seg_k == nullptr);
+}
+
 static FlashArgs make_args(const void* q, const void* k, const void* v,
-                           const void* bias, const void* seg,
+                           const void* bias, const void* seg_q,
+                           const void* seg_k,
                            const void* dout, const void* lse,
                            const void* delta, int tq, int tk, int d,
                            int heads, float scale, int causal, int offset) {
@@ -769,7 +777,8 @@ static FlashArgs make_args(const void* q, const void* k, const void* v,
   a.k = k;
   a.v = v;
   a.bias = static_cast<const float*>(bias);
-  a.seg = static_cast<const int*>(seg);
+  a.seg_q = static_cast<const int*>(seg_q);
+  a.seg_k = static_cast<const int*>(seg_k);
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -789,17 +798,17 @@ static FlashArgs make_args(const void* q, const void* k, const void* v,
 // (tensor-core kernels). Each returns the cudaError_t of its launch (0 on
 // success).
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* bias, const void* seg,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, int bh, int tq,
-                                int tk, int d, int heads, float scale,
-                                int causal, int offset, int dtype,
-                                void* stream) {
+                                const void* bias, const void* seg_q,
+                                const void* seg_k, const void* dout,
+                                const void* lse, const void* delta, void* dq,
+                                int bh, int tq, int tk, int d, int heads,
+                                float scale, int causal, int offset,
+                                int dtype, void* stream) {
   using namespace hvdflash;
-  if (bad_shape(bh, tq, tk, d, heads, dtype))
+  if (bad_shape(bh, tq, tk, d, heads, dtype) || bad_segs(seg_q, seg_k))
     return (int)cudaErrorInvalidValue;
-  FlashArgs a = make_args(q, k, v, bias, seg, dout, lse, delta, tq, tk, d,
-                          heads, scale, causal, offset);
+  FlashArgs a = make_args(q, k, v, bias, seg_q, seg_k, dout, lse, delta, tq,
+                          tk, d, heads, scale, causal, offset);
   a.dq = dq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -812,17 +821,18 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* bias, const void* seg,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv,
-                                 void* dbias, int bh, int tq, int tk, int d,
-                                 int heads, float scale, int causal,
-                                 int offset, int dtype, void* stream) {
+                                 const void* bias, const void* seg_q,
+                                 const void* seg_k, const void* dout,
+                                 const void* lse, const void* delta, void* dk,
+                                 void* dv, void* dbias, int bh, int tq,
+                                 int tk, int d, int heads, float scale,
+                                 int causal, int offset, int dtype,
+                                 void* stream) {
   using namespace hvdflash;
-  if (bad_shape(bh, tq, tk, d, heads, dtype))
+  if (bad_shape(bh, tq, tk, d, heads, dtype) || bad_segs(seg_q, seg_k))
     return (int)cudaErrorInvalidValue;
-  FlashArgs a = make_args(q, k, v, bias, seg, dout, lse, delta, tq, tk, d,
-                          heads, scale, causal, offset);
+  FlashArgs a = make_args(q, k, v, bias, seg_q, seg_k, dout, lse, delta, tq,
+                          tk, d, heads, scale, causal, offset);
   a.dk = dk;
   a.dv = dv;
   a.dbias = static_cast<float*>(dbias);

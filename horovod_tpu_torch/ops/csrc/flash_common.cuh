@@ -3,7 +3,8 @@
 // Layout and conventions, common to the three kernels:
 // - q, k, v, dO, O, dQ, dK, dV are (BH, T, d) row-major, BH = batch * heads,
 //   in fp32 or bf16. lse and delta are (BH, Tq) fp32; key_bias is (B, Tk)
-//   fp32, segment ids (B, T) int32, dbias (BH, Tk) fp32.
+//   fp32, query segment ids (B, Tq) and key segment ids (B, Tk) int32 (both
+//   set or both null), dbias (BH, Tk) fp32.
 // - A block runs kThreads threads. A row of the tile a block owns (a query
 //   row for the forward and dQ kernels, a key row for dK/dV) belongs to NS =
 //   HD / 32 neighbouring lanes; each lane keeps 32 of the HD columns of that
@@ -33,7 +34,8 @@ struct FlashArgs {
   const void* k;
   const void* v;
   const float* bias;     // (B, Tk) or null
-  const int* seg;        // (B, T) or null
+  const int* seg_q;      // (B, Tq) or null
+  const int* seg_k;      // (B, Tk), null exactly when seg_q is
   const void* dout;      // backward only
   const float* lse_in;   // backward only
   const float* delta;    // backward only

@@ -64,13 +64,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
   const T* qh = static_cast<const T*>(a.q) + (size_t)bh * tq * d;
   const T* kh = static_cast<const T*>(a.k) + (size_t)bh * tk * d;
   const T* vh = static_cast<const T*>(a.v) + (size_t)bh * tk * d;
-  const bool has_bias = a.bias != nullptr, has_seg = a.seg != nullptr;
+  const bool has_bias = a.bias != nullptr, has_seg = a.seg_q != nullptr;
 
   float qr[32], acc[32];
   load_row(qr, qh, qpos, tq, d, hs * 32, a.scale);
 #pragma unroll
   for (int c = 0; c < 32; ++c) acc[c] = 0.f;
-  const int sq = (has_seg && qpos < tq) ? a.seg[(size_t)b * tq + qpos] : 0;
+  const int sq = (has_seg && qpos < tq) ? a.seg_q[(size_t)b * tq + qpos] : 0;
   float m = kNegInf, l = 0.f;
 
   const int nkt = k_tiles_needed(qb * BQ, BQ, BK, tk, a.causal, a.offset);
@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
     for (int j = tid; j < BK; j += kThreads) {
       const int kp = k0 + j;
       Bs[j] = (has_bias && kp < tk) ? a.bias[(size_t)b * tk + kp] : 0.f;
-      Ss[j] = (has_seg && kp < tk) ? a.seg[(size_t)b * tk + kp] : 0;
+      Ss[j] = (has_seg && kp < tk) ? a.seg_k[(size_t)b * tk + kp] : 0;
     }
     __syncthreads();
 
@@ -174,7 +174,7 @@ __device__ __forceinline__ void softmax_tile(const FlashArgs& a,
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, col = j * 8 + t2 + (e & 1);
         const float x = mask_score(
-            s[j][e] * sl, a.bias != nullptr, Bt[col], a.seg != nullptr,
+            s[j][e] * sl, a.bias != nullptr, Bt[col], a.seg_q != nullptr,
             sq[r], St[col],
             visible(qp0 + 8 * r, k0 + col, a.tq, a.tk, a.causal, a.offset));
         s[j][e] = x;
@@ -390,7 +390,7 @@ __global__ void __launch_bounds__(WgFwdTiles<HD>::THREADS,
                               ? a.bias[(size_t)b * tk + kp] * kLog2e
                               : 0.f;
         Ss[st * BK + j] =
-            (a.seg != nullptr && ok) ? a.seg[(size_t)b * tk + kp] : 0;
+            (a.seg_k != nullptr && ok) ? a.seg_k[(size_t)b * tk + kp] : 0;
       }
       const uint32_t full = full0 + 8 * st;
       if (lane == 0) {
@@ -420,8 +420,8 @@ __global__ void __launch_bounds__(WgFwdTiles<HD>::THREADS,
   // whole tiles of keys below the diagonal, with no bias, no segment ids
   // and no rows past tq. Their softmax needs a positive scale.
   int n_plain = 0;
-  if (a.bias == nullptr && a.seg == nullptr && qw + 64 <= tq &&
-      a.scale > 0.f) {
+  if (a.bias == nullptr && a.seg_q == nullptr && a.seg_k == nullptr &&
+      qw + 64 <= tq && a.scale > 0.f) {
     n_plain = tk / BK;
     if (a.causal) {
       const int lim = qw + a.offset + 1;  // k_pos < lim for every row
@@ -484,21 +484,23 @@ static cudaError_t launch_fwd_bf16(const FlashArgs& a, int bh,
 // (tensor-core kernel). Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
-                             const void* bias, const void* seg, void* o,
-                             void* lse, int bh, int tq, int tk, int d,
-                             int heads, float scale, int causal, int offset,
-                             int dtype, void* stream) {
+                             const void* bias, const void* seg_q,
+                             const void* seg_k, void* o, void* lse, int bh,
+                             int tq, int tk, int d, int heads, float scale,
+                             int causal, int offset, int dtype,
+                             void* stream) {
   using namespace hvdflash;
   if (bh <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 || d % 8 != 0 ||
       heads <= 0 || bh % heads != 0 || (dtype != 0 && dtype != 1) ||
-      (tq + 31) / 32 > 65535)
+      (tq + 31) / 32 > 65535 || (seg_q == nullptr) != (seg_k == nullptr))
     return (int)cudaErrorInvalidValue;
   FlashArgs a = {};
   a.q = q;
   a.k = k;
   a.v = v;
   a.bias = static_cast<const float*>(bias);
-  a.seg = static_cast<const int*>(seg);
+  a.seg_q = static_cast<const int*>(seg_q);
+  a.seg_k = static_cast<const int*>(seg_k);
   a.o = o;
   a.lse = static_cast<float*>(lse);
   a.tq = tq;

@@ -101,8 +101,9 @@ __device__ __forceinline__ float quad_max(float x) {
 // diagonal. The other tile pairs need no masking work at all.
 __device__ __forceinline__ bool tile_has_mask(const FlashArgs& a, int q0,
                                               int bq, int k0, int bk) {
-  return a.bias != nullptr || a.seg != nullptr || k0 + bk > a.tk ||
-         q0 + bq > a.tq || (a.causal && k0 + bk - 1 > q0 + a.offset);
+  return a.bias != nullptr || a.seg_q != nullptr || a.seg_k != nullptr ||
+         k0 + bk > a.tk || q0 + bq > a.tq ||
+         (a.causal && k0 + bk - 1 > q0 + a.offset);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -317,8 +318,9 @@ __device__ __forceinline__ void load_row_segs(const FlashArgs& a, int b,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = qp0 + 8 * r;
-    sq[r] = (a.seg != nullptr && qp < a.tq) ? a.seg[(size_t)b * a.tq + qp]
-                                            : 0;
+    sq[r] = (a.seg_q != nullptr && qp < a.tq)
+                ? a.seg_q[(size_t)b * a.tq + qp]
+                : 0;
   }
 }
 

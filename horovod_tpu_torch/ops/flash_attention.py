@@ -24,8 +24,14 @@ fp32 products (see the sources).
 
 ``block_q``/``block_k`` (and ``_bwd``) tile the plain versions only. The
 CUDA kernels' tiles are compiled in and follow from the head dim (see the
-sources), so naming a block for CUDA tensors raises. ``delta = rowsum(dO * O)`` and the head-sum of
-the bias gradient stay plain torch outside the kernels, as in the reference.
+sources), so naming a block for CUDA tensors raises. ``delta = rowsum(dO *
+O)`` and the head-sum of the bias gradient stay plain torch outside the
+kernels, as in the reference.
+
+Every kernel and plain version takes the query's segment ids ``seg_q``
+(B, Tq) and the keys' ``seg_k`` (B, Tk) as two tensors, both or neither, as
+the reference's kernels do: a ring hop masks the home queries against the
+resident key block's ids. :func:`flash_attention` passes one tensor as both.
 """
 
 from __future__ import annotations
@@ -85,13 +91,15 @@ def _visible_block(causal, q0, bq, k0, offset) -> bool:
     return (not causal) or k0 < q0 + bq + offset
 
 
-def flash_fwd_plain(q, k, v, bias, seg, h, scale, causal, offset=0,
+def flash_fwd_plain(q, k, v, bias, seg_q, seg_k, h, scale, causal, offset=0,
                     block_q=DEFAULT_BLOCKS[0], block_k=DEFAULT_BLOCKS[1]):
     """Plain version of the forward kernel on packed (BH, T, d) inputs.
-    ``bias`` (B, Tk) fp32, ``seg`` (B, T) int. Returns (O, lse (BH, Tq))."""
+    ``bias`` (B, Tk) fp32, ``seg_q`` (B, Tq) and ``seg_k`` (B, Tk) int.
+    Returns (O, lse (BH, Tq))."""
     bh, tq, d = q.shape
     tk = k.shape[1]
-    bias_r, seg_r = _per_row(bias, h), _per_row(seg, h)
+    bias_r = _per_row(bias, h)
+    segq_r, segk_r = _per_row(seg_q, h), _per_row(seg_k, h)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     for q0 in range(0, tq, block_q):
@@ -109,8 +117,8 @@ def flash_fwd_plain(q, k, v, bias, seg, h, scale, causal, offset=0,
             s = _mask_scores(
                 qb @ kb.transpose(1, 2), q0, k0, tq, tk, causal, offset,
                 None if bias_r is None else bias_r[:, k0:k0 + nk],
-                None if seg_r is None else seg_r[:, q0:q0 + nq],
-                None if seg_r is None else seg_r[:, k0:k0 + nk])
+                None if segq_r is None else segq_r[:, q0:q0 + nq],
+                None if segk_r is None else segk_r[:, k0:k0 + nk])
             m_new = torch.maximum(m, s.amax(dim=2))
             p = torch.exp(s - m_new[:, :, None])
             p = torch.where(s > _NEG_INF / 2, p, torch.zeros_like(p))
@@ -125,15 +133,15 @@ def flash_fwd_plain(q, k, v, bias, seg, h, scale, causal, offset=0,
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, q0, k0, nq, nk, tq, tk, scale,
-                  causal, offset, bias_r, seg_r):
+                  causal, offset, bias_r, segq_r, segk_r):
     """P and dS of one (q, k) block, recomputed from lse (fp32)."""
     qb = q[:, q0:q0 + nq].float() * scale
     kb = k[:, k0:k0 + nk].float()
     s = _mask_scores(
         qb @ kb.transpose(1, 2), q0, k0, tq, tk, causal, offset,
         None if bias_r is None else bias_r[:, k0:k0 + nk],
-        None if seg_r is None else seg_r[:, q0:q0 + nq],
-        None if seg_r is None else seg_r[:, k0:k0 + nk])
+        None if segq_r is None else segq_r[:, q0:q0 + nq],
+        None if segk_r is None else segk_r[:, k0:k0 + nk])
     p = torch.exp(s - lse[:, q0:q0 + nq, None])
     p = torch.where(s > _NEG_INF / 2, p, torch.zeros_like(p))
     dob = do[:, q0:q0 + nq].float()
@@ -143,14 +151,15 @@ def _probs_and_ds(q, k, v, do, lse, delta, q0, k0, nq, nk, tq, tk, scale,
     return qb, kb, dob, p, ds
 
 
-def flash_bwd_dq_plain(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
-                       offset=0, block_q=DEFAULT_BLOCKS[0],
+def flash_bwd_dq_plain(q, k, v, bias, seg_q, seg_k, do, lse, delta, h, scale,
+                       causal, offset=0, block_q=DEFAULT_BLOCKS[0],
                        block_k=DEFAULT_BLOCKS[1]):
     """Plain version of the dQ kernel. ``lse``/``delta`` are (BH, Tq) fp32.
     Returns dQ in q's dtype."""
     bh, tq, d = q.shape
     tk = k.shape[1]
-    bias_r, seg_r = _per_row(bias, h), _per_row(seg, h)
+    bias_r = _per_row(bias, h)
+    segq_r, segk_r = _per_row(seg_q, h), _per_row(seg_k, h)
     dq = torch.empty_like(q)
     for q0 in range(0, tq, block_q):
         nq = min(block_q, tq - q0)
@@ -161,14 +170,14 @@ def flash_bwd_dq_plain(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
             nk = min(block_k, tk - k0)
             _, kb, _, _, ds = _probs_and_ds(
                 q, k, v, do, lse, delta, q0, k0, nq, nk, tq, tk, scale,
-                causal, offset, bias_r, seg_r)
+                causal, offset, bias_r, segq_r, segk_r)
             acc = acc + ds @ kb
         dq[:, q0:q0 + nq] = (acc * scale).to(q.dtype)
     return dq
 
 
-def flash_bwd_dkv_plain(q, k, v, bias, seg, do, lse, delta, h, scale,
-                        causal, offset=0, want_db=True,
+def flash_bwd_dkv_plain(q, k, v, bias, seg_q, seg_k, do, lse, delta, h,
+                        scale, causal, offset=0, want_db=True,
                         block_q=DEFAULT_BLOCKS[0],
                         block_k=DEFAULT_BLOCKS[1]):
     """Plain version of the dK/dV kernel. Returns (dK, dV, dbias) with
@@ -176,7 +185,8 @@ def flash_bwd_dkv_plain(q, k, v, bias, seg, do, lse, delta, h, scale,
     ``want_db`` is False."""
     bh, tq, d = q.shape
     tk = k.shape[1]
-    bias_r, seg_r = _per_row(bias, h), _per_row(seg, h)
+    bias_r = _per_row(bias, h)
+    segq_r, segk_r = _per_row(seg_q, h), _per_row(seg_k, h)
     track_db = bias is not None and want_db
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -193,7 +203,7 @@ def flash_bwd_dkv_plain(q, k, v, bias, seg, do, lse, delta, h, scale,
             nq = min(block_q, tq - q0)
             qb, _, dob, p, ds = _probs_and_ds(
                 q, k, v, do, lse, delta, q0, k0, nq, nk, tq, tk, scale,
-                causal, offset, bias_r, seg_r)
+                causal, offset, bias_r, segq_r, segk_r)
             dv_acc = dv_acc + p.transpose(1, 2) @ dob
             # dk = dS^T (q * scale); qb already carries the scale.
             dk_acc = dk_acc + ds.transpose(1, 2) @ qb
@@ -226,7 +236,20 @@ def _on_cuda(q, *others) -> bool:
     return q.is_cuda
 
 
-def _check_kernel_inputs(q, k, v, bias, seg, *extra):
+def _check_segs(q, k, seg_q, seg_k) -> None:
+    """Both segment-id tensors or neither, (B, Tq) and (B, Tk)."""
+    if (seg_q is None) != (seg_k is None):
+        raise ValueError("seg_q and seg_k are given together or not at all")
+    if seg_q is None:
+        return
+    b = seg_q.shape[0]
+    if (tuple(seg_q.shape) != (b, q.shape[1])
+            or tuple(seg_k.shape) != (b, k.shape[1])):
+        raise ValueError(f"seg_q must be (B, Tq) and seg_k (B, Tk), got "
+                         f"{tuple(seg_q.shape)} and {tuple(seg_k.shape)}")
+
+
+def _check_kernel_inputs(q, k, v, bias, seg_q, seg_k, *extra):
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -240,7 +263,7 @@ def _check_kernel_inputs(q, k, v, bias, seg, *extra):
     if d % 8 or d > 128:
         raise ValueError(f"flash kernels take head dims that are multiples "
                          f"of 8 up to 128, got {d}")
-    for t in (q, k, v, bias, seg) + extra:
+    for t in (q, k, v, bias, seg_q, seg_k) + extra:
         if t is not None and not t.is_contiguous():
             raise ValueError("flash kernels need contiguous inputs")
     if q.dtype == torch.bfloat16:
@@ -251,8 +274,9 @@ def _check_kernel_inputs(q, k, v, bias, seg, *extra):
                                  "q, k, v and dO")
     if bias is not None and bias.dtype != torch.float32:
         raise TypeError("key_bias must be float32 at the kernel")
-    if seg is not None and seg.dtype != torch.int32:
-        raise TypeError("segment ids must be int32 at the kernel")
+    for t in (seg_q, seg_k):
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError("segment ids must be int32 at the kernel")
 
 
 def _plain_blocks(block_q, block_k) -> Tuple[int, int]:
@@ -272,35 +296,35 @@ def _raise_on_error(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
-def launch_fwd(lib, q, k, v, bias, seg, o, lse, h, scale, causal, offset,
-               stream) -> None:
+def launch_fwd(lib, q, k, v, bias, seg_q, seg_k, o, lse, h, scale, causal,
+               offset, stream) -> None:
     """Call ``hvd_flash_fwd`` of ``lib`` on already-checked tensors."""
     bh, tq, d = q.shape
     rc = lib.hvd_flash_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(seg), _ptr(o), _ptr(lse),
-        bh, tq, k.shape[1], d, h, float(scale), int(causal), int(offset),
-        _KERNEL_DTYPES[q.dtype], stream)
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(seg_q), _ptr(seg_k),
+        _ptr(o), _ptr(lse), bh, tq, k.shape[1], d, h, float(scale),
+        int(causal), int(offset), _KERNEL_DTYPES[q.dtype], stream)
     _raise_on_error(rc, "flash_fwd")
 
 
-def launch_bwd_dq(lib, q, k, v, bias, seg, do, lse, delta, dq, h, scale,
-                  causal, offset, stream) -> None:
+def launch_bwd_dq(lib, q, k, v, bias, seg_q, seg_k, do, lse, delta, dq, h,
+                  scale, causal, offset, stream) -> None:
     bh, tq, d = q.shape
     rc = lib.hvd_flash_bwd_dq(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(seg), _ptr(do),
-        _ptr(lse), _ptr(delta), _ptr(dq), bh, tq, k.shape[1], d, h,
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(seg_q), _ptr(seg_k),
+        _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), bh, tq, k.shape[1], d, h,
         float(scale), int(causal), int(offset), _KERNEL_DTYPES[q.dtype],
         stream)
     _raise_on_error(rc, "flash_bwd_dq")
 
 
-def launch_bwd_dkv(lib, q, k, v, bias, seg, do, lse, delta, dk, dv, db, h,
-                   scale, causal, offset, stream) -> None:
+def launch_bwd_dkv(lib, q, k, v, bias, seg_q, seg_k, do, lse, delta, dk, dv,
+                   db, h, scale, causal, offset, stream) -> None:
     bh, tq, d = q.shape
     rc = lib.hvd_flash_bwd_dkv(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(seg), _ptr(do),
-        _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), _ptr(db), bh, tq,
-        k.shape[1], d, h, float(scale), int(causal), int(offset),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(seg_q), _ptr(seg_k),
+        _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), _ptr(db), bh,
+        tq, k.shape[1], d, h, float(scale), int(causal), int(offset),
         _KERNEL_DTYPES[q.dtype], stream)
     _raise_on_error(rc, "flash_bwd_dkv")
 
@@ -313,53 +337,56 @@ def _launch(device: torch.device, launch, lib_name: str, *args) -> None:
                torch.cuda.current_stream(device).cuda_stream)
 
 
-def flash_fwd(q, k, v, bias, seg, h, scale, causal, offset=0, block_q=None,
-              block_k=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd(q, k, v, bias, seg_q, seg_k, h, scale, causal, offset=0,
+              block_q=None, block_k=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward on packed (BH, T, d) inputs -> (O, lse (BH, Tq) fp32)."""
-    if not _on_cuda(q, k, v, bias, seg):
-        return flash_fwd_plain(q, k, v, bias, seg, h, scale, causal, offset,
-                               *_plain_blocks(block_q, block_k))
+    _check_segs(q, k, seg_q, seg_k)
+    if not _on_cuda(q, k, v, bias, seg_q, seg_k):
+        return flash_fwd_plain(q, k, v, bias, seg_q, seg_k, h, scale, causal,
+                               offset, *_plain_blocks(block_q, block_k))
     _refuse_blocks(block_q, block_k)
-    _check_kernel_inputs(q, k, v, bias, seg)
+    _check_kernel_inputs(q, k, v, bias, seg_q, seg_k)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch(q.device, launch_fwd, "flash_fwd", q, k, v, bias, seg, o, lse, h,
-            scale, causal, offset)
+    _launch(q.device, launch_fwd, "flash_fwd", q, k, v, bias, seg_q, seg_k, o,
+            lse, h, scale, causal, offset)
     launches["flash_fwd"] += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
-                 offset=0, block_q=None, block_k=None) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, bias, seg_q, seg_k, do, lse, delta, h, scale,
+                 causal, offset=0, block_q=None, block_k=None) -> torch.Tensor:
     """dQ on packed inputs; ``lse``/``delta`` (BH, Tq) fp32."""
-    if not _on_cuda(q, k, v, bias, seg, do, lse, delta):
-        return flash_bwd_dq_plain(q, k, v, bias, seg, do, lse, delta, h,
-                                  scale, causal, offset,
+    _check_segs(q, k, seg_q, seg_k)
+    if not _on_cuda(q, k, v, bias, seg_q, seg_k, do, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, bias, seg_q, seg_k, do, lse, delta,
+                                  h, scale, causal, offset,
                                   *_plain_blocks(block_q, block_k))
     _refuse_blocks(block_q, block_k)
-    _check_kernel_inputs(q, k, v, bias, seg, do, lse, delta)
+    _check_kernel_inputs(q, k, v, bias, seg_q, seg_k, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch(q.device, launch_bwd_dq, "flash_bwd", q, k, v, bias, seg, do, lse,
-            delta, dq, h, scale, causal, offset)
+    _launch(q.device, launch_bwd_dq, "flash_bwd", q, k, v, bias, seg_q, seg_k,
+            do, lse, delta, dq, h, scale, causal, offset)
     launches["flash_bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
-                  offset=0, want_db=True, block_q=None, block_k=None):
+def flash_bwd_dkv(q, k, v, bias, seg_q, seg_k, do, lse, delta, h, scale,
+                  causal, offset=0, want_db=True, block_q=None, block_k=None):
     """(dK, dV, dbias (BH, Tk) fp32 or None) on packed inputs."""
-    if not _on_cuda(q, k, v, bias, seg, do, lse, delta):
-        return flash_bwd_dkv_plain(q, k, v, bias, seg, do, lse, delta, h,
-                                   scale, causal, offset, want_db,
+    _check_segs(q, k, seg_q, seg_k)
+    if not _on_cuda(q, k, v, bias, seg_q, seg_k, do, lse, delta):
+        return flash_bwd_dkv_plain(q, k, v, bias, seg_q, seg_k, do, lse,
+                                   delta, h, scale, causal, offset, want_db,
                                    *_plain_blocks(block_q, block_k))
     _refuse_blocks(block_q, block_k)
-    _check_kernel_inputs(q, k, v, bias, seg, do, lse, delta)
+    _check_kernel_inputs(q, k, v, bias, seg_q, seg_k, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     db = (torch.empty(k.shape[:2], dtype=torch.float32, device=k.device)
           if bias is not None and want_db else None)
-    _launch(q.device, launch_bwd_dkv, "flash_bwd", q, k, v, bias, seg, do,
-            lse, delta, dk, dv, db, h, scale, causal, offset)
+    _launch(q.device, launch_bwd_dkv, "flash_bwd", q, k, v, bias, seg_q,
+            seg_k, do, lse, delta, dk, dv, db, h, scale, causal, offset)
     launches["flash_bwd_dkv"] += 1
     return dk, dv, db
 
@@ -368,35 +395,47 @@ def flash_bwd_dkv(q, k, v, bias, seg, do, lse, delta, h, scale, causal,
 # Autograd and the public function
 # ---------------------------------------------------------------------------
 
+def _pack(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, D) -> (B*H, T, D), contiguous: each row owns one head's
+    sequence. (With B 1 the reshape alone is a strided view.)"""
+    b, t, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+
+
+def _unpack(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """(B*H, T, D) -> (B, T, H, D)."""
+    return x.reshape(b, h, x.shape[1], x.shape[2]).permute(0, 2, 1, 3)
+
+
 class _FlashFn(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seg, h, scale, causal, offset, blocks,
-                blocks_bwd):
-        o, lse = flash_fwd(q, k, v, bias, seg, h, scale, causal, offset,
-                           *blocks)
-        ctx.save_for_backward(q, k, v, bias, seg, o, lse)
+    def forward(ctx, q, k, v, bias, seg_q, seg_k, h, scale, causal, offset,
+                blocks, blocks_bwd):
+        o, lse = flash_fwd(q, k, v, bias, seg_q, seg_k, h, scale, causal,
+                           offset, *blocks)
+        ctx.save_for_backward(q, k, v, bias, seg_q, seg_k, o, lse)
         ctx.cfg = (h, scale, causal, offset, blocks_bwd)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, seg, o, lse = ctx.saved_tensors
+        q, k, v, bias, seg_q, seg_k, o, lse = ctx.saved_tensors
         h, scale, causal, offset, blocks_bwd = ctx.cfg
         do = do.contiguous()
         # delta_i = sum_d dO_i . O_i, the softmax-normalisation term of dS.
         delta = (do.float() * o.float()).sum(dim=-1)
         want_db = bias is not None and ctx.needs_input_grad[3]
-        dq = flash_bwd_dq(q, k, v, bias, seg, do, lse, delta, h, scale,
-                          causal, offset, *blocks_bwd)
-        dk, dv, db = flash_bwd_dkv(q, k, v, bias, seg, do, lse, delta, h,
-                                   scale, causal, offset, want_db,
+        dq = flash_bwd_dq(q, k, v, bias, seg_q, seg_k, do, lse, delta, h,
+                          scale, causal, offset, *blocks_bwd)
+        dk, dv, db = flash_bwd_dkv(q, k, v, bias, seg_q, seg_k, do, lse,
+                                   delta, h, scale, causal, offset, want_db,
                                    *blocks_bwd)
         dbias = None
         if db is not None:
             # per-(batch*head) bias gradient; the heads share one bias.
             dbias = db.view(-1, h, db.shape[1]).sum(dim=1)
-        return dq, dk, dv, dbias, None, None, None, None, None, None, None
+        return (dq, dk, dv, dbias) + (None,) * 8
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -443,10 +482,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(b is not None and int(b) < 1 for b in blocks):
         raise ValueError("flash attention block sizes must be >= 1")
 
-    def pack(x):
-        # (B, T, H, D) -> (B*H, T, D): each row owns one head's sequence.
-        return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], x.shape[3])
-
     if key_bias is not None:
         if tuple(key_bias.shape) != (b, tk):
             raise ValueError(f"key_bias must be (batch, t_kv) = ({b}, {tk}), "
@@ -462,7 +497,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"({b}, {tq}), got {tuple(segment_ids.shape)}")
         seg = segment_ids.to(torch.int32).contiguous()
 
-    o = _FlashFn.apply(pack(q), pack(k), pack(v), key_bias, seg, h,
+    o = _FlashFn.apply(_pack(q), _pack(k), _pack(v), key_bias, seg, seg, h,
                        float(scale), bool(causal), int(causal_offset),
                        blocks[:2], blocks[2:])
-    return o.reshape(b, h, tq, d).permute(0, 2, 1, 3)
+    return _unpack(o, b, h)

@@ -104,8 +104,21 @@ def test_config_fields_match_reference():
                 assert getattr(getattr(JConfig, preset)(), name) == \
                     getattr(getattr(BertConfig, preset)(), name), name
     assert BertConfig.large().dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        Bert(BertConfig.tiny(use_ring_attention=True))
+    # Every sequence-parallel config builds; the reference's
+    # validate_sp_config errors are raised at build time.
+    for sp_impl, layout, attention in (("ring", "contiguous", "flash"),
+                                       ("ring", "striped", "dense"),
+                                       ("ulysses", "contiguous", "flash")):
+        m = Bert(BertConfig.tiny(use_ring_attention=True, sp_impl=sp_impl,
+                                 ring_layout=layout, attention=attention))
+        assert m.cfg.use_ring_attention
+    with pytest.raises(ValueError, match="unknown sp_impl 'rings'"):
+        Bert(BertConfig.tiny(use_ring_attention=True, sp_impl="rings"))
+    with pytest.raises(ValueError, match="ulysses sequence parallelism"):
+        Bert(BertConfig.tiny(use_ring_attention=True, sp_impl="ulysses",
+                             ring_layout="striped"))
+    with pytest.raises(ValueError, match="unknown ring_layout 'zigzag'"):
+        Bert(BertConfig.tiny(use_ring_attention=True, ring_layout="zigzag"))
     for policy in ("full", "dots"):
         Bert(BertConfig.tiny(remat=True, remat_policy=policy))
     with pytest.raises(ValueError, match="unknown remat_policy 'all'"):

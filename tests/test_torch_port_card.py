@@ -32,7 +32,9 @@ from horovod_tpu_torch.ops import flash_attention as pfa
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-# name -> (B, Tq, Tk, H, D, causal, offset, bias, seg, dtype)
+# name -> (B, Tq, Tk, H, D, causal, offset, bias, seg, dtype); seg "split"
+# gives the keys their own ids (a ring hop's resident block) and the queries
+# packed ones.
 CASES = {
     "causal": (2, 32, 32, 2, 8, True, 0, False, False, torch.float32),
     "everything": (2, 19, 19, 2, 8, True, -1, True, True, torch.float32),
@@ -42,6 +44,11 @@ CASES = {
                     torch.bfloat16),
     "everything-bf16": (2, 150, 150, 2, 64, True, -1, True, True,
                         torch.bfloat16),
+    "split-seg": (2, 19, 19, 2, 8, True, -1, True, "split", torch.float32),
+    "split-seg-bf16": (2, 150, 150, 2, 64, True, -1, False, "split",
+                       torch.bfloat16),
+    "split-seg-full-bf16": (2, 130, 130, 2, 64, False, 0, True, "split",
+                            torch.bfloat16),
     "cross-bf16": (2, 77, 130, 2, 128, False, 0, True, False,
                    torch.bfloat16),
     # d 128 where the causal diagonal cuts the tiles: the 32-key passes of
@@ -66,20 +73,24 @@ def cuda_card():
 
 
 def _inputs(case, seed=0):
-    """Packed (BH, T, D) q, k, v, dO, key bias and segment ids, from numpy."""
+    """Packed (BH, T, D) q, k, v, dO, key bias and the queries' and keys'
+    segment ids, from numpy."""
     b, tq, tk, h, d, causal, offset, bias, seg, dtype = CASES[case]
     g = np.random.default_rng(seed)
     q = g.standard_normal((b, tq, h, d)).astype(np.float32)
     k = g.standard_normal((b, tk, h, d)).astype(np.float32)
     v = g.standard_normal((b, tk, h, d)).astype(np.float32)
     do = g.standard_normal((b, tq, h, d)).astype(np.float32)
-    kb = sg = None
+    kb = sg = sg_k = None
     if bias:
         kb = g.standard_normal((b, tk)).astype(np.float32)
         kb[:, -3:] = -1e30                      # padded keys
         kb[-1, :] = -1e30                       # every key of a row masked
     if seg:
         sg = np.sort(g.integers(0, 3, (b, tq)), axis=1).astype(np.int32)
+        sg_k = sg
+        if seg == "split":
+            sg_k = np.sort(g.integers(1, 4, (b, tk)), axis=1).astype(np.int32)
 
     def pack(x):
         return torch.tensor(x).permute(0, 2, 1, 3).reshape(
@@ -87,27 +98,28 @@ def _inputs(case, seed=0):
 
     return (pack(q), pack(k), pack(v), pack(do),
             None if kb is None else torch.tensor(kb),
-            None if sg is None else torch.tensor(sg))
+            None if sg is None else torch.tensor(sg),
+            None if sg_k is None else torch.tensor(sg_k))
 
 
 def _check_case(case, device):
     """Runs the three kernels and their plain versions on ``device`` and
     asserts that they agree."""
     b, tq, tk, h, d, causal, offset, bias, seg, dtype = CASES[case]
-    q, k, v, do, kb, sg = (None if x is None else x.to(device)
-                           for x in _inputs(case))
+    q, k, v, do, kb, sg, sk = (None if x is None else x.to(device)
+                               for x in _inputs(case))
     scale = SCALES.get(case, d ** -0.5)
-    o, lse = pfa.flash_fwd(q, k, v, kb, sg, h, scale, causal, offset)
-    o_p, lse_p = pfa.flash_fwd_plain(q, k, v, kb, sg, h, scale, causal,
+    o, lse = pfa.flash_fwd(q, k, v, kb, sg, sk, h, scale, causal, offset)
+    o_p, lse_p = pfa.flash_fwd_plain(q, k, v, kb, sg, sk, h, scale, causal,
                                      offset)
     delta = (do.float() * o_p.float()).sum(-1)
-    dq = pfa.flash_bwd_dq(q, k, v, kb, sg, do, lse_p, delta, h, scale,
+    dq = pfa.flash_bwd_dq(q, k, v, kb, sg, sk, do, lse_p, delta, h, scale,
                           causal, offset)
-    dq_p = pfa.flash_bwd_dq_plain(q, k, v, kb, sg, do, lse_p, delta, h,
+    dq_p = pfa.flash_bwd_dq_plain(q, k, v, kb, sg, sk, do, lse_p, delta, h,
                                   scale, causal, offset)
-    dkv = pfa.flash_bwd_dkv(q, k, v, kb, sg, do, lse_p, delta, h, scale,
+    dkv = pfa.flash_bwd_dkv(q, k, v, kb, sg, sk, do, lse_p, delta, h, scale,
                             causal, offset)
-    dkv_p = pfa.flash_bwd_dkv_plain(q, k, v, kb, sg, do, lse_p, delta, h,
+    dkv_p = pfa.flash_bwd_dkv_plain(q, k, v, kb, sg, sk, do, lse_p, delta, h,
                                     scale, causal, offset)
     torch.cuda.synchronize(device)
     for x in (o, lse, dq) + tuple(t for t in dkv if t is not None):
@@ -163,12 +175,31 @@ def test_kernels_refuse_plain_tiles_on_card(cuda_card):
         pfa.flash_attention(q, q, q, block_k_bwd=8)
 
 
+def test_flash_attention_takes_batch_one_on_card(cuda_card):
+    """At batch 1 the packed heads reach the kernels contiguous: fp32
+    flash_attention on the card equals its plain version on the CPU
+    (forward and every gradient; rtol = atol = 1e-5 as the fp32 cases)."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(1, 96, 4, 32, generator=g) for _ in range(4))
+    outs = []
+    for dev in ("cpu", cuda_card):
+        qq, kk, vv = (x.to(dev).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        o = pfa.flash_attention(qq, kk, vv, causal=True)
+        o.backward(do.to(dev))
+        outs.append([x.detach().cpu() for x in (o, qq.grad, kk.grad,
+                                                 vv.grad)])
+    for want, got in zip(*outs):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
 def test_bf16_kernels_refuse_misaligned_inputs(cuda_card):
     q = torch.zeros((2, 16, 8), dtype=torch.bfloat16, device=cuda_card)
     off = torch.zeros(2 * 16 * 8 + 1, dtype=torch.bfloat16,
                       device=cuda_card)[1:].view(2, 16, 8)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        pfa.flash_fwd(off, q, q, None, None, 1, 1.0, False)
+        pfa.flash_fwd(off, q, q, None, None, None, 1, 1.0, False)
 
 
 # --------------------------------------------------- models and collectives
@@ -262,6 +293,135 @@ def test_sync_batch_norm_on_two_cards(tmp_path):
         np.testing.assert_allclose(res["running_var"],
                                    bn.running_var.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+# ------------------------------------------ the flash ring and Ulysses
+
+_SP_WORKER = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, sys.argv[1])
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import ring_flash_attention, ulysses_attention
+
+    hvd.init()                                   # this rank's card, NCCL
+    r, n = hvd.rank(), hvd.size()
+    data = np.load(sys.argv[2])
+    dev = hvd.device()
+    out = {}
+    for name, layout in (("contiguous", "contiguous"),
+                         ("striped", "striped"), ("ulysses", None)):
+        t = data["q"].shape[1] // n
+        cols = (slice(r, None, n) if layout == "striped"
+                else slice(r * t, (r + 1) * t))
+        q, k, v = (torch.tensor(data[x][:, cols], device=dev)
+                   .to(torch.bfloat16).requires_grad_(True) for x in "qkv")
+        do = torch.tensor(data["do"][:, cols], device=dev).to(torch.bfloat16)
+        seg = (torch.tensor(data["seg"][:, cols], device=dev)
+               if name == "contiguous" else None)
+        if layout is None:
+            o = ulysses_attention(q, k, v, causal=True, impl="flash")
+        else:
+            o = ring_flash_attention(q, k, v, causal=True, layout=layout,
+                                     segment_ids=seg)
+        o.backward(do)
+        for key, x in (("o", o), ("dq", q.grad), ("dk", k.grad),
+                       ("dv", v.grad)):
+            out[f"{name}:{key}"] = x.detach().float().cpu().numpy()
+    np.savez(sys.argv[3] + f".rank{r}.npz", **out)
+    hvd.shutdown()
+""")
+
+
+def _virtual_ring(q, k, v, do, n, layout, seg):
+    """The flash ring of n ranks through ``ring_flash``'s per-hop functions
+    on one card, in the ring's order: (O, dQ, dK, dV) of each rank."""
+    from horovod_tpu_torch.ops import ring_flash as rf
+    t = q.shape[1] // n
+
+    def shards(x):
+        return [(x[:, r::n] if layout == "striped"
+                 else x[:, r * t:(r + 1) * t]).contiguous()
+                for r in range(n)]
+    Q, K, V, DO = ([rf._pack(x) for x in shards(y)] for y in (q, k, v, do))
+    S = shards(seg) if seg is not None else [None] * n
+    h, scale, striped = q.shape[2], q.shape[3] ** -0.5, layout == "striped"
+    o = [torch.zeros(x.shape, device=x.device) for x in Q]
+    lse = [torch.full(x.shape[:2], -1e30, device=x.device) for x in Q]
+    for i in range(n):
+        for r in range(n):
+            src = (r - i) % n
+            hop = rf.fwd_hop(Q[r], (K[src], V[src], None, S[src]), S[r], src,
+                             r, h, scale, True, striped)
+            if hop is not None:
+                o[r], lse[r] = rf.safe_merge(o[r], lse[r], *hop)
+    o = [x.to(q.dtype) for x in o]
+    delta = [(DO[r].float() * o[r].float()).sum(-1) for r in range(n)]
+    dq, dk, dv = ([torch.zeros(x.shape, device=x.device) for x in Q]
+                  for _ in range(3))
+    for i in range(n):
+        for r in range(n):
+            src = (r - i) % n
+            hop = rf.bwd_hop(Q[r], (K[src], V[src], None, S[src]), S[r],
+                             DO[r], lse[r], delta[r], src, r, h, scale, True,
+                             striped)
+            if hop is not None:
+                dq[r] += hop[0]
+                dk[src] += hop[1]
+                dv[src] += hop[2]
+    b = q.shape[0]
+    return [[rf._unpack(x.to(q.dtype), b, h).float().cpu().numpy()
+             for x in xs] for xs in (o, dq, dk, dv)]
+
+
+def test_flash_ring_and_ulysses_on_two_cards(tmp_path):
+    """Two NCCL ranks on two cards, B 1, H 4, T 1024, d 64, bf16, causal:
+    the flash ring (contiguous with packed segment ids, and striped) equals
+    the same hops run as virtual ranks on one card bit for bit (the same
+    kernels on the same blocks, summed in the same order), and Ulysses
+    equals one-card ``flash_attention`` over the whole sequence bit for bit
+    (the all-to-alls only move heads)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    g = np.random.default_rng(10)
+    b, t, h, d = 1, 1024, 4, 64
+    data = {x: g.standard_normal((b, t, h, d)).astype(np.float32)
+            for x in ("q", "k", "v", "do")}
+    data["seg"] = np.sort(g.integers(0, 3, (b, t)), axis=1).astype(np.int32)
+    script = tmp_path / "worker.py"
+    script.write_text(_SP_WORKER)
+    np.savez(tmp_path / "data.npz", **data)
+    out = tmp_path / "out"
+    r = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+         "--timeout", "240", str(script), str(REPO),
+         str(tmp_path / "data.npz"), str(out)], cwd=REPO,
+        env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    ranks = [np.load(f"{out}.rank{i}.npz") for i in range(2)]
+    dev = torch.device("cuda:0")
+    q, k, v, do = (torch.tensor(data[x], device=dev).to(torch.bfloat16)
+                   for x in ("q", "k", "v", "do"))
+    seg = torch.tensor(data["seg"], device=dev)
+    for name, layout in (("contiguous", "contiguous"),
+                         ("striped", "striped")):
+        want = _virtual_ring(q, k, v, do, 2, layout,
+                             seg if name == "contiguous" else None)
+        for key, parts in zip(("o", "dq", "dk", "dv"), want):
+            for rank in range(2):
+                np.testing.assert_array_equal(
+                    ranks[rank][f"{name}:{key}"], parts[rank],
+                    err_msg=f"{name} {key} rank {rank}")
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    o = pfa.flash_attention(qq, kk, vv, causal=True)
+    o.backward(do)
+    for key, x in (("o", o), ("dq", qq.grad), ("dk", kk.grad),
+                   ("dv", vv.grad)):
+        whole = x.detach().float().cpu().numpy()
+        got = np.concatenate([ranks[i][f"ulysses:{key}"] for i in range(2)],
+                             axis=1)
+        np.testing.assert_array_equal(got, whole, err_msg=f"ulysses {key}")
 
 
 # ------------------------------------------------------ Adasum over NCCL

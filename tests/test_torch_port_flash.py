@@ -116,7 +116,7 @@ def test_fully_masked_rows_give_zero_output_and_lse():
     pack = lambda x: torch.tensor(x).permute(0, 2, 1, 3).reshape(
         -1, x.shape[1], x.shape[3]).contiguous()
     _, lse = pfa.flash_fwd(pack(q), pack(k), pack(v), torch.tensor(kb),
-                           None, h, q.shape[-1] ** -0.5, False)
+                           None, None, h, q.shape[-1] ** -0.5, False)
     assert torch.all(lse[h:] == -1e30)
 
 
@@ -218,6 +218,19 @@ def test_packed_positions_match_jax():
     np.testing.assert_array_equal(
         patt.packed_positions(torch.tensor(seg)).numpy(),
         np.asarray(jax_packed(jnp.asarray(seg))))
+
+
+def test_packed_heads_are_contiguous_at_batch_one():
+    """The kernels take contiguous (B*H, T, D) rows; at batch 1 the head
+    pack alone is a strided view, which the CUDA wrappers refused."""
+    from horovod_tpu_torch.ops.flash_attention import (_check_kernel_inputs,
+                                                       _pack, _unpack)
+    for b in (1, 2):
+        x = torch.randn(b, 16, 4, 8)
+        packed = _pack(x)
+        assert packed.is_contiguous() and packed.shape == (b * 4, 16, 8)
+        _check_kernel_inputs(packed, packed, packed, None, None, None)
+        assert torch.equal(_unpack(packed, b, 4), x)
 
 
 # The kernels themselves (CUDA only) are checked against these plain versions

@@ -97,13 +97,19 @@ COLLECTIVE_DEPTH_MODULES = ["horovod_tpu_torch.overlap",
                             "horovod_tpu_torch.parallel.mesh",
                             "horovod_tpu_torch.optimizer"]
 
+LONG_CONTEXT_MODULES = ["horovod_tpu_torch.ops.ring_attention",
+                        "horovod_tpu_torch.ops.ring_flash",
+                        "horovod_tpu_torch.ops.sequence",
+                        "horovod_tpu_torch.ops.attention"]
 
-@pytest.mark.parametrize("module", COLLECTIVE_DEPTH_MODULES)
+
+@pytest.mark.parametrize("module", COLLECTIVE_DEPTH_MODULES
+                         + LONG_CONTEXT_MODULES)
 def test_collective_depth_modules_load_no_jax_and_build_nothing(tmp_path,
                                                                 module):
-    """The algorithm axis, the quantized wire, the tuner and the topology
-    import alone with no JAX, no module of ``horovod_tpu``, no thread and
-    no nvcc."""
+    """The algorithm axis, the quantized wire, the tuner, the topology and
+    the sequence-parallel attention (rings, Ulysses) import alone with no
+    JAX, no module of ``horovod_tpu``, no thread and no nvcc."""
     build = tmp_path / "kernels"
     code = textwrap.dedent(f"""
         import importlib, sys, threading
@@ -240,23 +246,25 @@ def test_kernel_wrappers_refuse_what_kernels_do_not_take():
     from horovod_tpu_torch.ops.flash_attention import _check_kernel_inputs
     q = torch.zeros(2, 8, 64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        _check_kernel_inputs(q.half(), q.half(), q.half(), None, None)
+        _check_kernel_inputs(q.half(), q.half(), q.half(), None, None, None)
     with pytest.raises(TypeError):
-        _check_kernel_inputs(q, q.bfloat16(), q, None, None)
+        _check_kernel_inputs(q, q.bfloat16(), q, None, None, None)
     odd = torch.zeros(2, 8, 12)
     with pytest.raises(ValueError, match="multiples of 8 up to 128"):
-        _check_kernel_inputs(odd, odd, odd, None, None)
+        _check_kernel_inputs(odd, odd, odd, None, None, None)
     big = torch.zeros(2, 8, 136)
     with pytest.raises(ValueError, match="multiples of 8 up to 128"):
-        _check_kernel_inputs(big, big, big, None, None)
+        _check_kernel_inputs(big, big, big, None, None, None)
     t = torch.zeros(2, 64, 8).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        _check_kernel_inputs(t, t, t, None, None)
+        _check_kernel_inputs(t, t, t, None, None, None)
     with pytest.raises(TypeError, match="int32"):
         _check_kernel_inputs(q, q, q, None, torch.zeros(1, 8,
-                                                        dtype=torch.int64))
+                                                        dtype=torch.int64),
+                             torch.zeros(1, 8, dtype=torch.int64))
     with pytest.raises(TypeError, match="lse and delta"):
-        _check_kernel_inputs(q, q, q, None, None, q, q.double(), q)
+        _check_kernel_inputs(q, q, q, None, None, None, q, q.double(),
+                             q)
 
 
 def test_build_without_nvcc_says_so(monkeypatch, tmp_path):

@@ -68,12 +68,13 @@ def _emulate(q, k, v, do, lse, delta, scale, split):
 def outputs():
     q, k, v, do = _inputs()
     scale = D ** -0.5
-    o, lse = pfa.flash_fwd_plain(q, k, v, None, None, H, scale, True)
+    o, lse = pfa.flash_fwd_plain(q, k, v, None, None, None, H, scale,
+                                 True)
     delta = (do.float() * o.float()).sum(-1)
-    dk, dv, _ = pfa.flash_bwd_dkv_plain(q, k, v, None, None, do, lse, delta,
-                                        H, scale, True)
-    dq = pfa.flash_bwd_dq_plain(q, k, v, None, None, do, lse, delta, H,
-                                scale, True)
+    dk, dv, _ = pfa.flash_bwd_dkv_plain(q, k, v, None, None, None, do, lse,
+                                        delta, H, scale, True)
+    dq = pfa.flash_bwd_dq_plain(q, k, v, None, None, None, do, lse, delta,
+                                H, scale, True)
     plain = (o, dk, dv, dq)
     got = {split: _emulate(q, k, v, do, lse, delta, scale, split)
            for split in (False, True)}

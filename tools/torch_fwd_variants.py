@@ -133,13 +133,14 @@ def main(argv=None) -> int:
         q, k, v, _, _, _ = chip_smoke._inputs(b * h, b, t, t, d,
                                               torch.bfloat16, seed=t + d)
         scale = d ** -0.5
-        o_p, lse_p = fa.flash_fwd_plain(q, k, v, None, None, h, scale, True)
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, None, None, None, h, scale,
+                                        True)
         cases[s] = (q, k, v, h, scale)
         for n, lib in libs.items():
             o = torch.empty_like(q)
             lse = torch.empty(q.shape[:2], device="cuda")
-            fa.launch_fwd(lib, q, k, v, None, None, o, lse, h, scale, True, 0,
-                          torch.cuda.current_stream().cuda_stream)
+            fa.launch_fwd(lib, q, k, v, None, None, None, o, lse, h, scale,
+                          True, 0, torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             _, w, _, ok = chip_smoke._stats(o, o_p, chip_smoke.BF16_TOL)
             _, _, _, ok_l = chip_smoke._stats(lse, lse_p, chip_smoke.F32_TOL)
@@ -156,8 +157,8 @@ def main(argv=None) -> int:
             st = torch.cuda.current_stream().cuda_stream
             for n, lib in libs.items():
                 times[s][n].append(chip_smoke.cuda_ms(
-                    lambda: fa.launch_fwd(lib, q, k, v, None, None, o, lse,
-                                          h, scale, True, 0, st),
+                    lambda: fa.launch_fwd(lib, q, k, v, None, None, None, o,
+                                          lse, h, scale, True, 0, st),
                     20, inner=10))
             b, t, d = q.shape[0] // h, q.shape[1], q.shape[2]
             sq, sk, sv = (x.view(b, h, t, d) for x in (q, k, v))
