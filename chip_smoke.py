@@ -158,18 +158,42 @@ Phases, in order; any failure exits nonzero and prints no result:
    two ranks, striped and Ulysses, against one card within
    ``SP_LOSS_BAND``, and a hop's exchange against its kernels; with one
    card a line says it did not run.
+11. the rest of the data-parallel step and ZeRO-1, on a new one-rank NCCL
+   world, bf16, seed 0, phase 3's GPT-2 medium and batch (through a
+   ``ShardedBatchIterator``, shuffle off) for 5 steps: (a)
+   ``hvd.value_and_grad`` over ``torch.func.functional_call`` with a plain
+   ``torch.optim.AdamW`` (one eager and one in-step allreduce a step), then
+   ``grad(overlap=True)`` (one in-step tap a parameter, no eager allreduce,
+   no round): phase 3's losses within ``LOSS_TOL``; (b)
+   ``sharded_adamw(1e-4, weight_decay=1e-4, eps=1e-8)``: after step 1 its
+   mu and nu equal AdamW's ``exp_avg`` and ``exp_avg_sq`` flattened in the
+   reference's (sorted) order under ``F32_TOL`` and not in registration
+   order, and its losses lie within ``ZERO1_LOSS_BAND`` of phase 3's; (d)
+   (b)'s state saved before step 3 through ``save_state`` of a
+   ``TensorState`` and adopted into a fresh one: step, mu, nu and the
+   parameters bit for bit, and the resumed step's loss equal to the
+   uninterrupted run's; (c) ``AutotunedStep`` over (a)'s step with its
+   allreduce at the tuner's threshold (2 probes of 2 samples): converged,
+   one build a probe, the step gauge and histogram set, losses falling;
+   every path launching each kernel 24 times a step, with ms a step, peak
+   memory and the moments' bytes; (e) with two cards
+   ``tools/torch_zero_bench.py --np 2`` (ZeRO-1 on two ranks against one,
+   ceil(L/2) moments a rank, a two-rank save restored on one bit for bit);
+   with one card a line says it did not run. Without phase 3 it runs phase
+   3's path itself first.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
-(a) and under the reset of (b), phase 9's and phase 10 (c)'s paths, each
-counted from 0 just before the path and read just after) and their sum,
+(a) and under the reset of (b), phase 9's, phase 10 (c)'s and phase 11's
+paths, each counted from 0 just before the path and read just after) and
+their sum,
 and its numbers at each new path's shape (phases 5, 9 and 10 (a)). The
 last line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops
 after the kernel checks; ``--phases 1,9`` runs phase 9 alone (its remat
 losses then compare with its own run without remat); ``--phases 1,10``
-runs phase 10 alone.
+runs phase 10 alone; ``--phases 1,11`` phase 11 alone.
 """
 
 from __future__ import annotations
@@ -3279,11 +3303,472 @@ def phase_long_context(card, long_run):
             "two_cards": two, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 11
+
+# Absolute band between phase 3's losses (``torch.optim.AdamW``) and
+# ZeRO-1's (``sharded_adamw``, the reference's form of AdamW) on the same
+# batches, at every step. The two forms are equal in exact arithmetic: torch
+# decays the parameter first and divides by sqrt(v)/sqrt(1 - b2^t) + eps,
+# the reference adds lr * wd * p to the step and divides by
+# sqrt(v / (1 - b2^t)) + eps. They round differently: about one fp32 ulp of
+# each parameter a step (~1e-9 at GPT-2's ~0.02 weights), which moves a
+# bf16 weight of the forward only where it sits that close to a bf16
+# rounding boundary, a few thousand of 355M a step. Step 0's loss precedes
+# any update and is equal. The band lies between two readings on an NVIDIA
+# H100 80GB HBM3 at 700 W (``PERF.md`` §6): the sound runs' largest gap,
+# 1.268e-04 on one card and 1.945e-04 on two (``tools/torch_zero_bench.py``),
+# and the gap of (b)'s planted fault, mu's bias correction dropped, 0.382.
+# 1e-3 is five times the first and 1/382 of the second; (b) fails if the
+# planted run stays inside it. Moments put on the wrong elements are caught
+# first, by (b)'s check of mu and nu against AdamW's ``exp_avg`` and
+# ``exp_avg_sq``. Weight decay is below any loss band here: lr * wd * p is
+# ~2e-10 a step at GPT-2's ~0.02 weights, a tenth of their fp32 ulp.
+ZERO1_LOSS_BAND = 1e-3
+# (d) resumes from the checkpoint written before this step.
+ZERO1_CKPT_STEP = 3
+
+
+def _planted_chunk_update(g, state, p, learning_rate, b1, b2, eps,
+                          weight_decay):
+    """``optimizer_sharded._adamw_chunk_update`` with one planted fault:
+    the first moment's bias correction dropped (mu_hat = mu), which makes
+    step 1's update ten times smaller."""
+    import torch
+    step = state.step + 1
+    stepf = step.to(torch.float32)[0]
+    mu = b1 * state.mu + (1 - b1) * g
+    nu = b2 * state.nu + (1 - b2) * torch.square(g)
+    nu_hat = nu / (1 - b2 ** stepf)
+    upd = -learning_rate * (mu / (torch.sqrt(nu_hat) + eps)
+                            + weight_decay * p)
+    return upd, (step, mu, nu)
+
+
+def _functional_gpt2(dev):
+    """Phase 3's GPT-2 medium as a function of its parameters: (model, its
+    parameters by name in registration order, the loss ``f(params,
+    tokens)`` over ``torch.func.functional_call``, and ``batch(step)``:
+    phase 3's rows through a ``ShardedBatchIterator`` of this rank, shuffle
+    off, one epoch a step)."""
+    import torch
+    from torch.func import functional_call
+    from horovod_tpu_torch.data import ShardedBatchIterator
+    from horovod_tpu_torch.models.gpt2 import loss_fn
+    model = _gpt2_medium(dev)
+    tokens = torch.randint(0, model.cfg.vocab_size, (8, 1024),
+                           generator=torch.Generator().manual_seed(0))
+    it = ShardedBatchIterator([tokens.numpy()], 8, shuffle=False)
+    if len(it) != 1:
+        fail(f"phase 11: {len(it)} batches an epoch, not one")
+
+    def batch(step):
+        it.set_epoch(step)
+        (rows,), mask = next(iter(it))
+        if not mask.all() or not torch.equal(torch.from_numpy(rows), tokens):
+            fail("phase 11: the iterator's batch is not phase 3's")
+        return torch.from_numpy(rows).to(dev)
+
+    def f(p, t):
+        return loss_fn(functional_call(model, p, (t,)), t)
+
+    return model, dict(model.named_parameters()), f, batch
+
+
+def _phase11_steps(tag, steps, step_fn, layers, pre=None):
+    """Runs ``step_fn(i) -> loss`` for ``steps`` steps, each timed on the
+    wall clock behind ``torch.cuda.synchronize()`` (``pre(i)`` runs
+    untimed before step i); every kernel must launch ``layers`` times a
+    step, counted from 0 just before the run."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, wall = [], []
+    for i in range(steps):
+        if pre is not None:
+            pre(i)
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step_fn(i)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.item()))
+        grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
+        log(f"phase 11 {tag} step {i}: loss {losses[-1]:.6f}  "
+            f"{wall[-1]:.1f} ms  launches {grew}")
+        if grew != {k: layers for k in fa.KERNELS}:
+            fail(f"phase 11 {tag}: the kernels must launch {layers} times a "
+                 f"step, got {grew}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 11 {tag}: non-finite loss: {losses}")
+    return {"losses": losses, "wall_ms": wall,
+            "step_ms_median": statistics.median(wall[1:] or wall),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": dict(fa.launches)}
+
+
+def _flat_moments(opt, params, names):
+    """AdamW's ``exp_avg`` and ``exp_avg_sq`` flattened in ``names``'
+    order, in host memory (so they do not count in the card's peak)."""
+    import torch
+    return [torch.cat([opt.state[params[k]][m].reshape(-1).cpu()
+                       for k in names])
+            for m in ("exp_avg", "exp_avg_sq")]
+
+
+def _loss_diffs(tag, losses, want, tol):
+    diffs = [abs(a - b) for a, b in zip(losses, want)]
+    if len(diffs) != len(want) or max(diffs) > tol:
+        fail(f"phase 11 {tag}: losses {losses} differ from phase 3's {want} "
+             f"by up to {max(diffs):.3e} (limit {tol})")
+    return max(diffs)
+
+
+def phase_functional_step(card, main_path):
+    """Phase 11 on a new one-rank NCCL world: phase 3's GPT-2 medium through
+    (a) ``hvd.value_and_grad`` + ``torch.optim.AdamW`` and ``grad(overlap=
+    True)``, (b) ZeRO-1, (c) ``AutotunedStep``, (d) a ZeRO-1 checkpoint and
+    (e) ``tools/torch_zero_bench.py --np 2`` with two cards."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint_sharded as cs
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.autotune import BayesianAutotuner
+    from horovod_tpu_torch.elastic import TensorState
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    if main_path is None:
+        main_path = phase_train_path("gpt2_medium", card, dev)
+    want = main_path["losses"]
+    steps = len(want)
+    adamw_kw = dict(lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    out, launches = {}, {}
+
+    # (a) value_and_grad over functional_call, then plain AdamW.
+    model, params, f, batch = _functional_gpt2(dev)
+    layers = model.cfg.num_layers
+    names = sorted(params)
+    n_params = sum(p.numel() for p in params.values())
+    adamw = torch.optim.AdamW(model.parameters(), **adamw_kw)
+    vg = hvd.value_and_grad(f)
+    ref = {}
+
+    def step_a(i):
+        v, g = vg(params, batch(i))
+        for k, p in params.items():
+            p.grad = g[k]
+        adamw.step()
+        if i == 0:
+            ref["sorted"] = _flat_moments(adamw, params, names)
+            ref["registered"] = _flat_moments(adamw, params, list(params))
+        return v
+
+    snap0 = metrics.snapshot()
+    a = _phase11_steps("(a)", steps, step_a, layers)
+    snap1 = metrics.snapshot()
+    a["max_loss_diff"] = _loss_diffs("(a)", a["losses"], want, LOSS_TOL)
+    calls = {k: _counter(snap1, "collective_" + k + "_total",
+                         kind="allreduce")
+             - _counter(snap0, "collective_" + k + "_total",
+                        kind="allreduce") for k in ("calls", "traced")}
+    if calls != {"calls": steps, "traced": steps}:
+        fail(f"phase 11 (a): value_and_grad issued {calls}, not one eager "
+             f"allreduce (gradients) and one in-step (the value) a step")
+    log(f"phase 11 (a): value_and_grad + AdamW: losses within "
+        f"{a['max_loss_diff']:.3e} of phase 3's; {a['step_ms_median']:.1f} "
+        f"ms a step against phase 3's {main_path['step_ms_median']:.1f}, "
+        f"peak {a['peak_gib']:.2f} GiB; allreduces {calls}")
+    launches["gpt2_medium_value_and_grad"] = a.pop("launches")
+    del model, params, adamw
+    torch.cuda.empty_cache()
+
+    model, params, f, batch = _functional_gpt2(dev)
+    adamw = torch.optim.AdamW(model.parameters(), **adamw_kw)
+
+    def f_aux(p, t):
+        v = f(p, t)
+        return v, v.detach()
+    gfn = hvd.grad(f_aux, overlap=True, has_aux=True)
+    rounds = []
+
+    def step_ov(i):
+        n0 = sum(hvd.negotiation_stats().values())
+        g, v = gfn(params, batch(i))
+        rounds.append(sum(hvd.negotiation_stats().values()) - n0)
+        for k, p in params.items():
+            p.grad = g[k]
+        adamw.step()
+        return v
+
+    snap0 = metrics.snapshot()
+    ov = _phase11_steps("(a) overlap", steps, step_ov, layers)
+    snap1 = metrics.snapshot()
+    ov["max_loss_diff"] = _loss_diffs("(a) overlap", ov["losses"], want,
+                                      LOSS_TOL)
+    calls = {k: _counter(snap1, "collective_" + k + "_total",
+                         kind="allreduce")
+             - _counter(snap0, "collective_" + k + "_total",
+                        kind="allreduce") for k in ("calls", "traced")}
+    # One tap a bucket: the parameters in registration order, cut greedily
+    # at the fusion threshold.
+    from horovod_tpu_torch.config import get_config
+    threshold = get_config().fusion_threshold_bytes
+    taps, size = 1, 0
+    for p in params.values():
+        if size and size + p.numel() * p.element_size() > threshold:
+            taps, size = taps + 1, 0
+        size += p.numel() * p.element_size()
+    if calls != {"calls": 0, "traced": steps * taps} or any(rounds):
+        fail(f"phase 11 (a): grad(overlap=True) issued {calls} and took "
+             f"rounds {rounds}: the taps must be {taps} in-step "
+             f"allreduces a step and nothing eager")
+    ov["taps"] = taps
+    log(f"phase 11 (a): grad(overlap=True) + AdamW: losses within "
+        f"{ov['max_loss_diff']:.3e} of phase 3's, {taps} taps a step of at "
+        f"most {threshold} bytes for {len(params)} tensors ({calls}), "
+        f"negotiation rounds {rounds}; "
+        f"{ov['step_ms_median']:.1f} ms a step, peak {ov['peak_gib']:.2f} "
+        f"GiB")
+    launches["gpt2_medium_grad_overlap"] = ov.pop("launches")
+    del model, params, adamw
+    torch.cuda.empty_cache()
+
+    # (b) ZeRO-1, with (d)'s checkpoint written before ZERO1_CKPT_STEP.
+    model, params, f, batch = _functional_gpt2(dev)
+    opt = hvd.sharded_adamw(1e-4, weight_decay=1e-4, eps=1e-8)
+    st = {"opt": opt.init(params)}
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_phase11_")
+    mgr = cs.ShardedCheckpointManager(ckpt_dir)
+    saved = {}
+
+    def save(i):
+        if i != ZERO1_CKPT_STEP:
+            return
+        ts = TensorState(params={k: p.detach() for k, p in params.items()},
+                         opt_state=st["opt"])
+        t0 = time.perf_counter()
+        cs.save_state(mgr, i, ts, wait=True)
+        saved["seconds"] = time.perf_counter() - t0
+        saved["commit"] = ts._saved_pytrees
+
+    def step_b(i):
+        v, g = vg(params, batch(i))
+        upd, st["opt"] = opt.update(g, st["opt"], params)
+        with torch.no_grad():
+            torch._foreach_add_([params[k] for k in names],
+                                [upd[k] for k in names])
+        if i == 0:
+            row = st["opt"]
+            if row.mu.numel() != n_params or row.step.tolist() != [1]:
+                fail(f"phase 11 (b): one rank's row holds "
+                     f"{row.mu.numel()} of {n_params} elements, step "
+                     f"{row.step.tolist()}")
+            mu, nu = row.mu.cpu(), row.nu.cpu()
+            saved["mu_err"] = _check("phase 11 (b) mu after step 1",
+                                     mu, ref["sorted"][0], F32_TOL,
+                                     "AdamW's exp_avg (sorted leaf order)")
+            saved["nu_err"] = _check("phase 11 (b) nu after step 1",
+                                     nu, ref["sorted"][1], F32_TOL,
+                                     "AdamW's exp_avg_sq")
+            if _stats(mu, ref["registered"][0], F32_TOL)[3]:
+                fail("phase 11 (b): mu also matches exp_avg in registration "
+                     "order: the check cannot see the leaf order")
+            ref.clear()
+        return v
+
+    b = _phase11_steps("(b) ZeRO-1", steps, step_b, layers, pre=save)
+    diffs = [abs(x - y) for x, y in zip(b["losses"], want)]
+    if max(diffs) > ZERO1_LOSS_BAND:
+        fail(f"phase 11 (b): ZeRO-1 losses {b['losses']} leave the band "
+             f"{ZERO1_LOSS_BAND} around phase 3's {want}")
+    row = st["opt"]
+    b.update(max_loss_diff=max(diffs), loss_diffs=diffs,
+             moment_bytes=2 * row.mu.numel() * row.mu.element_size(),
+             adamw_moment_bytes=2 * n_params * 4, mu_err=saved["mu_err"],
+             nu_err=saved["nu_err"])
+    log(f"phase 11 (b): ZeRO-1 (sharded_adamw): losses {b['losses']}, at "
+        f"most {max(diffs):.3e} from phase 3's (band {ZERO1_LOSS_BAND}); "
+        f"moments {b['moment_bytes'] / 2 ** 30:.3f} GiB on this rank (AdamW "
+        f"{b['adamw_moment_bytes'] / 2 ** 30:.3f} GiB); "
+        f"{b['step_ms_median']:.1f} ms a step against (a)'s "
+        f"{a['step_ms_median']:.1f}, peak {b['peak_gib']:.2f} GiB against "
+        f"(a)'s {a['peak_gib']:.2f}")
+    launches["gpt2_medium_zero1"] = b.pop("launches")
+    del model, params, opt, st
+    torch.cuda.empty_cache()
+
+    # (b) planted: the same steps with one fault in the update, which the
+    # band must reject.
+    from horovod_tpu_torch import optimizer_sharded as S
+    model, params, f, batch = _functional_gpt2(dev)
+    opt = hvd.sharded_adamw(1e-4, weight_decay=1e-4, eps=1e-8)
+    st = {"opt": opt.init(params)}
+    def step_p(i):
+        v, g = vg(params, batch(i))
+        upd, st["opt"] = opt.update(g, st["opt"], params)
+        with torch.no_grad():
+            torch._foreach_add_([params[k] for k in names],
+                                [upd[k] for k in names])
+        return v
+
+    real_update = S._adamw_chunk_update
+    S._adamw_chunk_update = _planted_chunk_update
+    try:
+        planted = _phase11_steps("(b) planted fault", steps, step_p, layers)
+    finally:
+        S._adamw_chunk_update = real_update
+    gaps = [abs(x - y) for x, y in zip(planted["losses"], want)]
+    if not max(gaps) > ZERO1_LOSS_BAND:
+        fail(f"phase 11 (b): ZeRO-1 with mu's bias correction dropped stays "
+             f"within {max(gaps):.3e} of phase 3's losses, inside the band "
+             f"{ZERO1_LOSS_BAND}: the band cannot see a wrong update")
+    b.update(planted_loss_diffs=gaps, planted_max_loss_diff=max(gaps))
+    log(f"phase 11 (b): planted fault (no bias correction of mu): losses "
+        f"{planted['losses']}, up to {max(gaps):.3e} from phase 3's, "
+        f"outside the band {ZERO1_LOSS_BAND} (the sound run's "
+        f"{b['max_loss_diff']:.3e})")
+    del model, params, opt, st
+    torch.cuda.empty_cache()
+
+    # (d) the checkpoint adopted into a fresh state, then the next step.
+    model, params, f, batch = _functional_gpt2(dev)
+    opt = hvd.sharded_adamw(1e-4, weight_decay=1e-4, eps=1e-8)
+    fresh = TensorState(params={k: p.detach() for k, p in params.items()},
+                        opt_state=opt.init(params))
+    t0 = time.perf_counter()
+    got_step = cs.adopt_state(mgr, fresh)
+    adopt_s = time.perf_counter() - t0
+    mgr.close()
+    commit = saved["commit"]
+    for fld in ("step", "mu", "nu"):
+        x, y = getattr(fresh.opt_state, fld), getattr(commit["opt_state"],
+                                                      fld)
+        if x.device != dev or x.dtype != y.dtype or \
+                not torch.equal(x.cpu(), y):
+            fail(f"phase 11 (d): the adopted {fld} is not the saved one "
+                 f"bit for bit")
+    if got_step != ZERO1_CKPT_STEP or any(
+            not torch.equal(fresh.params[k].cpu(), commit["params"][k])
+            for k in names):
+        fail(f"phase 11 (d): adopted step {got_step} or its parameters "
+             f"differ from the save")
+    del commit, saved["commit"]
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rs = {"opt": fresh.opt_state}
+
+    def step_d(i):
+        v, g = vg(fresh.params, batch(ZERO1_CKPT_STEP + i))
+        upd, rs["opt"] = opt.update(g, rs["opt"], fresh.params)
+        with torch.no_grad():
+            torch._foreach_add_([fresh.params[k] for k in names],
+                                [upd[k] for k in names])
+        return v
+
+    d = _phase11_steps("(d) resumed", 1, step_d, layers)
+    if d["losses"][0] != b["losses"][ZERO1_CKPT_STEP]:
+        fail(f"phase 11 (d): the resumed step's loss {d['losses'][0]!r} is "
+             f"not the uninterrupted run's "
+             f"{b['losses'][ZERO1_CKPT_STEP]!r}")
+    d.update(save_s=saved["seconds"], adopt_s=adopt_s, step=got_step)
+    log(f"phase 11 (d): ZeRO-1 checkpoint before step {ZERO1_CKPT_STEP}: "
+        f"save {saved['seconds']:.2f} s, adopt {adopt_s:.2f} s; step, mu, "
+        f"nu and the parameters bit for bit; the resumed step's loss "
+        f"{d['losses'][0]!r} equals the uninterrupted run's")
+    launches["gpt2_medium_zero1_resumed"] = d.pop("launches")
+    del model, params, fresh, rs
+    torch.cuda.empty_cache()
+
+    # (c) AutotunedStep over (a)'s step, the allreduce at the tuner's
+    # threshold.
+    model, params, f, batch = _functional_gpt2(dev)
+    adamw = torch.optim.AdamW(model.parameters(), **adamw_kw)
+    builds = []
+
+    def make_step(threshold):
+        builds.append(int(threshold))
+
+        def step(i):
+            xs = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+            v = f(xs, batch(i))
+            gs = [g.contiguous() for g in torch.autograd.grad(
+                v, list(xs.values()))]
+            hvd.allreduce_gradients(gs, fusion_threshold_bytes=threshold)
+            for p, g in zip(params.values(), gs):
+                p.grad = g
+            adamw.step()
+            return v.detach()
+        return step
+
+    probes, samples = 2, 2
+    tuned = hvd.AutotunedStep(make_step, BayesianAutotuner(
+        probes=probes, samples_per_probe=samples))
+    h0 = metrics.snapshot()["histograms"].get(
+        "optimizer_step_latency_seconds", [{"count": 0}])[0]["count"]
+    calls_c = 1 + probes * (1 + samples)
+    c = _phase11_steps("(c) AutotunedStep", calls_c, tuned, layers)
+    snap = metrics.snapshot()
+    h1 = snap["histograms"]["optimizer_step_latency_seconds"][0]["count"]
+    gauge = snap["gauges"]["optimizer_step_seconds"][0]["value"]
+    if not tuned.converged or len(builds) != 1 + probes or \
+            h1 - h0 != probes * samples or not gauge > 0 or \
+            not c["losses"][-1] < c["losses"][0]:
+        fail(f"phase 11 (c): converged {tuned.converged}, builds {builds} "
+             f"(want {1 + probes}), histogram +{h1 - h0} (want "
+             f"{probes * samples}), gauge {gauge}, losses {c['losses']}")
+    c.update(builds=builds, best_threshold=tuned.current_threshold(),
+             gauge_s=gauge, timed=h1 - h0)
+    log(f"phase 11 (c): AutotunedStep, {probes} probes of {samples} "
+        f"samples: thresholds built {builds}, converged on "
+        f"{tuned.current_threshold()}; optimizer_step_seconds {gauge:.4f}, "
+        f"{h1 - h0} steps timed; losses {c['losses']}")
+    launches["gpt2_medium_autotuned"] = c.pop("launches")
+    del model, params, adamw, tuned
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    torch.cuda.synchronize()
+
+    e = None
+    if torch.cuda.device_count() >= 2:
+        proc = subprocess.run(
+            [sys.executable, "tools/torch_zero_bench.py", "--np", "2",
+             "--band", str(ZERO1_LOSS_BAND)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail(f"phase 11 (e): the two-rank ZeRO-1 bench failed:\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        e = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"phase 11 (e): two ranks: losses within "
+            f"{e['max_loss_diff']:.3e} of one rank's, checks {e['checks']}; "
+            f"per rank: " + "; ".join(
+                f"rank {x['rank']} {x['step_ms']:.1f} ms a step, peak "
+                f"{x['peak_gib']:.2f} GiB, mu {x['mu_elements']} elements"
+                for x in e["per_rank"]) +
+            f"; one rank {e['one_rank']['step_ms']:.1f} ms, peak "
+            f"{e['one_rank']['peak_gib']:.2f} GiB")
+    else:
+        log("phase 11 (e): tools/torch_zero_bench.py --np 2 did not run for "
+            f"want of a second card (cards: {torch.cuda.device_count()})")
+    out.update(value_and_grad=a, grad_overlap=ov, zero1=b, resumed=d,
+               autotuned=c, two_cards=e, zero1_loss_band=ZERO1_LOSS_BAND,
+               phase3_step_ms_median=main_path["step_ms_median"],
+               launches=launches)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10; 6, 7 and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11; 6, 7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -3338,6 +3823,10 @@ def main(argv=None) -> int:
         launches.update(lc.pop("launches"))
         shapes.update(lc.pop("kernels"))
         print(json.dumps({"phase10": lc}), flush=True)
+    if 11 in phases:
+        fs = phase_functional_step(card, main_path if 3 in phases else None)
+        launches.update(fs.pop("launches"))
+        print(json.dumps({"phase11": fs}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -30,7 +30,12 @@ forms over ``topology()``, ``swing``, or ``auto``; ``wire=`` and
 (``ops/quantized.py``), and in ``DistributedOptimizer`` gradient overlap
 in the backward (``overlap=True``), error feedback (``error_feedback=``,
 ``reset_error_feedback``), ``gradient_predivide_factor`` and the online
-tuner (``HOROVOD_AUTOTUNE``, ``autotune.py``). Fault tolerance:
+tuner (``HOROVOD_AUTOTUNE``, ``autotune.py``). The functional step:
+``grad`` / ``value_and_grad`` over trees of tensors (for example through
+``torch.func.functional_call``; ``overlap=True`` reduces each group inside
+the backward), ``DistributedGradientTape``, ``AutotunedStep``, per-rank
+data sharding (``data``: ``DistributedSampler``, ``ShardedBatchIterator``)
+and ZeRO-1 (``sharded_adamw``, ``optimizer_sharded.py``). Fault tolerance:
 ``elastic`` (``TorchState``, ``TensorState``, ``@elastic.run``, discovery,
 hot spares), ``checkpoint_sharded`` (async two-phase sharded checkpoints in
 the reference's on-disk format), ``checkpoint`` (full state), ``faults``
@@ -62,8 +67,12 @@ from horovod_tpu_torch.metrics import (
     get_stall_watchdog, reset_metrics, start_metrics_flusher,
     start_stall_watchdog, stop_metrics_flusher, stop_stall_watchdog)
 from horovod_tpu_torch.optimizer import (
-    DistributedOptimizer, allreduce_gradients, broadcast_optimizer_state,
-    broadcast_parameters, reset_error_feedback)
+    AutotunedStep, DistributedGradientTape, DistributedOptimizer,
+    accumulation_has_updated, allreduce_gradients, broadcast_optimizer_state,
+    broadcast_parameters, broadcast_variables, grad, reset_error_feedback,
+    value_and_grad)
+from horovod_tpu_torch.optimizer_sharded import (
+    ShardedAdamWState, sharded_adamw)
 from horovod_tpu_torch.ops.quantized import quantized_allreduce
 from horovod_tpu_torch.process_set import (
     ProcessSet, add_process_set, get_process_set_ids_and_ranks,
@@ -103,5 +112,8 @@ __all__ = [
     "reset_error_feedback", "quantized_allreduce", "Autotuner",
     "BayesianAutotuner", "AutotuneResult", "autotune_fusion_threshold",
     "checkpoint", "checkpoint_sharded", "elastic", "faults",
-    "ShardedCheckpointManager", "TornCheckpointError",
+    "ShardedCheckpointManager", "TornCheckpointError", "AutotunedStep",
+    "DistributedGradientTape", "accumulation_has_updated",
+    "broadcast_variables", "grad", "value_and_grad", "ShardedAdamWState",
+    "sharded_adamw",
 ]

@@ -43,10 +43,26 @@ and its manifest leaf says ``"dtype": "bfloat16"``.
 ``replicated.npz``), its attributes and the commit's container skeleton
 (keys, non-tensor values such as AdamW's ``param_groups``) into the
 manifest's ``meta``, so a fresh process rebuilds the commit from the
-manifest alone. The ZeRO-1 adapters of the reference (``pack_opt_state``,
-``unpack_opt_state``, ``reshard_opt_state`` and the ``ShardedAdamWState``
-branch of ``save_state`` / ``adopt_state``) wait for
-``optimizer_sharded.py`` (``ROADMAP.md`` §A item 8).
+manifest alone.
+
+**ZeRO-1** (``optimizer_sharded.py``). A ``ShardedAdamWState`` in the port
+is this rank's row; ``pack_opt_state`` gives it as the one shard the rank
+owns, and ``save(..., num_shards=n, owned=[rank])`` takes such per-rank
+rows. The files are the reference's: shard s of ``['opt_state']['mu']`` is
+rank s's ``(c,)`` row, the manifest records the unpadded length, and
+``(n,)`` step counters collapse to their max on an N->M restore, so a
+ZeRO-1 step written by either package restores in the other at any N->M.
+``unpack_opt_state(..., rank=r)`` takes rank r's row of a restore;
+``reshard_opt_state`` first gathers the rows over the old set, because no
+rank holds them all. In ``save_state`` / ``adopt_state`` a committed
+``ShardedAdamWState`` goes down the shard path: every rank writes its row,
+and every rank adopts together, each taking its row of the manifest
+resharded for the current world (a newer in-memory commit is kept only
+where every rank still holds the row it committed in this world). The
+port has no
+``ErrorFeedbackState`` (error feedback lives in ``DistributedOptimizer``),
+so ``info["error_feedback"]`` is always false, and a reference step saved
+with that wrapper restores without it.
 
 Instrumented as the reference: ``checkpoint_save_seconds{kind=shard}``,
 ``checkpoint_restore_seconds{kind=shard}``, ``checkpoint_publish_seconds``,
@@ -74,6 +90,7 @@ import torch
 __all__ = [
     "ShardedCheckpointManager", "Restored", "TornCheckpointError",
     "owned_shards", "save_state", "adopt_state", "stash_failure_stamp",
+    "pack_opt_state", "unpack_opt_state", "reshard_opt_state",
 ]
 
 logger = logging.getLogger("horovod_tpu_torch")
@@ -323,7 +340,12 @@ class ShardedCheckpointManager:
              wait: bool = False) -> None:
         """Snapshot ``shards`` (shard-major tree: every tensor leaf is
         ``(num_shards, ...)``) and ``replicated`` (any tree; written by rank
-        0 only) for ``step``, asynchronously.
+        0 only) for ``step``, asynchronously. ``owned`` (with
+        ``num_shards``) names the shards this rank writes, and each leaf
+        then holds exactly those shards in ``owned``'s order (leading dim
+        ``len(owned)``): a rank's ZeRO-1 row from :func:`pack_opt_state`,
+        which no rank holds for the whole world. Without it the rank
+        writes the shards :func:`owned_shards` gives it.
 
         ``meta`` is a JSON-able dict published in the manifest.
         ``unpadded`` maps a shard leaf's key to its true flat length for
@@ -349,6 +371,9 @@ class ShardedCheckpointManager:
         t0 = time.perf_counter()
         self._raise_pending()
         nproc, pid = _world()
+        if owned is not None and num_shards is None:
+            raise ValueError("save(owned=...) needs num_shards: the leaves "
+                             "hold only the owned shards")
         if flat:
             for key, leaf in flat:
                 if getattr(leaf, "ndim", 0) < 1:
@@ -357,18 +382,21 @@ class ShardedCheckpointManager:
                         f"leaves need a leading num_shards dimension")
             if num_shards is None:
                 num_shards = int(flat[0][1].shape[0])
+            lead = len(owned) if owned is not None else num_shards
             for key, leaf in flat:
-                if int(leaf.shape[0]) != num_shards:
+                if int(leaf.shape[0]) != lead:
                     raise ValueError(
                         f"shard leaf {key} has leading dim "
-                        f"{leaf.shape[0]} != num_shards {num_shards}")
+                        f"{leaf.shape[0]} != {lead} (" + (
+                            f"the owned shards {list(owned)}"
+                            if owned is not None else "num_shards") + ")")
         elif num_shards is None:
             num_shards = 0       # a replicated/meta-only save
         own = list(owned) if owned is not None else owned_shards(num_shards)
         items: List[Tuple[Any, str, Any]] = []     # (slot, key, leaf)
-        for s in own:
+        for j, s in enumerate(own):
             for key, leaf in flat:
-                items.append((s, key, leaf[s]))
+                items.append((s, key, leaf[j if owned is not None else s]))
         if pid == 0 and rep is not None:
             for key, leaf in rep:
                 items.append((None, key, leaf))
@@ -899,6 +927,102 @@ def _reshard(key: str, arr: torch.Tensor, m: int,
 
 
 # ---------------------------------------------------------------------------
+# ZeRO-1 adapters
+# ---------------------------------------------------------------------------
+
+def pack_opt_state(opt_state, unpadded_len: Optional[int] = None):
+    """``ShardedAdamWState`` -> ``(shards_tree, unpadded, info)`` in the
+    manager's shard-major layout: a rank's row ((1,) step, (c,) moments)
+    gives ``(1, ...)`` leaves, the one shard it owns (save them with
+    ``num_shards=n, owned=[rank]``); a global state ((n,) step, (n*c,)
+    moments) gives ``(n, ...)``. ``info["error_feedback"]`` is always
+    false: the port has no ``ErrorFeedbackState``."""
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    if not isinstance(opt_state, ShardedAdamWState):
+        raise TypeError(f"pack_opt_state expects a ShardedAdamWState; got "
+                        f"{type(opt_state)!r}")
+    n = int(opt_state.step.shape[0])
+    total = int(opt_state.mu.shape[0])
+    if total % n:
+        raise ValueError(
+            f"ShardedAdamWState moments ({total}) are not divisible by "
+            f"the shard count ({n})")
+    c = total // n
+    shards = {"step": opt_state.step,
+              "mu": opt_state.mu.reshape(n, c),
+              "nu": opt_state.nu.reshape(n, c)}
+    unpadded = {}
+    if unpadded_len is not None:
+        unpadded = {"['mu']": int(unpadded_len), "['nu']": int(unpadded_len)}
+    return shards, unpadded, {"error_feedback": False}
+
+
+def _gather_rows(state, ps):
+    """The global ``ShardedAdamWState`` of the rows of the set's ranks (an
+    in-step all-gather, on the card for NCCL)."""
+    from horovod_tpu_torch import collective as C
+    from horovod_tpu_torch import core
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    dev = state.mu.device
+    if core.backend() == "nccl" and not state.mu.is_cuda:
+        dev = core.device()
+    return ShardedAdamWState(*(
+        C._in_step_allgather(t.to(dev), ps, name="reshard_opt_state")
+        for t in state))
+
+
+def reshard_opt_state(opt_state, num_shards: int,
+                      unpadded_len: Optional[int] = None,
+                      process_set=None):
+    """In-memory N->M reshard of a ``ShardedAdamWState``: the transform a
+    manifest restore applies (strip to the unpadded length, re-pad, re-chunk;
+    the step counters collapse to their max). A rank's row is first
+    gathered with the other rows of ``process_set`` (default: the global
+    set), which must be the set that made them; a global state is taken as
+    it is. Returns the global state for ``num_shards`` on the CPU ((m,)
+    step, (m*c,) moments); ``unpack_opt_state(pack_opt_state(g)[0],
+    rank=r)`` is rank r's row of it."""
+    from horovod_tpu_torch import collective as C
+    from horovod_tpu_torch import core
+    if int(opt_state.step.shape[0]) == 1 and core.is_initialized():
+        ps = C._resolve_ps(process_set)
+        if ps.size() > 1:
+            opt_state = _gather_rows(opt_state, ps)
+    packed, unpadded, _ = pack_opt_state(opt_state,
+                                         unpadded_len=unpadded_len)
+    out = {key: _reshard(key, packed[key].detach().cpu(), num_shards,
+                         unpadded.get(f"['{key}']"))
+           for key in ("step", "mu", "nu")}
+    return unpack_opt_state(out)
+
+
+def unpack_opt_state(shards, params=None, error_feedback: bool = False, *,
+                     rank: Optional[int] = None):
+    """Inverse of :func:`pack_opt_state` for restored (possibly resharded)
+    arrays, a dict or a state of ``step`` (m,) and ``mu``, ``nu`` (m, c):
+    the global ``ShardedAdamWState``, or with ``rank`` that shard's row
+    ((1,) step, (c,) moments), as CPU tensors. ``params`` and
+    ``error_feedback`` keep the reference's signature: the port has no
+    ``ErrorFeedbackState``, so a step saved with it restores without it."""
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+
+    def get(k):
+        v = shards[k] if isinstance(shards, dict) else getattr(shards, k)
+        return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
+
+    step = get("step").to(torch.int32).reshape(-1)
+    mu, nu = get("mu").to(torch.float32), get("nu").to(torch.float32)
+    if rank is None:
+        return ShardedAdamWState(step=step, mu=mu.reshape(-1),
+                                 nu=nu.reshape(-1))
+    m = step.shape[0]
+    return ShardedAdamWState(step=step[rank:rank + 1].clone(),
+                             mu=mu.reshape(m, -1)[rank].clone(),
+                             nu=nu.reshape(m, -1)[rank].clone())
+
+
+# ---------------------------------------------------------------------------
 # elastic-state bridge (hot-spare adoption path)
 # ---------------------------------------------------------------------------
 
@@ -945,18 +1069,57 @@ def _from_skeleton(sk, arrays: Dict[str, torch.Tensor]):
     return tuple(items) if "t" in sk else items
 
 
+def _is_sharded_value(v) -> bool:
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    return isinstance(v, ShardedAdamWState)
+
+
+def _flat_len(tree) -> int:
+    return sum(int(t.numel()) for _, t in _flatten_with_keys(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _infer_unpadded_len(state, row, n: int) -> Optional[int]:
+    """The true flat parameter length behind a committed ZeRO-1 row, so an
+    N->M restore re-chunks to exactly what ``sharded_adamw(...).init``
+    would make in the new world: the one other committed tree whose flat
+    length is consistent with ``n`` rows of the row's width (None keeps
+    the padded length; the values still align)."""
+    total = n * int(row.mu.shape[0])
+    candidates = set()
+    for other in _committed_trees(state).values():
+        if _is_sharded_value(other):
+            continue
+        flat = _flat_len(other)
+        if 0 < flat <= total and -(-flat // n) * n == total:
+            candidates.add(flat)
+    return candidates.pop() if len(candidates) == 1 else None
+
+
 def save_state(mgr: ShardedCheckpointManager, step: int, state, *,
                meta: Optional[Dict[str, Any]] = None,
                wait: bool = False) -> None:
     """Persist an elastic ``TorchState`` / ``TensorState``'s **last
-    commit** through the sharded manager: its tensors ride the rank-0
-    replicated file, its containers and non-tensor values (the skeleton)
-    and its plain attributes plus ``meta`` publish in the manifest. The
-    commit is a private snapshot, so the device-to-host copies run behind
-    the caller's stream without holding it."""
+    commit** through the sharded manager: a committed ``ShardedAdamWState``
+    goes down the shard path (each rank writes the row it owns), the other
+    tensors ride the rank-0 replicated file, and the containers and
+    non-tensor values (the skeleton) and the plain attributes plus ``meta``
+    publish in the manifest. The commit is a private snapshot, so the
+    device-to-host copies run behind the caller's stream without holding
+    it."""
+    n, rank = _world()
     leaves: List[Tuple[str, torch.Tensor]] = []
-    trees = {name: _skeleton(tree, f"[{name!r}]", leaves)
-             for name, tree in _committed_trees(state).items()}
+    shard_flat: List[Tuple[str, Any]] = []
+    trees, info, unpadded = {}, {}, {}
+    for name, tree in _committed_trees(state).items():
+        if _is_sharded_value(tree):
+            packed, leaf_unpadded, info[name] = pack_opt_state(
+                tree, unpadded_len=_infer_unpadded_len(state, tree, n))
+            shard_flat += _flatten_with_keys(packed, f"[{name!r}]")
+            unpadded.update({f"[{name!r}]{k}": v
+                             for k, v in leaf_unpadded.items()})
+        else:
+            trees[name] = _skeleton(tree, f"[{name!r}]", leaves)
     attrs = {}
     for k, v in state._saved_attrs.items():
         try:
@@ -966,38 +1129,73 @@ def save_state(mgr: ShardedCheckpointManager, step: int, state, *,
             logger.warning(
                 "sharded checkpoint: attribute %r is not JSON-able; "
                 "excluded from the manifest", k)
-    full_meta = {"attrs": attrs, "sharded": {},
+    full_meta = {"attrs": attrs, "sharded": info,
                  "commit_count": getattr(state, "commit_count", 0),
                  "trees": trees}
     full_meta.update(meta or {})
-    mgr._save_flat(step, [], leaves or None, full_meta, mutable=False,
+    mgr._save_flat(step, shard_flat, leaves or None, full_meta,
+                   unpadded=unpadded or None,
+                   num_shards=n if shard_flat else None,
+                   owned=[rank] if shard_flat else None, mutable=False,
                    wait=wait)
+
+
+def _holds_rows(state) -> bool:
+    """Does an elastic state's last commit hold a ZeRO-1 row? Such a state
+    is adopted on every rank together (:func:`adopt_state`), each rank
+    taking its own row; any other on rank 0 alone, before ``sync()``."""
+    return any(_is_sharded_value(v)
+               for v in _committed_trees(state).values())
 
 
 def adopt_state(mgr: ShardedCheckpointManager, state,
                 step: Optional[int] = None) -> int:
     """Hot-spare adoption: load a published manifest (default the newest)
     into an elastic state's committed snapshot and restore it. Runs inside
-    the ``@hvd.elastic.run`` re-init path (before ``state.sync()``) or on
-    a relaunched rank 0. A newer in-memory commit than the manifest's is
-    kept. Returns the adopted step."""
+    the ``@hvd.elastic.run`` re-init path (before ``state.sync()``) or in
+    a relaunched process: on rank 0 alone, or, for a state that commits a
+    ZeRO-1 row (``_holds_rows``), on every rank together. Then every
+    rank takes its own row of the manifest resharded for the current
+    world, rank 0 picking the step. A newer in-memory commit than the
+    manifest's is kept; for ZeRO-1 rows only when every rank still holds
+    the row it committed in this world (:func:`_reshard_committed`), and
+    otherwise every rank adopts the manifest. Returns the adopted step."""
+    n, rank = _world()
+    every = n > 1 and _holds_rows(state)
     target = step if step is not None else mgr.latest_step()
+    if every and step is None:
+        from horovod_tpu_torch.collective import broadcast_object
+        target = broadcast_object(target, 0)
     if target is None:
         raise FileNotFoundError(
             f"no published checkpoint in {mgr.directory}")
     man_cc = mgr.read_manifest(target).get("meta", {}).get(
         "commit_count", -1)
     mem_cc = int(getattr(state, "commit_count", 0) or 0)
-    if man_cc >= 0 and mem_cc > man_cc:
-        # The in-memory commit outran the last published manifest (commit
-        # cadence faster than save cadence, or an in-flight save died
-        # unpublished): an in-process survivor keeps its newer commit.
+    # The in-memory commit outran the last published manifest (commit
+    # cadence faster than save cadence, or an in-flight save died
+    # unpublished): an in-process survivor keeps its newer commit.
+    keep = man_cc >= 0 and mem_cc > man_cc and _reshard_committed(state, n)
+    if every:
+        from horovod_tpu_torch.collective import allgather_object
+        keep = all(allgather_object(keep))
+    if keep:
         state.restore()
         return target
-    r = mgr.restore(step=target)
+    r = mgr.restore(step=target, num_shards=n)
     trees = _committed_trees(state)
+    info = r.meta.get("sharded") or {}
+    for name in info:
+        prefix = f"[{name!r}]"
+        # keys look like "['opt_state']['mu']": strip the name prefix,
+        # then the quoting around the leaf name.
+        packed = {key[len(prefix):].strip("[]'"): v
+                  for key, v in r.shards.items() if key.startswith(prefix)}
+        trees[name] = unpack_opt_state(packed, rank=rank)
     skeletons = r.meta.get("trees") or {}
     for name in list(dict.fromkeys(list(skeletons) + list(trees))):
+        if name in info:
+            continue
         prefix = f"[{name!r}]"
         if name in skeletons:
             trees[name] = _from_skeleton(skeletons[name], r.replicated)
@@ -1008,5 +1206,21 @@ def adopt_state(mgr: ShardedCheckpointManager, state,
             trees[name] = _unflatten_like(trees[name], sub)
     for k, v in r.meta.get("attrs", {}).items():
         state._saved_attrs[k] = v
+    if info:
+        state._commit_world = (n, rank)
     state.restore()
     return r.step
+
+
+def _reshard_committed(state, num_shards: Optional[int] = None) -> bool:
+    """The port's side of the reference's in-memory reshard of committed
+    ZeRO-1 state. A rank holds only its own row, so a row cannot be
+    re-chunked for another world without the other ranks' rows, and a
+    lost rank's are gone. The committed rows stand as they are when this
+    rank committed them as rank ``rank`` of ``num_shards`` (default: the
+    current world) ranks; otherwise this returns False and the caller
+    adopts the manifest on every rank instead. True for a state without
+    rows."""
+    n, rank = _world()
+    return not _holds_rows(state) or getattr(
+        state, "_commit_world", None) == (num_shards or n, rank)

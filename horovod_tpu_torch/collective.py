@@ -1035,6 +1035,44 @@ def _in_step_allreduce(tensor: torch.Tensor, op: int, ps: ProcessSet,
                                     algorithm="psum").synchronize()[0]
 
 
+def _in_step_reducescatter(x: torch.Tensor, ps: ProcessSet,
+                           name: Optional[str] = None) -> torch.Tensor:
+    """This rank's chunk of the Sum of a 1-D buffer whose length is a
+    multiple of the set's size, inside a training step: the reference's
+    in-program ``psum_scatter(tiled=True)``, with no round (see
+    :func:`_in_step_allreduce_async`)."""
+    k = ps.size()
+    if k == 1:
+        return x
+
+    def launch(_, joined):
+        out = x.new_empty(x.numel() // k)
+        work = _overlap._RS_SINGLE(out, x, group=ps.group, async_op=True)
+        return Handle([work], lambda: out)
+
+    return _run("reducescatter", ps, [x], (), lambda: None, launch,
+                name=name, how="in_step").synchronize()
+
+
+def _in_step_allgather(x: torch.Tensor, ps: ProcessSet,
+                       name: Optional[str] = None) -> torch.Tensor:
+    """Every member's 1-D ``x``, concatenated in set order, inside a
+    training step: the reference's in-program ``all_gather(tiled=True)``,
+    with no round."""
+    k = ps.size()
+    if k == 1:
+        return x
+
+    def launch(_, joined):
+        out = x.new_empty(x.numel() * k)
+        work = _quantized.ALL_GATHER_SINGLE(out, x.contiguous(),
+                                            group=ps.group, async_op=True)
+        return Handle([work], lambda: out)
+
+    return _run("allgather", ps, [x], (), lambda: None, launch, name=name,
+                how="in_step").synchronize()
+
+
 
 # ---------------------------------------------------------------------------
 # the other collectives

@@ -12,8 +12,9 @@ On a membership change the decorated function is re-entered after
 re-discovering devices, re-forming the process group (``shutdown()`` then
 ``init()`` over the rendezvous the environment names: a new NCCL or gloo
 group, ``init_epoch()`` + 1), adopting the last published checkpoint on
-rank 0 when ``checkpoint=`` is given, and ``state.sync()`` (restore the
-last commit and broadcast it). Between processes, relaunch by
+rank 0 when ``checkpoint=`` is given (on every rank, each taking its own
+row, when the commit holds ZeRO-1 rows), and ``state.sync()`` (restore
+the last commit and broadcast it). Between processes, relaunch by
 ``runner.run_elastic`` is the recovery, as in the reference; hot spares
 (``standby``) wait in it without touching a GPU and take ``LOCAL_RANK``'s
 card only when promoted.
@@ -137,17 +138,7 @@ def run(func: Callable) -> Callable:
                     notification_manager.acknowledge()
                     _reinitialize(min_size, discovery)
                     if checkpoint is not None:
-                        # Adoption under the new world: only the
-                        # coordinator reads the manifest; sync() then
-                        # broadcasts its commit to every other rank.
-                        from horovod_tpu_torch import core as _core
-                        if _core.rank() == 0 and \
-                                checkpoint.latest_step() is not None:
-                            from horovod_tpu_torch import \
-                                checkpoint_sharded as _cs
-                            step = _cs.adopt_state(checkpoint, state)
-                            _metrics.event("elastic_shard_adoption",
-                                           step=step)
+                        _adopt(checkpoint, state)
                     state.sync()
                     dt = time.monotonic() - t0
                     _metrics.gauge("elastic_recovery_seconds").set(dt)
@@ -157,6 +148,25 @@ def run(func: Callable) -> Callable:
             notification_manager.stop()
 
     return wrapper
+
+
+def _adopt(checkpoint, state) -> None:
+    """Adoption under the new world, before ``sync()``: the coordinator
+    reads the manifest and ``sync()`` broadcasts its commit; a commit that
+    holds ZeRO-1 rows is adopted on every rank, each taking its own row,
+    at the step rank 0 sees."""
+    from horovod_tpu_torch import checkpoint_sharded as _cs
+    from horovod_tpu_torch import collective as _coll
+    from horovod_tpu_torch import core as _core
+    every = _core.size() > 1 and _cs._holds_rows(state)
+    if not every and _core.rank() != 0:
+        return
+    step = checkpoint.latest_step()
+    if every:
+        step = _coll.broadcast_object(step, 0)
+    if step is not None:
+        step = _cs.adopt_state(checkpoint, state, step=step)
+        _metrics.event("elastic_shard_adoption", step=step)
 
 
 # ---------------------------------------------------------------------------

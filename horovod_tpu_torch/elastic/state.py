@@ -11,9 +11,12 @@ broadcasts the commit from rank 0 through ``broadcast_object`` and zeros
 the error-feedback residuals of the quantized wire, as the reference's
 ``JaxState.sync`` does through ``reset_error_feedback``.
 
-The reference's ``FsdpState`` waits for ``parallel/fsdp.py`` and its
-``TensorFlowKerasState`` for the frontends (``ROADMAP.md`` §A items 8 and
-11).
+A ``TensorState`` may commit a ZeRO-1 ``ShardedAdamWState`` (each rank's
+row, with the world it was committed in: ``checkpoint_sharded.save_state``
+writes it, ``adopt_state`` adopts it on every rank, and ``sync()`` keeps
+it, refusing a row of another world). The reference's ``FsdpState`` waits for ``parallel/fsdp.py`` and its
+``TensorFlowKerasState`` for the frontends (``ROADMAP.md`` §A items 8a-ii
+and 11).
 """
 
 from __future__ import annotations
@@ -97,6 +100,12 @@ def _world() -> int:
     return core.size() if core.is_initialized() else 1
 
 
+def _rank_of_world() -> tuple:
+    """(size, rank) of the current world; (1, 0) before ``hvd.init()``."""
+    from horovod_tpu_torch import core
+    return (core.size(), core.rank()) if core.is_initialized() else (1, 0)
+
+
 def _sync_attrs(saved: Dict[str, Any], warned: set,
                 broadcast_fn=None) -> Dict[str, Any]:
     """Broadcast committed attrs from the coordinator. The coordinator also
@@ -146,7 +155,10 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        items = [_tree_map(fn, v) for v in tree]
+        # named tuples (ZeRO-1's ShardedAdamWState) take fields, not a list
+        return (type(tree)(*items) if hasattr(tree, "_fields")
+                else type(tree)(items))
     return fn(tree)
 
 
@@ -238,6 +250,7 @@ class TensorState(State):
                          for k, v in self._pytrees.items()}
         self._saved_attrs, failed = _copy_attrs(self._attrs, self._warn)
         self._no_rollback = set(failed)
+        self._commit_world = _rank_of_world()
         self.commit_count += 1
 
     def _placed(self, name: str, tree):
@@ -259,10 +272,34 @@ class TensorState(State):
 
     def sync(self) -> None:
         """After re-init: broadcast the committed state from the
-        coordinator so joiners agree, then restore locally."""
+        coordinator so joiners agree, then restore locally. A committed
+        ZeRO-1 ``ShardedAdamWState`` is each rank's own row and is not
+        broadcast: it must be the row this rank committed in this world,
+        or one ``checkpoint_sharded.adopt_state`` took from a manifest
+        (``hvd.elastic.run(checkpoint=...)``); a row of another world
+        raises, since its chunks are not this world's."""
+        from horovod_tpu_torch.checkpoint_sharded import _is_sharded_value
+        rows = {k: v for k, v in self._saved_pytrees.items()
+                if _is_sharded_value(v)}
+        world, now = getattr(self, "_commit_world", None), _rank_of_world()
+        stale = bool(rows) and world != now
+        if rows and _world() > 1:
+            from horovod_tpu_torch.collective import allgather_object
+            stale = any(allgather_object(stale))
+        if stale:
+            raise RuntimeError(
+                f"elastic TensorState.sync: the ZeRO-1 rows {sorted(rows)} "
+                f"were committed as (size, rank) {world}, and this world is "
+                f"{now} (or another rank's rows are stale): a rank holds "
+                f"only its own row, so the rows cannot be resharded in "
+                f"memory; pass checkpoint= to hvd.elastic.run so that "
+                f"every rank adopts its row of the last manifest")
         if _world() > 1:
             from horovod_tpu_torch.collective import broadcast_object
-            self._saved_pytrees = broadcast_object(self._saved_pytrees, 0)
+            shared = broadcast_object(
+                {k: v for k, v in self._saved_pytrees.items()
+                 if k not in rows}, 0)
+            self._saved_pytrees = {**shared, **rows}
             self._saved_attrs = _sync_attrs(self._saved_attrs, self._warn)
         self.restore()
 
@@ -273,7 +310,8 @@ class TensorState(State):
         torch.save({"pytrees": self._saved_pytrees,
                     "attrs": _picklable_attrs(self._saved_attrs,
                                               self._warn),
-                    "commit_count": self.commit_count}, tmp)
+                    "commit_count": self.commit_count,
+                    "world": self._commit_world}, tmp)
         os.replace(tmp, path)
 
     def load(self, path: str) -> None:
@@ -282,6 +320,8 @@ class TensorState(State):
         self._saved_pytrees = blob["pytrees"]
         self._saved_attrs = blob["attrs"]
         self.commit_count = blob["commit_count"]
+        world = blob.get("world")
+        self._commit_world = tuple(world) if world is not None else None
         self.restore()
 
 

@@ -1,8 +1,12 @@
-"""Distributed optimizer and the start-of-training broadcasts.
+"""Distributed optimizer, the functional step and the start-of-training
+broadcasts.
 
 Port of ``horovod_tpu/optimizer.py`` (``allreduce_gradients``, error
-feedback, ``DistributedOptimizer``, ``broadcast_parameters``,
-``broadcast_optimizer_state``) in the shape of the torch frontend
+feedback, ``DistributedOptimizer``, ``grad``, ``value_and_grad``,
+``DistributedGradientTape``, ``AutotunedStep``, ``broadcast_parameters``,
+``broadcast_variables``, ``broadcast_optimizer_state``,
+``accumulation_has_updated``). ``DistributedOptimizer`` has the shape of
+the torch frontend
 (``horovod_tpu/torch/__init__.py``): :class:`DistributedOptimizer` wraps any
 ``torch.optim.Optimizer`` and its ``step()`` first synchronizes every
 ``.grad`` (one fused, optionally compressed allreduce, written back in
@@ -98,7 +102,9 @@ from horovod_tpu_torch.process_set import ProcessSet
 
 __all__ = ["allreduce_gradients", "DistributedOptimizer",
            "broadcast_parameters", "broadcast_optimizer_state",
-           "reset_error_feedback"]
+           "broadcast_variables", "reset_error_feedback", "grad",
+           "value_and_grad", "DistributedGradientTape",
+           "accumulation_has_updated", "AutotunedStep"]
 
 
 def _maybe_record_grad_norm(grads: List[torch.Tensor]) -> None:
@@ -785,3 +791,297 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0,
                         shape, dtype=dtype,
                         device="cpu" if on_cpu else p.device)
                 C.broadcast_(cur, root_rank, process_set=process_set)
+
+
+def broadcast_variables(variables, root_rank: int = 0, **kw):
+    """``hvd.broadcast_variables``: :func:`broadcast_parameters` under the
+    TensorFlow frontend's name; returns ``variables``, now holding
+    ``root_rank``'s values."""
+    broadcast_parameters(variables, root_rank, **kw)
+    return variables
+
+
+def accumulation_has_updated(optimizer) -> bool:
+    """True when the last ``step()`` of a ``backward_passes_per_step > 1``
+    :class:`DistributedOptimizer` applied a real step (the k-th pass)
+    rather than accumulating."""
+    return bool(optimizer.has_updated)
+
+
+# ---------------------------------------------------------------------------
+# the functional step: grad, value_and_grad, the gradient tape
+# ---------------------------------------------------------------------------
+
+def _has_aux(gradkw: dict) -> bool:
+    kw = dict(gradkw)
+    has_aux = bool(kw.pop("has_aux", False))
+    if kw:
+        raise TypeError(f"unsupported gradient options {sorted(kw)}: the "
+                        "port takes has_aux only")
+    return has_aux
+
+
+def _value_and_local_grads(fun, argnums, has_aux, args, kwargs, tap_kw):
+    """``fun(*args, **kwargs)`` and this rank's gradients of its scalar
+    value with respect to the ``argnums`` arguments (trees of tensors), in
+    their structure. Each argument's leaves are detached and made to
+    require grad; under ``tap_kw`` each argument is tapped
+    (``overlap.tap_params``) first, so its buckets are reduced in the
+    backward."""
+    from horovod_tpu_torch.checkpoint_sharded import (_flatten_with_keys,
+                                                      _unflatten_like)
+    from horovod_tpu_torch.elastic.state import _tree_map
+    idxs = (argnums,) if isinstance(argnums, int) else tuple(argnums)
+    args = list(args)
+    parts = []
+    for i in idxs:
+        # The argument's own order, which the taps' buckets follow.
+        tree = _tree_map(lambda t: t.detach().requires_grad_(True)
+                         if isinstance(t, torch.Tensor) else t, args[i])
+        flat = _flatten_with_keys(tree)
+        keys = [k for k, _ in flat]
+        xs = [t for _, t in flat]
+        if tap_kw is not None:
+            tree = _overlap.tap_params(tree, **tap_kw)
+        args[i] = tree
+        parts.append((xs, keys, args[i]))
+    with torch.enable_grad():
+        out = fun(*args, **kwargs)
+    value, aux = out if has_aux else (out, None)
+    if not (torch.is_tensor(value) and value.numel() == 1):
+        raise TypeError("grad requires a function of one scalar tensor "
+                        f"value, got {type(value).__name__}")
+    xs = [x for p, _, _ in parts for x in p]
+    gs = torch.autograd.grad(value, xs, allow_unused=True)
+    flat, seen = [], set()
+    for x, g in zip(xs, gs):
+        g = torch.zeros_like(x) if g is None else g.contiguous()
+        if id(g) in seen:
+            g = g.clone()
+        seen.add(id(g))
+        flat.append(g)
+    trees, off = [], 0
+    for p, keys, tree in parts:
+        trees.append(_unflatten_like(tree, dict(zip(keys,
+                                                    flat[off:off + len(p)]))))
+        off += len(p)
+    grads = trees[0] if isinstance(argnums, int) else tuple(trees)
+    return value.detach(), aux, grads, flat
+
+
+def grad(fun, argnums=0, op: int = C.Average,
+         process_set: Optional[ProcessSet] = None,
+         compression=Compression.none, overlap: bool = False,
+         algorithm: Optional[str] = None,
+         overlap_chunks: Optional[int] = None, **gradkw):
+    """``hvd.grad``: the gradient of a scalar function of trees of tensors
+    (``fun(params, *args)``, for example a loss over
+    ``torch.func.functional_call(model, params, ...)``), allreduced across
+    the process set. Returns a function that gives the gradients in the
+    structure of the ``argnums`` arguments (a tuple of them for a tuple
+    ``argnums``; ``(grads, aux)`` with ``has_aux=True``).
+
+    ``overlap=True`` swaps the end-of-backward allreduce for identity taps
+    on buckets of the arguments' leaves, at most the fusion threshold each
+    (``overlap.tap_params``): every bucket's gradient is reduced inside
+    the backward, as soon as it is produced, by an in-step allreduce with
+    no negotiation round."""
+    has_aux = _has_aux(gradkw)
+    tap_kw = None
+    if overlap:
+        tap_kw = dict(op=op, process_set=process_set,
+                      compression=compression, algorithm=algorithm,
+                      overlap_chunks=overlap_chunks)
+        _overlap.make_grad_sync_tap(**tap_kw)     # validates now
+
+    def wrapped(*args, **kwargs):
+        _, aux, grads, flat = _value_and_local_grads(
+            fun, argnums, has_aux, args, kwargs, tap_kw)
+        if overlap:
+            # The taps already reduced every group.
+            _maybe_record_grad_norm(flat)
+        else:
+            allreduce_gradients(flat, op=op, process_set=process_set,
+                                compression=compression,
+                                algorithm=algorithm,
+                                overlap_chunks=overlap_chunks)
+        return (grads, aux) if has_aux else grads
+    return wrapped
+
+
+def value_and_grad(fun, argnums=0, op: int = C.Average,
+                   process_set: Optional[ProcessSet] = None,
+                   compression=Compression.none, **gradkw):
+    """``hvd.value_and_grad``: :func:`grad` that also returns the value
+    (``((value, aux), grads)`` with ``has_aux=True``), averaged over the
+    process set so every rank reports the global loss. The value's
+    average is an in-step allreduce (no negotiation round); the gradients'
+    is :func:`allreduce_gradients`. The reference averages the value only
+    inside its SPMD context; the port's world of one process per GPU is
+    that context, so the value is always averaged."""
+    has_aux = _has_aux(gradkw)
+
+    def wrapped(*args, **kwargs):
+        from horovod_tpu_torch.checkpoint_sharded import (_flatten_with_keys,
+                                                          _unflatten_like)
+        value, aux, grads, flat = _value_and_local_grads(
+            fun, argnums, has_aux, args, kwargs, None)
+        out = (value, aux) if has_aux else value
+        leaves = dict(_flatten_with_keys(out))
+        keys = [k for k, x in leaves.items() if torch.is_tensor(x)]
+        if keys:
+            avg = C._in_step_allreduce_async(
+                [leaves[k].detach() for k in keys], C.Average,
+                C._resolve_ps(process_set), name="value_and_grad/value",
+                algorithm="psum").synchronize()
+            leaves.update(zip(keys, avg))
+        allreduce_gradients(flat, op=op, process_set=process_set,
+                            compression=compression)
+        return _unflatten_like(out, leaves), grads
+    return wrapped
+
+
+class DistributedGradientTape:
+    """The TensorFlow frontend's ``DistributedGradientTape`` in functional
+    form: ``tape.gradient(fun, params, *args)`` is the gradient of
+    ``fun(params, *args)`` with respect to ``params``, allreduced."""
+
+    def __init__(self, op: int = C.Average,
+                 process_set: Optional[ProcessSet] = None,
+                 compression=Compression.none):
+        self._op = op
+        self._ps = process_set
+        self._comp = compression
+
+    def gradient(self, fun, params, *args, **kwargs):
+        return grad(fun, op=self._op, process_set=self._ps,
+                    compression=self._comp)(params, *args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# AutotunedStep
+# ---------------------------------------------------------------------------
+
+def _wait_for(out) -> None:
+    """Wait for the card when any tensor of ``out`` lives on it."""
+    from horovod_tpu_torch.checkpoint_sharded import _flatten_with_keys
+    for _, x in _flatten_with_keys(out):
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+            return
+
+
+class AutotunedStep:
+    """Fusion autotuning of a training step that is rebuilt for each
+    proposal (the reference's ``AutotunedStep``).
+
+    ``make_step(threshold_bytes) -> step_fn`` builds the step for a fusion
+    threshold (a builder of 3 required arguments also receives the
+    tuner's algorithm and chunk count, one of 4 the wire as well). While
+    the tuner (default ``BayesianAutotuner`` with
+    ``HOROVOD_AUTOTUNE_PROBES`` / ``HOROVOD_AUTOTUNE_SAMPLES``) tunes,
+    each call is timed, behind ``torch.cuda.synchronize()`` when its
+    outputs live on the card, and recorded; the first call after each
+    (re)build runs untimed. When a probe completes, rank 0's point is
+    agreed by ``broadcast_object`` (world size above 1) and the step is
+    rebuilt; after convergence the agreed best runs untimed. Timed calls
+    set the ``optimizer_step_seconds`` gauge and the
+    ``optimizer_step_latency_seconds`` histogram."""
+
+    def __init__(self, make_step, tuner=None):
+        import inspect
+
+        from horovod_tpu_torch.autotune import BayesianAutotuner
+        cfg = get_config()
+        self._make = make_step
+        # Only required positional parameters count: a 1-argument builder
+        # with defaulted extras must not get the algorithm in them.
+        try:
+            sig = inspect.signature(make_step)
+            self._make_arity = sum(
+                1 for p in sig.parameters.values()
+                if p.default is p.empty and p.kind in (
+                    p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD))
+        except (TypeError, ValueError):
+            self._make_arity = 1
+        self._tuner = tuner if tuner is not None else BayesianAutotuner(
+            probes=cfg.autotune_probes,
+            samples_per_probe=cfg.autotune_samples)
+        self._fn = self._build(self._tuner.current_threshold())
+        self._done = False
+        # The first call after a (re)build pays one-time costs (allocator
+        # growth, kernel builds); a probe's median must not be that.
+        self._skip_next = True
+
+    @property
+    def converged(self) -> bool:
+        return self._done
+
+    def current_threshold(self) -> int:
+        return self._tuner.current_threshold()
+
+    def _build(self, threshold: int):
+        if self._make_arity >= 3:
+            t = self._tuner
+            alg = getattr(t, "current_algorithm", lambda: "auto")()
+            chunks = getattr(t, "current_chunks", lambda: None)()
+            if self._make_arity >= 4:
+                wire = getattr(t, "current_wire", lambda: "fp32")()
+                return self._make(threshold, alg, chunks, wire)
+            return self._make(threshold, alg, chunks)
+        return self._make(threshold)
+
+    def _agree_and_rebuild(self) -> None:
+        from horovod_tpu_torch import core
+        t = self._tuner
+        multi = core.is_initialized() and core.size() > 1
+        if getattr(t, "pending_sync", False):
+            # Proposals come from local timings: agree on rank 0's point.
+            if multi:
+                t.set_current_point(tuple(C.broadcast_object(
+                    t.current_point(), 0)))
+            else:
+                t.set_current_point(tuple(t.current_point()))
+        if t.converged:
+            best = int(t.current_threshold())
+            if multi:
+                # Each rank's argmin is over its local timings: every rank
+                # runs, and the tuner reports, rank 0's.
+                best = int(C.broadcast_object(best, 0))
+                t._best = best
+                if getattr(t, "_tune_alg", False):
+                    alg, chunks = C.broadcast_object(
+                        (t.current_algorithm(), t.current_chunks()), 0)
+                    t._best_algorithm, t._best_chunks = alg, int(chunks)
+                if getattr(t, "_tune_wire", False):
+                    t._best_wire = C.broadcast_object(t.current_wire(), 0)
+                if getattr(t, "_tune_topology", False):
+                    t._best_topology = C.broadcast_object(
+                        t.current_topology(), 0)
+            self._fn = self._build(best)
+            self._done = True
+        else:
+            self._fn = self._build(t.current_threshold())
+        self._skip_next = True
+
+    def __call__(self, *args, **kwargs):
+        if self._done:
+            return self._fn(*args, **kwargs)
+        if self._skip_next:
+            out = self._fn(*args, **kwargs)
+            _wait_for(out)
+            self._skip_next = False
+            return out
+        before = self._tuner.current_threshold()
+        t0 = time.perf_counter()
+        out = self._fn(*args, **kwargs)
+        _wait_for(out)
+        dt = time.perf_counter() - t0
+        self._tuner.record(dt)
+        _metrics.gauge("optimizer_step_seconds").set(dt)
+        _metrics.histogram("optimizer_step_latency_seconds").observe(dt)
+        if (getattr(self._tuner, "pending_sync", False)
+                or self._tuner.converged
+                or self._tuner.current_threshold() != before):
+            self._agree_and_rebuild()
+        return out

@@ -44,6 +44,11 @@ chunks of ``chunked_rs_ag`` do not overlap with each other there;
 for the all-gather legs would give. The reference's
 ``enable_latency_hiding`` sets XLA flags and has no counterpart here.
 
+**Backward taps** (:func:`make_grad_sync_tap`, :func:`tap_params`, used by
+``hvd.grad(overlap=True)``): an identity on a tree of tensors whose
+backward allreduces the tree's gradient as an in-step collective, the
+moment the backward produces it.
+
 Each lowering returns ``(works, finish)``: the work to wait for and the
 function that returns the reduced buffer after it. Dependent legs are
 chained with ``work.wait()``, which on NCCL makes the caller's device
@@ -72,6 +77,7 @@ __all__ = [
     "parse_algorithm", "compose_algorithm", "wire_bytes",
     "wire_bytes_by_phase", "chunked_rs_ag", "chunked_rs_ag_quantized",
     "chunked_rs_ag_2d", "chunked_rs_ag_2d_quantized", "swing",
+    "make_grad_sync_tap", "tap_params",
 ]
 
 log = logging.getLogger("horovod_tpu_torch")
@@ -487,3 +493,115 @@ def swing(x: torch.Tensor, group, ranks: Sequence[int], me: int
         krows, srows = idx[s]
         blocks[srows] = _swap(blocks.index_select(0, krows), peer, group)
     return [], lambda: blocks.reshape(total)[:m]
+
+
+# ---------------------------------------------------------------------------
+# backward taps: collectives inside the backward pass
+# ---------------------------------------------------------------------------
+
+class _GradSyncTap(torch.autograd.Function):
+    """Identity in the forward; the backward reduces the cotangents of all
+    its inputs as one in-step allreduce."""
+
+    @staticmethod
+    def forward(ctx, sync, *xs):
+        ctx.sync = sync
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None,) + tuple(ctx.sync(list(cts)))
+
+
+def make_grad_sync_tap(**allreduce_kwargs) -> Callable:
+    """An identity on a tree of tensors whose backward allreduces the
+    tree's gradient (``hvd.allreduce(**allreduce_kwargs)``: ``op``,
+    ``process_set``, ``prescale_factor``, ``postscale_factor``,
+    ``compression``, ``fusion_threshold_bytes``, ``algorithm``,
+    ``overlap_chunks``, ``wire``).
+
+    Apply it to a parameter (sub)tree before the forward uses it: the
+    forward is untouched, and in the backward the group's gradient is
+    reduced the moment it is produced, long before the first layers finish
+    theirs. The reduction is an in-step allreduce
+    (``collective._in_step_allreduce_async``), the reference's in-program
+    psum: it takes no negotiation round. The reference's tap is an
+    identity outside an SPMD context; the port's world of one process per
+    GPU is that context, so the tap reduces whenever ``hvd`` is
+    initialised."""
+    from horovod_tpu_torch import collective as C
+    from horovod_tpu_torch import core
+    from horovod_tpu_torch.checkpoint_sharded import (_flatten_with_keys,
+                                                      _unflatten_like)
+    from horovod_tpu_torch.compression import Compression
+    kw = dict(allreduce_kwargs)
+    op = kw.pop("op", C.Average)
+    ps = kw.pop("process_set", None)
+    pre = float(kw.pop("prescale_factor", 1.0))
+    post = float(kw.pop("postscale_factor", 1.0))
+    comp = kw.pop("compression", Compression.none)
+    threshold = kw.pop("fusion_threshold_bytes", None)
+    alg, chunks, wire = C._resolve_axis(kw.pop("algorithm", None),
+                                        kw.pop("overlap_chunks", None),
+                                        kw.pop("wire", None))
+    if kw:
+        raise TypeError(f"unexpected allreduce arguments {sorted(kw)}")
+    C._check_reduce(op, pre, post, comp)
+
+    def sync(cts):
+        if not core.is_initialized():
+            return cts
+        return C._in_step_allreduce_async(
+            cts, op, C._resolve_ps(ps), name="grad_sync_tap", prescale=pre,
+            postscale=post, compression=comp, threshold=threshold,
+            algorithm=alg, chunks=chunks, wire=wire).synchronize()
+
+    def tap(tree):
+        leaves = dict(_flatten_with_keys(tree))
+        keys = [k for k, x in leaves.items()
+                if isinstance(x, torch.Tensor) and x.is_floating_point()]
+        if not keys:
+            return tree
+        leaves.update(zip(keys, _GradSyncTap.apply(
+            sync, *[leaves[k] for k in keys])))
+        return _unflatten_like(tree, leaves)
+
+    return tap
+
+
+def tap_params(params, **allreduce_kwargs):
+    """Tap the floating leaves of ``params`` with gradient-sync identities
+    (:func:`make_grad_sync_tap`), one per bucket: the leaves in the tree's
+    own order (``named_parameters()``' registration order, so a bucket's
+    gradients are produced together), cut into buckets of at most
+    ``fusion_threshold_bytes`` (``HOROVOD_FUSION_THRESHOLD`` by default).
+    Each bucket's backward collective goes out as soon as its gradients
+    are complete, in reverse production order, with no end-of-backward
+    barrier. The reference taps each top-level group and leaves the
+    bucketing of its psums to XLA's combiner; a flat
+    ``dict(model.named_parameters())`` would otherwise cost one
+    collective per tensor. Used by ``hvd.grad(..., overlap=True)``."""
+    from horovod_tpu_torch.config import get_config
+    from horovod_tpu_torch.elastic.state import _tree_map
+    threshold = allreduce_kwargs.get("fusion_threshold_bytes")
+    if threshold is None:
+        threshold = get_config().fusion_threshold_bytes
+    tap = make_grad_sync_tap(**allreduce_kwargs)
+    leaves: List = []
+    _tree_map(leaves.append, params)
+    buckets, size = [[]], 0
+    for i, x in enumerate(leaves):
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            continue
+        nbytes = x.numel() * x.element_size()
+        if buckets[-1] and size + nbytes > threshold:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(i)
+        size += nbytes
+    for idx in buckets:
+        if idx:
+            for i, y in zip(idx, tap([leaves[i] for i in idx])):
+                leaves[i] = y
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), params)

@@ -3,7 +3,7 @@
 Port of ``parse_topology``, ``detect_topology`` and ``parse_mesh`` (the
 ``"dpXxmpY"`` grammar that sharded checkpoints record) of
 ``horovod_tpu/parallel/mesh.py``; the rest of that module (named meshes,
-dp x mp) is not ported yet (ROADMAP.md section A item 8).
+dp x mp) is not ported yet (ROADMAP.md section A item 8a-ii).
 
 The reference reads a TPU slice's torus dims from the devices'
 coordinates. A GPU job has two tiers instead: NVLink inside a host and the

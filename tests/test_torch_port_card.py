@@ -708,3 +708,51 @@ def test_elastic_two_ranks_over_nccl():
     print(out)
     assert out["spares_1"]["world_after"] == 2
     assert out["spares_0"]["world_after"] == 1
+
+
+def test_sharded_adamw_on_card_matches_cpu(cuda_card):
+    """ZeRO-1 on a one-rank NCCL world against the same three steps on a
+    one-rank gloo world on the CPU: fp32 and bf16 leaves, weight decay;
+    the rows within rtol 1e-6 (CUDA's ``pow`` and ``sqrt`` may round an
+    ulp apart from the CPU's), the step counter exactly."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optimizer_sharded import sharded_adamw
+    g = np.random.default_rng(3)
+    shapes = {"b": (7,), "a": (5, 3), "c": (2, 4)}
+    dtypes = {"b": torch.bfloat16, "a": torch.float32, "c": torch.float32}
+    p0 = {k: g.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+    gs = [{k: g.standard_normal(s).astype(np.float32)
+           for k, s in shapes.items()} for _ in range(3)]
+
+    def run(device):
+        def tree(d):
+            return {k: torch.tensor(v).to(dtypes[k]).to(device)
+                    for k, v in d.items()}
+        opt = sharded_adamw(1e-2, weight_decay=0.1)
+        p = tree(p0)
+        st = opt.init(p)
+        for grads in gs:
+            u, st = opt.update(tree(grads), st, p)
+            p = {k: p[k] + u[k] for k in p}
+        return ({k: v.float().cpu() for k, v in p.items()},
+                [t.cpu() for t in st])
+
+    hvd.init()
+    try:
+        assert hvd.backend() == "nccl"
+        card = run(hvd.device())
+    finally:
+        hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        cpu = run("cpu")
+    finally:
+        hvd.shutdown()
+    assert torch.equal(card[1][0], cpu[1][0])
+    for a, b in zip(card[1][1:], cpu[1][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    for k in shapes:
+        tol = (dict(rtol=2 ** -7, atol=1e-6) if dtypes[k] == torch.bfloat16
+               else dict(rtol=1e-6, atol=1e-7))
+        torch.testing.assert_close(card[0][k], cpu[0][k], **tol)

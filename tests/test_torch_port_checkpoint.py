@@ -452,3 +452,418 @@ def test_full_checkpoint_manager(tmp_path):
         "checkpoint_interval_seconds"] if g["labels"] == {"kind": "full"}]
     with pytest.raises(FileNotFoundError):
         pck.restore_checkpoint(str(tmp_path / "empty"))
+
+
+# ------------------------------------------------------------ ZeRO-1
+
+ZL = 17          # unpadded flat length: 4 shards of 5, 3 of them padding
+
+
+def _zero1_global(n=4, seed=4):
+    """A reference ZeRO-1 state over n shards: padding zero, as
+    ``sharded_adamw`` keeps it."""
+    from horovod_tpu.optimizer_sharded import ShardedAdamWState as JState
+    c = -(-ZL // n)
+    g = np.random.default_rng(seed)
+    mu = np.zeros(n * c, np.float32)
+    nu = np.zeros(n * c, np.float32)
+    mu[:ZL] = g.standard_normal(ZL)
+    nu[:ZL] = g.random(ZL)
+    return JState(step=jnp.full((n,), 9, jnp.int32), mu=jnp.asarray(mu),
+                  nu=jnp.asarray(nu))
+
+
+def _port_rows(jstate):
+    """Each rank's row of a reference global state, as the port holds it."""
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    n = int(jstate.step.shape[0])
+    glob = ShardedAdamWState(*(torch.from_numpy(np.array(x))
+                               for x in jstate))
+    return [pcs.unpack_opt_state(pcs.pack_opt_state(glob)[0], rank=r)
+            for r in range(n)]
+
+
+def _unpadded_bytes(mu):
+    return np.asarray(mu, np.float32).reshape(-1)[:ZL].tobytes()
+
+
+def _restored_rows(res, m):
+    packed = {k.split("['opt_state']")[1].strip("[]'"): v
+              for k, v in res.shards.items()}
+    return [pcs.unpack_opt_state(packed, rank=r) for r in range(m)]
+
+
+@pytest.mark.parametrize("m", [4, 2, 1])
+def test_reference_zero1_step_restores_in_the_port(tmp_path, m):
+    """Written by the reference at n 4, restored by the port at m: rank
+    r's row is the reference's own restore's row r, bit for bit, and the
+    unpadded moments are the saved ones."""
+    jstate = _zero1_global()
+    packed, unp, info = jcs.pack_opt_state(jstate, unpadded_len=ZL)
+    jm = jcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    jm.save(5, shards={"opt_state": packed},
+            unpadded={f"['opt_state']{k}": v for k, v in unp.items()},
+            meta={"sharded": {"opt_state": info}}, wait=True)
+    want = jcs.unpack_opt_state({
+        k.split("['opt_state']")[1].strip("[]'"): v
+        for k, v in jm.restore(num_shards=m).shards.items()})
+    jm.close()
+    rows = _restored_rows(
+        pcs.ShardedCheckpointManager(str(tmp_path / "c")).restore(
+            num_shards=m), m)
+    c = -(-ZL // m)
+    for r, row in enumerate(rows):
+        assert row.step.dtype == torch.int32 and row.step.tolist() == [9]
+        assert tuple(row.mu.shape) == (c,)
+        for f in ("mu", "nu"):
+            assert getattr(row, f).numpy().tobytes() == np.asarray(
+                getattr(want, f))[r * c:(r + 1) * c].tobytes()
+    got_mu = np.concatenate([row.mu.numpy() for row in rows])
+    assert _unpadded_bytes(got_mu) == _unpadded_bytes(jstate.mu)
+
+
+def _save_as_ranks(directory, rows, step=6):
+    """Four port ranks, simulated in one process, each saving its row."""
+    n = len(rows)
+    for r in list(range(1, n)) + [0]:
+        packed, unp, _ = pcs.pack_opt_state(rows[r], unpadded_len=ZL)
+        pm = pcs.ShardedCheckpointManager(directory)
+        real = pcs._world
+        pcs._world = lambda r=r: (n, r)
+        try:
+            pm.save(step, shards={"opt_state": packed},
+                    unpadded={f"['opt_state']{k}": v
+                              for k, v in unp.items()},
+                    num_shards=n, owned=[r], wait=True)
+        finally:
+            pcs._world = real
+        pm.close()
+
+
+def test_save_with_owned_takes_exactly_the_owned_shards(tmp_path):
+    """``save(owned=)``: each leaf holds the owned shards by position, one
+    rule whatever the world; whole shard-major leaves, or ``owned``
+    without ``num_shards``, are refused."""
+    pm = pcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    with pytest.raises(ValueError, match="owned shards"):
+        pm.save(1, shards={"v": torch.zeros(2, 3)}, num_shards=2,
+                owned=[1])
+    with pytest.raises(ValueError, match="needs num_shards"):
+        pm.save(1, shards={"v": torch.zeros(1, 3)}, owned=[0])
+    pm.save(2, shards={"v": torch.full((1, 3), 5.0)}, num_shards=1,
+            owned=[0], wait=True)
+    assert torch.equal(pm.restore(2).shards["['v']"],
+                       torch.full((1, 3), 5.0))
+    pm.close()
+
+
+@pytest.mark.parametrize("m", [4, 2, 1])
+def test_port_zero1_rows_restore_in_the_reference(tmp_path, m):
+    """Each of four port ranks writes the row it owns; the reference
+    restores the step at m, bit for bit on the unpadded moments."""
+    jstate = _zero1_global()
+    _save_as_ranks(str(tmp_path / "c"), _port_rows(jstate))
+    jm = jcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    man = jm.read_manifest(6)
+    assert man["num_shards"] == 4 and man["num_ranks"] == 4
+    assert man["leaves"]["['opt_state']['mu']"]["unpadded"] == ZL
+    got = jcs.unpack_opt_state({
+        k.split("['opt_state']")[1].strip("[]'"): v
+        for k, v in jm.restore(num_shards=m).shards.items()})
+    jm.close()
+    assert np.asarray(got.step).tolist() == [9] * m
+    for f in ("mu", "nu"):
+        assert _unpadded_bytes(getattr(got, f)) == \
+            _unpadded_bytes(getattr(jstate, f))
+        assert np.asarray(getattr(got, f)).shape == (m * -(-ZL // m),)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8])
+def test_reshard_opt_state_in_memory_as_the_reference(m):
+    jstate = _zero1_global()
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    glob = ShardedAdamWState(*(torch.from_numpy(np.array(x))
+                               for x in jstate))
+    got = pcs.reshard_opt_state(glob, m, unpadded_len=ZL)
+    want = jcs.reshard_opt_state(jstate, m, unpadded_len=ZL)
+    for f in ("step", "mu", "nu"):
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+
+
+def _tensor_state(row, params, epoch):
+    return pel.TensorState(params=params, opt_state=row, epoch=epoch)
+
+
+def test_tensor_state_with_zero1_saves_and_adopts_exactly(tmp_path):
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    row = _port_rows(_zero1_global(n=1))[0]
+    params = {"w": torch.randn(ZL, generator=torch.Generator()
+                               .manual_seed(2))}
+    st = _tensor_state(row, params, 3)
+    mgr = pcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    pcs.save_state(mgr, 7, st, wait=True)
+    man = mgr.read_manifest(7)
+    assert man["meta"]["sharded"] == {"opt_state": {"error_feedback": False}}
+    assert man["leaves"]["['opt_state']['mu']"]["unpadded"] == ZL
+    fresh = _tensor_state(
+        ShardedAdamWState(torch.zeros(1, dtype=torch.int32),
+                          torch.zeros(ZL), torch.zeros(ZL)),
+        {"w": torch.zeros(ZL)}, 0)
+    assert pcs.adopt_state(mgr, fresh) == 7
+    for f in ("step", "mu", "nu"):
+        _exact(getattr(fresh.opt_state, f), getattr(row, f))
+    _exact(fresh.params, params)
+    assert fresh.epoch == 3 and isinstance(fresh.opt_state,
+                                           ShardedAdamWState)
+    # The reference reads the port's shard files.
+    jm = jcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    res = jm.restore(7)
+    assert np.asarray(res.shards["['opt_state']['mu']"]).tobytes() == \
+        row.mu.numpy().tobytes()
+    jm.close()
+    mgr.close()
+
+
+def test_tensor_state_rows_of_two_ranks_adopt_on_one(tmp_path):
+    """2 -> 1: each of two ranks saves its committed row through
+    ``save_state``; one rank adopts the whole unpadded moments."""
+    rows = _port_rows(_zero1_global(n=2))
+    params = {"w": torch.arange(ZL, dtype=torch.float32)}
+    real = pcs._world
+    for r in (1, 0):
+        pcs._world = lambda r=r: (2, r)
+        try:
+            mgr = pcs.ShardedCheckpointManager(str(tmp_path / "c"))
+            pcs.save_state(mgr, 4, _tensor_state(rows[r], params, 1),
+                           wait=True)
+            mgr.close()
+        finally:
+            pcs._world = real
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    fresh = _tensor_state(
+        ShardedAdamWState(torch.zeros(1, dtype=torch.int32),
+                          torch.zeros(ZL), torch.zeros(ZL)),
+        {"w": torch.zeros(ZL)}, 0)
+    mgr = pcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    pcs.adopt_state(mgr, fresh)
+    mgr.close()
+    whole = torch.cat([rows[0].mu, rows[1].mu])[:ZL]
+    assert fresh.opt_state.mu.numpy().tobytes() == whole.numpy().tobytes()
+    assert fresh.opt_state.step.tolist() == [9]
+    _exact(fresh.params, params)
+
+
+def test_reference_state_with_error_feedback_adopts_without_it(tmp_path):
+    """A reference ``JaxState`` whose ZeRO-1 state is wrapped in
+    ``ErrorFeedbackState`` restores in the port as the plain state (the
+    port has no wrapper)."""
+    from horovod_tpu.elastic.state import JaxState
+    from horovod_tpu.optimizer import ErrorFeedbackState
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    jstate = _zero1_global(n=2)
+    w = np.random.default_rng(8).standard_normal(ZL).astype(np.float32)
+    js = JaxState(params={"w": jnp.asarray(w)},
+                  opt_state=ErrorFeedbackState(
+                      jstate, {"w": jnp.zeros(ZL, jnp.float32)}))
+    jm = jcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    jcs.save_state(jm, 2, js, wait=True)
+    jm.close()
+    fresh = _tensor_state(
+        ShardedAdamWState(torch.zeros(1, dtype=torch.int32),
+                          torch.zeros(ZL), torch.zeros(ZL)),
+        {"w": torch.zeros(ZL)}, 0)
+    mgr = pcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    pcs.adopt_state(mgr, fresh)
+    mgr.close()
+    assert isinstance(fresh.opt_state, ShardedAdamWState)
+    assert _unpadded_bytes(fresh.opt_state.mu) == _unpadded_bytes(jstate.mu)
+    assert fresh.params["w"].numpy().tobytes() == w.tobytes()
+
+
+def test_newer_commit_is_kept_and_resharded_as_the_reference(tmp_path):
+    """An in-memory commit newer than the manifest is kept; its ZeRO-1
+    state goes through the in-memory reshard (stripped to the unpadded
+    length the parameters give), as the reference's
+    ``_reshard_committed`` does."""
+    from horovod_tpu.elastic.state import JaxState
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    jstate = _zero1_global(n=1)
+    row = _port_rows(jstate)[0]
+    w = np.arange(ZL, dtype=np.float32)
+    st = _tensor_state(row, {"w": torch.from_numpy(w.copy())}, 1)
+    mgr = pcs.ShardedCheckpointManager(str(tmp_path / "c"))
+    pcs.save_state(mgr, 1, st, wait=True)
+    st.opt_state = ShardedAdamWState(row.step + 1, row.mu * 2, row.nu * 3)
+    st.commit()
+    assert pcs.adopt_state(mgr, st) == 1
+    mgr.close()
+    js = JaxState(params={"w": jnp.asarray(w)}, opt_state=jstate._replace(
+        step=jstate.step + 1, mu=jstate.mu * 2, nu=jstate.nu * 3))
+    jcs._reshard_committed(js, 1)
+    want = js._saved_pytrees["opt_state"]
+    for f in ("step", "mu", "nu"):
+        assert getattr(st.opt_state, f).numpy().tobytes() == \
+            np.asarray(getattr(want, f)).tobytes(), f
+
+
+_ELASTIC_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import checkpoint_sharded as pcs
+from horovod_tpu_torch import elastic as pel
+from horovod_tpu_torch.optimizer_sharded import (ShardedAdamWState,
+                                                 sharded_adamw)
+
+directory, out, mode = sys.argv[2], sys.argv[3], sys.argv[4]
+hvd.init(device="cpu")
+r, n = hvd.rank(), hvd.size()
+mgr = pcs.ShardedCheckpointManager(directory)
+opt = sharded_adamw(0.05, weight_decay=0.1)
+shapes = {"w": (4, 5), "b": (3,)}          # 23 elements: padded at n 2
+res = {}
+
+
+def grads(step):
+    g = np.random.default_rng((r, step))
+    return {k: torch.tensor(g.standard_normal(s), dtype=torch.float32)
+            for k, s in shapes.items()}
+
+
+def keep(tag, ts):
+    for f in ("step", "mu", "nu"):
+        res[f"{tag}:{f}"] = getattr(ts.opt_state, f).numpy().copy()
+    for k in shapes:
+        res[f"{tag}:p:{k}"] = ts.params[k].numpy().copy()
+    res[f"{tag}:epoch"] = np.array(ts.epoch)
+
+
+def reset(ts):
+    devs = {"d": ["a", "b"]}
+    seen = []
+
+    @pel.run
+    def train(state):
+        if devs["d"] == ["a", "b"]:
+            devs["d"] = ["a"]
+            # Post-failure damage that the adoption must undo.
+            state.opt_state = ShardedAdamWState(
+                state.opt_state.step * 0, state.opt_state.mu + 7,
+                state.opt_state.nu + 7)
+            raise pel.HostsUpdatedInterrupt("changed")
+        seen.append(True)
+
+    train(ts, checkpoint=mgr,
+          discovery=pel.DeviceDiscovery(probe=lambda: devs["d"]))
+    assert seen == [True]
+
+
+if mode == "first":
+    g = np.random.default_rng(3)
+    params = {k: torch.tensor(g.standard_normal(s), dtype=torch.float32)
+              for k, s in shapes.items()}
+    ts = pel.TensorState(params=params, opt_state=opt.init(params), epoch=0)
+    for s in range(3):
+        upd, row = opt.update(grads(s), ts.opt_state, ts.params)
+        ts.params = {k: ts.params[k] + upd[k] for k in shapes}
+        ts.opt_state, ts.epoch = row, s + 1
+        ts.commit()
+        if s == 1:
+            pcs.save_state(mgr, 2, ts, wait=True)
+            keep("saved", ts)
+    keep("newer", ts)
+    reset(ts)                     # every rank kept its newer commit
+    keep("in_memory", ts)
+    if r == 1:                    # as if rank 1 were a fresh process
+        ts.commit_count = 0
+    reset(ts)                     # so every rank adopts the manifest
+    keep("mixed", ts)
+else:                             # a relaunched world of fresh processes
+    zeros = {k: torch.zeros(s) for k, s in shapes.items()}
+    ts = pel.TensorState(params=zeros, opt_state=opt.init(zeros), epoch=0)
+    reset(ts)
+    keep("relaunch", ts)
+np.savez(f"{out}.rank{r}.npz", **res)
+mgr.close()
+hvd.shutdown()
+"""
+
+
+def _ranks(tmp_path, np_, mode):
+    import subprocess
+    import sys
+    script = tmp_path / "elastic_worker.py"
+    script.write_text(_ELASTIC_WORKER)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+         str(np_), "--timeout", "240", str(script), repo,
+         str(tmp_path / "c"), str(tmp_path / f"{mode}{np_}"), mode],
+        cwd=repo, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc):
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, out[-2000:] + err[-4000:]
+
+
+def test_zero1_rows_adopt_on_every_rank_through_elastic_run(tmp_path):
+    """Two gloo ranks train ``sharded_adamw`` in an elastic
+    ``TensorState``, save their rows at step 2 and commit step 3. Through
+    ``hvd.elastic.run(checkpoint=...)``: a reset that lost no process keeps
+    each rank's newer row; a reset where one rank's commit is older than
+    the manifest's (a fresh process) adopts the manifest on both ranks; a
+    relaunched world of two fresh processes, and one of one (2 -> 1),
+    adopts each rank's row of the manifest. Every row is compared exactly
+    with the saved one, the parameters and the epoch too."""
+    _finish(_ranks(tmp_path, 2, "first"))
+    again = [_ranks(tmp_path, 2, "relaunch"), _ranks(tmp_path, 1,
+                                                     "relaunch")]
+    for p in again:
+        _finish(p)
+    first = [np.load(tmp_path / f"first2.rank{r}.npz") for r in (0, 1)]
+
+    def same(a, tag_a, b, tag_b, fields=("step", "mu", "nu", "p:w", "p:b",
+                                         "epoch")):
+        for f in fields:
+            x, y = a[f"{tag_a}:{f}"], b[f"{tag_b}:{f}"]
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), \
+                (tag_a, tag_b, f)
+
+    for r in (0, 1):
+        assert first[r]["saved:mu"].shape == (12,)
+        assert first[r]["newer:step"].tolist() == [3]
+        same(first[r], "in_memory", first[r], "newer")
+        same(first[r], "mixed", first[r], "saved")
+        same(np.load(tmp_path / f"relaunch2.rank{r}.npz"), "relaunch",
+             first[r], "saved")
+    one = np.load(tmp_path / "relaunch1.rank0.npz")
+    for f in ("mu", "nu"):
+        whole = np.concatenate([first[r][f"saved:{f}"] for r in (0, 1)])
+        assert one[f"relaunch:{f}"].tobytes() == whole[:23].tobytes()
+    same(one, "relaunch", first[0], "saved", ("step", "p:w", "p:b",
+                                              "epoch"))
+
+
+def test_sync_refuses_rows_of_another_world():
+    """A committed row of rank 1 of two cannot be restored by the one rank
+    of a world of one: ``sync()`` raises instead of training on it."""
+    from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+    row = ShardedAdamWState(torch.ones(1, dtype=torch.int32),
+                            torch.ones(ZL), torch.ones(ZL))
+    st = _tensor_state(row, {"w": torch.zeros(ZL)}, 1)
+    st.sync()                       # committed in this world: kept
+    st._commit_world = (2, 1)
+    with pytest.raises(RuntimeError, match="cannot be resharded"):
+        st.sync()
+    assert not pcs._reshard_committed(st)
+
+
+def test_pack_opt_state_refuses_other_states():
+    with pytest.raises(TypeError, match="ShardedAdamWState"):
+        pcs.pack_opt_state({"mu": torch.zeros(3)})
