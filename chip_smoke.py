@@ -181,19 +181,43 @@ Phases, in order; any failure exits nonzero and prints no result:
    ceil(L/2) moments a rank, a two-rank save restored on one bit for bit);
    with one card a line says it did not run. Without phase 3 it runs phase
    3's path itself first.
+12. FSDP / ZeRO-3, ZeRO-2 and ``FsdpState``, on a new one-rank NCCL world,
+   phase 3's GPT-2 medium, weights, batch and AdamW settings (lr 1e-4,
+   weight decay 1e-4, eps 1e-8), 5 steps each: (a) the 24 blocks as
+   ``stack_layer_shards`` rows on the card through ``fsdp_scan_blocks``
+   (``module_block_fn`` over meta-device blocks) with ``fsdp_adamw``, the
+   rest replicated under ``sharded_adamw``: losses within
+   ``ZERO1_LOSS_BAND`` of phase 3's and their gap to phase 11 (b)'s
+   printed, K1 48 and K2, K3 24 launches a step, 48 in-step all-gathers
+   and 24 reduce-scatters a step and no negotiation round, ms a step,
+   peak memory and the rows' bytes; (b) ``gather_shard`` at one block's
+   width on the bf16 and int8 wires inside the quantizer's bound (half a
+   block scale; bf16 half an ulp), then (a) with ``zero3_apply`` on each
+   wire: losses finite and falling, their gap to (a); (c) ZeRO-2
+   (``zero2_grad_shard`` of the local gradients, ``zero2_update``) over
+   the whole model: losses within the band, the gap to phase 11 (b), the
+   moments' bytes, 24 launches a step; (d) an ``FsdpState`` (and a
+   ``TensorState`` of the replicated part) committed after step 2: after
+   two more steps ``restore()`` gives the rows, mu, nu and step back bit
+   for bit and the two steps repeat their losses exactly; ``save`` then
+   ``load`` into a fresh state gives the canonical arrays; (e) with two
+   cards ``tools/torch_zero_bench.py --stage 3`` at 2 (and 4) ranks, and
+   ``--mesh dp2xmp2`` with four; with one card a line says it did not
+   run. Without phase 3 it runs phase 3's path itself first.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
-(a) and under the reset of (b), phase 9's, phase 10 (c)'s and phase 11's
-paths, each counted from 0 just before the path and read just after) and
+(a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's
+and phase 12's paths, each counted from 0 just before the path and read just after) and
 their sum,
 and its numbers at each new path's shape (phases 5, 9 and 10 (a)). The
 last line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops
 after the kernel checks; ``--phases 1,9`` runs phase 9 alone (its remat
 losses then compare with its own run without remat); ``--phases 1,10``
-runs phase 10 alone; ``--phases 1,11`` phase 11 alone.
+runs phase 10 alone; ``--phases 1,11`` phase 11 alone; ``--phases 1,12``
+phase 12 alone.
 """
 
 from __future__ import annotations
@@ -3374,18 +3398,22 @@ def _functional_gpt2(dev):
     return model, dict(model.named_parameters()), f, batch
 
 
-def _phase11_steps(tag, steps, step_fn, layers, pre=None):
-    """Runs ``step_fn(i) -> loss`` for ``steps`` steps, each timed on the
-    wall clock behind ``torch.cuda.synchronize()`` (``pre(i)`` runs
-    untimed before step i); every kernel must launch ``layers`` times a
-    step, counted from 0 just before the run."""
+def _phase11_steps(tag, steps, step_fn, layers, pre=None, phase=11,
+                   first=0):
+    """Runs ``step_fn(i) -> loss`` for ``steps`` steps (i from ``first``),
+    each timed on the wall clock behind ``torch.cuda.synchronize()``
+    (``pre(i)`` runs untimed before step i); every kernel must launch
+    ``layers`` times a step (a number, or a count per kernel), counted
+    from 0 just before the run."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
+    want = layers if isinstance(layers, dict) else {k: layers
+                                                     for k in fa.KERNELS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     losses, wall = [], []
-    for i in range(steps):
+    for i in range(first, first + steps):
         if pre is not None:
             pre(i)
         before = dict(fa.launches)
@@ -3396,13 +3424,13 @@ def _phase11_steps(tag, steps, step_fn, layers, pre=None):
         wall.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss.item()))
         grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
-        log(f"phase 11 {tag} step {i}: loss {losses[-1]:.6f}  "
+        log(f"phase {phase} {tag} step {i}: loss {losses[-1]:.6f}  "
             f"{wall[-1]:.1f} ms  launches {grew}")
-        if grew != {k: layers for k in fa.KERNELS}:
-            fail(f"phase 11 {tag}: the kernels must launch {layers} times a "
+        if grew != want:
+            fail(f"phase {phase} {tag}: the kernels must launch {want} a "
                  f"step, got {grew}")
     if not all(math.isfinite(v) for v in losses):
-        fail(f"phase 11 {tag}: non-finite loss: {losses}")
+        fail(f"phase {phase} {tag}: non-finite loss: {losses}")
     return {"losses": losses, "wall_ms": wall,
             "step_ms_median": statistics.median(wall[1:] or wall),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -3763,12 +3791,376 @@ def phase_functional_step(card, main_path):
                launches=launches)
     return out
 
+# ---------------------------------------------------------------- phase 12
+
+
+
+def _fsdp_launches(layers):
+    """Launches a step of each kernel on the FSDP paths: the block runs
+    twice a step (the backward gathers again and recomputes it, as remat
+    "full")."""
+    return {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+
+# (d) commits after this many steps, runs two more, restores, reruns them.
+FSDP_COMMIT_STEP = 3
+
+
+def _fsdp_gpt2(dev, wire=None, process_set=None, build=None):
+    """Phase 3's GPT-2 medium (or ``build(dev)``'s model) with its blocks
+    stored as this rank's ``stack_layer_shards`` rows on the card and the
+    rest (``wte``, ``wpe``, ``ln_f``) replicated. Returns ``(rows, rest,
+    template, loss)``: ``loss(rows, rest, tokens)`` runs the model as
+    ``GPT2.forward`` does, the blocks through ``fsdp_scan_blocks`` (or
+    ``zero3_apply`` on ``wire``, one a layer) over meta-device modules
+    whose parameters ``functional_call`` supplies."""
+    import torch
+    from torch.func import functional_call
+    from horovod_tpu_torch.models.gpt2 import Block, LayerNorm, loss_fn
+    from horovod_tpu_torch.parallel import fsdp, mp
+    model = (build or _gpt2_medium)(dev)
+    cfg = model.cfg
+    blocks = [dict(b.named_parameters()) for b in model.h]
+    with torch.no_grad():
+        stacked = {k: torch.stack([b[k] for b in blocks])
+                   for k in sorted(blocks[0])}
+        rows = fsdp.stack_layer_shards(stacked, process_set=process_set)
+        del stacked
+    rest = {k: p.detach().clone() for k, p in model.named_parameters()
+            if not k.startswith("h.")}
+    template = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in blocks[0].items()}
+    del model, blocks
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    with torch.device("meta"):
+        block, ln_f = Block(cfg), LayerNorm(cfg.d_model, cfg.ln_eps)
+    block_fn = fsdp.module_block_fn(block)
+
+    def loss(rows, rest, tokens):
+        t = tokens.shape[1]
+        x = (rest["wte"][tokens].to(cfg.dtype)
+             + rest["wpe"][torch.arange(t, device=tokens.device)]
+             .to(cfg.dtype))
+        if wire is None:
+            x = fsdp.fsdp_scan_blocks(block_fn, template, rows, x,
+                                      process_set)
+        else:
+            for row in rows.unbind(0):
+                x = mp.zero3_apply(block_fn, template, row, x, process_set,
+                                   wire)
+        x = functional_call(ln_f, {"weight": rest["ln_f.weight"],
+                                   "bias": rest["ln_f.bias"]}, (x,))
+        logits = torch.einsum("btd,vd->btv", x.float(), rest["wte"].float())
+        return loss_fn(logits, tokens)
+    return rows, rest, template, loss
+
+
+def _fsdp_trainer(dev, wire=None, process_set=None, build=None):
+    """(state, step): ``step(i, tokens)`` takes one AdamW step (lr 1e-4,
+    weight decay 1e-4, eps 1e-8) of :func:`_fsdp_gpt2`'s model: the rows
+    through ``fsdp_adamw`` (their gradient is already the data-parallel
+    mean), the replicated rest through ``sharded_adamw``. ``state`` holds
+    the rows, the rest and both optimizer states."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import fsdp
+    rows, rest, template, loss = _fsdp_gpt2(dev, wire, process_set, build)
+    kw = dict(weight_decay=1e-4, eps=1e-8)
+    fopt = fsdp.fsdp_adamw(1e-4, **kw)
+    zopt = hvd.sharded_adamw(1e-4, process_set=process_set, **kw)
+    st = {"rows": rows, "rest": rest, "f": fopt.init(rows),
+          "z": zopt.init(rest), "template": template,
+          "layers": rows.shape[0]}
+
+    def step(tokens):
+        rows_ = st["rows"].requires_grad_()
+        rest_ = {k: v.requires_grad_() for k, v in st["rest"].items()}
+        value = loss(rows_, rest_, tokens)
+        g_rows, *g_rest = torch.autograd.grad(
+            value, [rows_] + list(rest_.values()))
+        with torch.no_grad():
+            upd, st["f"] = fopt.update(g_rows, st["f"], rows_)
+            rows_.add_(upd)
+            del upd, g_rows
+            upd, st["z"] = zopt.update(dict(zip(rest_, g_rest)), st["z"],
+                                       rest_)
+            for k, v in rest_.items():
+                v.add_(upd[k])
+        return value.detach()
+    return st, step
+
+
+def _gap(losses, want):
+    return max(abs(a - b) for a, b in zip(losses, want))
+
+
+def phase_fsdp(card, main_path, zero1, remat_full=None):
+    """Phase 12 on a new one-rank NCCL world: FSDP / ZeRO-3, ZeRO-3 on the
+    bf16 and int8 wires, ZeRO-2 and ``FsdpState`` on phase 3's GPT-2
+    medium, and (e) ``tools/torch_zero_bench.py --stage 3`` on more
+    cards."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.elastic import FsdpState, TensorState
+    from horovod_tpu_torch.ops.quantized import quantize_blocks
+    from horovod_tpu_torch.parallel import mp
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    if main_path is None:
+        main_path = phase_train_path("gpt2_medium", card, dev)
+    want = main_path["losses"]
+    steps = len(want)
+    _, _, _, batch = _functional_gpt2(dev)
+    out, launches = {}, {}
+
+    def traced(snap, kind):
+        return _counter(snap, "collective_traced_total", kind=kind)
+
+    # (a) FSDP / ZeRO-3: the blocks as rows, gathered a layer at a time.
+    st, step = _fsdp_trainer(dev)
+    layers = st["layers"]
+    fsdp_launches = _fsdp_launches(layers)
+    rows_bytes = st["rows"].numel() * st["rows"].element_size()
+    snap0, r0 = metrics.snapshot(), sum(hvd.negotiation_stats().values())
+    a = _phase11_steps("(a) FSDP", steps, lambda i: step(batch(i)),
+                       fsdp_launches, phase=12)
+    snap1, r1 = metrics.snapshot(), sum(hvd.negotiation_stats().values())
+    colls = {k: traced(snap1, k) - traced(snap0, k)
+             for k in ("allgather", "reducescatter")}
+    if colls != {"allgather": 2 * layers * steps,
+                 "reducescatter": layers * steps} or r1 != r0:
+        fail(f"phase 12 (a): in-step collectives {colls} and {r1 - r0} "
+             f"negotiation rounds over {steps} steps; want {2 * layers} "
+             f"all-gathers and {layers} reduce-scatters a step and no "
+             f"round")
+    a["max_loss_diff"] = _gap(a["losses"], want)
+    if a["max_loss_diff"] > ZERO1_LOSS_BAND:
+        fail(f"phase 12 (a): FSDP losses {a['losses']} leave the band "
+             f"{ZERO1_LOSS_BAND} around phase 3's {want}")
+    a.update(rows_bytes=rows_bytes, rows_shape=list(st["rows"].shape),
+             collectives_a_step={k: v // steps for k, v in colls.items()},
+             gap_to_zero1=None if zero1 is None else _gap(
+                 a["losses"], zero1["losses"]))
+    log(f"phase 12 (a): FSDP: losses within {a['max_loss_diff']:.3e} of "
+        f"phase 3's (band {ZERO1_LOSS_BAND}), "
+        + ("phase 11 (b) not run" if zero1 is None else
+           f"largest gap to phase 11 (b)'s ZeRO-1 losses "
+           f"{a['gap_to_zero1']:.3e}")
+        + f"; rows {tuple(st['rows'].shape)} fp32 = "
+        f"{rows_bytes / 2 ** 30:.3f} GiB; {a['step_ms_median']:.1f} ms a "
+        f"step, peak {a['peak_gib']:.2f} GiB"
+        + ("" if zero1 is None else
+           f" (phase 11 (b): {zero1['step_ms_median']:.1f} ms, "
+           f"{zero1['peak_gib']:.2f} GiB)")
+        + ("" if remat_full is None else
+           f" (phase 9 full remat: {remat_full['step_ms_median']:.1f} ms, "
+           f"{remat_full['peak_gib']:.2f} GiB)")
+        + f"; in-step collectives a step {a['collectives_a_step']}, no "
+        f"negotiation round")
+    launches["gpt2_medium_fsdp"] = a.pop("launches")
+
+    # (b) the gathers on reduced wires, then (a) on each.
+    row = st["rows"][0].detach()
+    exact = mp.gather_shard(row)
+    _, scale = quantize_blocks(row, "int8")
+    # int8: half a block scale, plus the fp32 roundings of x / scale and
+    # of code * scale; bf16: half an ulp, 2^-8 of the value.
+    bound = {"int8": 0.5 * scale.repeat_interleave(256)[:row.numel()]
+             + 2 ** -21 * row.abs(),
+             "bf16": 2 ** -8 * row.abs()}
+    b = {"gather": {}}
+    for wire in ("bf16", "int8"):
+        err = (mp.gather_shard(row, wire=wire) - exact).abs()
+        share = float((err / bound[wire].clamp_min(1e-30)).max())
+        b["gather"][wire] = {"max_abs_err": float(err.max()),
+                             "share_of_bound": share}
+        if not share <= 1.0:
+            fail(f"phase 12 (b): gather_shard(wire={wire!r}) at one block "
+                 f"({row.numel()} elements) leaves the quantizer's bound: "
+                 f"{share:.3f} of it")
+    log(f"phase 12 (b): gather_shard at one block ({row.numel()} "
+        f"elements): " + ", ".join(
+            f"{w} max error {v['max_abs_err']:.3e}, "
+            f"{v['share_of_bound']:.3f} of its bound"
+            for w, v in b["gather"].items()))
+    del st, step, row, exact, scale, bound
+    torch.cuda.empty_cache()
+    for wire in ("bf16", "int8"):
+        st, step = _fsdp_trainer(dev, wire=wire)
+        run = _phase11_steps(f"(b) ZeRO-3 wire {wire}", steps,
+                             lambda i: step(batch(i)), fsdp_launches,
+                             phase=12)
+        losses = run["losses"]
+        if not losses[-1] < losses[0]:
+            fail(f"phase 12 (b): wire {wire} losses do not fall: {losses}")
+        run["gap_to_fsdp"] = _gap(losses, a["losses"])
+        log(f"phase 12 (b): ZeRO-3 on the {wire} wire: losses {losses}, "
+            f"largest gap to (a) {run['gap_to_fsdp']:.3e}; "
+            f"{run['step_ms_median']:.1f} ms a step, peak "
+            f"{run['peak_gib']:.2f} GiB")
+        launches[f"gpt2_medium_zero3_{wire}"] = run.pop("launches")
+        b[wire] = run
+        del st, step
+        torch.cuda.empty_cache()
+
+    # (c) ZeRO-2 over the whole model.
+    model, params, f, _ = _functional_gpt2(dev)
+    names = list(params)
+    zst = {"s": hvd.sharded_adamw(1e-4).init(params)}
+
+    def step_c(i):
+        value = f(params, batch(i))
+        grads = torch.autograd.grad(value, [params[k] for k in names])
+        g_shard = mp.zero2_grad_shard(dict(zip(names, grads)))
+        del grads
+        new, zst["s"] = mp.zero2_update(
+            params, g_shard, zst["s"], learning_rate=1e-4,
+            weight_decay=1e-4, eps=1e-8)
+        with torch.no_grad():
+            for k in names:
+                params[k].copy_(new[k])
+        return value.detach()
+
+    c = _phase11_steps("(c) ZeRO-2", steps, step_c, model.cfg.num_layers,
+                       phase=12)
+    c["max_loss_diff"] = _gap(c["losses"], want)
+    if c["max_loss_diff"] > ZERO1_LOSS_BAND:
+        fail(f"phase 12 (c): ZeRO-2 losses {c['losses']} leave the band "
+             f"{ZERO1_LOSS_BAND} around phase 3's {want}")
+    mu = zst["s"].mu
+    c.update(moment_bytes=2 * mu.numel() * mu.element_size(),
+             gap_to_zero1=None if zero1 is None else _gap(
+                 c["losses"], zero1["losses"]))
+    log(f"phase 12 (c): ZeRO-2: losses within {c['max_loss_diff']:.3e} of "
+        f"phase 3's, " + ("phase 11 (b) not run" if zero1 is None else
+                          f"largest gap to phase 11 (b) "
+                          f"{c['gap_to_zero1']:.3e}")
+        + f"; moments {c['moment_bytes'] / 2 ** 30:.3f} GiB; "
+        f"{c['step_ms_median']:.1f} ms a step, peak {c['peak_gib']:.2f} GiB")
+    launches["gpt2_medium_zero2"] = c.pop("launches")
+    del model, params, f, zst
+    torch.cuda.empty_cache()
+
+    # (d) FsdpState: commit, two steps, restore, the same two steps.
+    st, step = _fsdp_trainer(dev)
+    keep = {}
+
+    def pre(i):
+        if i == FSDP_COMMIT_STEP and "fs" not in keep:
+            keep["fs"] = FsdpState(st["template"], shard=st["rows"],
+                                   opt_state=st["f"], step=i)
+            keep["ts"] = TensorState(rest=st["rest"], opt=st["z"])
+
+    d = _phase11_steps("(d) FsdpState", FSDP_COMMIT_STEP + 2,
+                       lambda i: step(batch(i)), fsdp_launches, pre=pre,
+                       phase=12)
+    fs, ts = keep["fs"], keep["ts"]
+    t0 = time.perf_counter()
+    fs.restore()
+    ts.restore()
+    restore_s = time.perf_counter() - t0
+    saved = fs._saved
+    for name, got in (("shard", fs.shard), ("mu", fs.opt_state.mu),
+                      ("nu", fs.opt_state.nu)):
+        if got.device != dev or not torch.equal(
+                got.cpu(), torch.from_numpy(saved[name])):
+            fail(f"phase 12 (d): the restored {name} is not the commit "
+                 f"bit for bit")
+    if fs.opt_state.step.tolist() != [FSDP_COMMIT_STEP] or \
+            fs.step != FSDP_COMMIT_STEP:
+        fail(f"phase 12 (d): restored step {fs.opt_state.step.tolist()}")
+    st.update(rows=fs.shard, f=fs.opt_state, rest=ts.rest, z=ts.opt)
+    again = _phase11_steps("(d) after restore", 2, lambda i: step(batch(i)),
+                           fsdp_launches, phase=12, first=FSDP_COMMIT_STEP)
+    if again["losses"] != d["losses"][FSDP_COMMIT_STEP:]:
+        fail(f"phase 12 (d): the steps after restore() gave "
+             f"{again['losses']}, not {d['losses'][FSDP_COMMIT_STEP:]}")
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_phase12_"),
+                        "fsdp.ckpt")
+    t0 = time.perf_counter()
+    fs.save(path)
+    save_s = time.perf_counter() - t0
+    fresh = FsdpState(st["template"], step=-1)
+    t0 = time.perf_counter()
+    fresh.load(path)
+    load_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    os.remove(path)
+    os.rmdir(os.path.dirname(path))
+    if any(not np.array_equal(fresh._saved[k], saved[k])
+           for k in ("shard", "mu", "nu")) or \
+            fresh._saved["step"] != saved["step"] or fresh.step != \
+            FSDP_COMMIT_STEP:
+        fail("phase 12 (d): save then load did not give the canonical "
+             "arrays back")
+    d.update(repeated=again["losses"], restore_s=restore_s, save_s=save_s,
+             load_s=load_s, file_bytes=size)
+    log(f"phase 12 (d): FsdpState committed after step "
+        f"{FSDP_COMMIT_STEP - 1}: rows, mu, nu and step restored bit for "
+        f"bit in {restore_s:.2f} s, steps {FSDP_COMMIT_STEP}-"
+        f"{FSDP_COMMIT_STEP + 1} repeat {again['losses']} exactly; save "
+        f"{save_s:.2f} s, load {load_s:.2f} s, {size / 2 ** 30:.2f} GiB, "
+        f"the canonical arrays equal")
+    launches["gpt2_medium_fsdp_state"] = {
+        k: d["launches"][k] + again["launches"][k] for k in d["launches"]}
+    d.pop("launches")
+    del st, step, keep, fs, ts, fresh
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    torch.cuda.synchronize()
+
+    e = None
+    if torch.cuda.device_count() >= 2:
+        e = {}
+        for n in (2, 4):
+            if torch.cuda.device_count() < n:
+                continue
+            proc = subprocess.run(
+                [sys.executable, "tools/torch_zero_bench.py", "--np", str(n),
+                 "--stage", "3", "--band", str(ZERO1_LOSS_BAND)],
+                capture_output=True, text=True, timeout=1200)
+            if proc.returncode != 0:
+                fail(f"phase 12 (e): tools/torch_zero_bench.py --np {n} "
+                     f"--stage 3 failed:\n{proc.stdout[-2000:]}"
+                     f"{proc.stderr[-3000:]}")
+            e[n] = json.loads(proc.stdout.strip().splitlines()[-1])
+            log(f"phase 12 (e): {n} ranks, stage 3: losses within "
+                f"{e[n]['max_loss_diff']:.3e} of one rank's, checks "
+                f"{e[n]['checks']}")
+        if torch.cuda.device_count() >= 4:
+            proc = subprocess.run(
+                [sys.executable, "tools/torch_zero_bench.py", "--np", "4",
+                 "--mesh", "dp2xmp2"], capture_output=True, text=True,
+                timeout=900)
+            if proc.returncode != 0:
+                fail(f"phase 12 (e): tools/torch_zero_bench.py --mesh "
+                     f"dp2xmp2 failed:\n{proc.stdout[-2000:]}"
+                     f"{proc.stderr[-3000:]}")
+            e["dp2xmp2"] = json.loads(proc.stdout.strip().splitlines()[-1])
+            log(f"phase 12 (e): dp2xmp2 FSDP x tp MLP: checks "
+                f"{e['dp2xmp2']['checks']}")
+    else:
+        log("phase 12 (e): tools/torch_zero_bench.py --stage 3 did not run "
+            f"for want of a second card (cards: {torch.cuda.device_count()})")
+    out.update(fsdp=a, wires=b, zero2=c, fsdp_state=d, more_cards=e,
+               launches=launches, zero1_loss_band=ZERO1_LOSS_BAND)
+    return out
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11; 6, 7 and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12; 6, 7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -3823,10 +4215,18 @@ def main(argv=None) -> int:
         launches.update(lc.pop("launches"))
         shapes.update(lc.pop("kernels"))
         print(json.dumps({"phase10": lc}), flush=True)
+    zero1 = None
     if 11 in phases:
         fs = phase_functional_step(card, main_path if 3 in phases else None)
         launches.update(fs.pop("launches"))
+        zero1 = fs["zero1"]
         print(json.dumps({"phase11": fs}), flush=True)
+    if 12 in phases:
+        z = phase_fsdp(card, main_path if 3 in phases else None, zero1,
+                       remat_full=None if 9 not in phases else
+                       zoo["trained"]["gpt2_medium_remat_full"])
+        launches.update(z.pop("launches"))
+        print(json.dumps({"phase12": z}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

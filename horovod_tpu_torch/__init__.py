@@ -35,9 +35,14 @@ tuner (``HOROVOD_AUTOTUNE``, ``autotune.py``). The functional step:
 ``torch.func.functional_call``; ``overlap=True`` reduces each group inside
 the backward), ``DistributedGradientTape``, ``AutotunedStep``, per-rank
 data sharding (``data``: ``DistributedSampler``, ``ShardedBatchIterator``)
-and ZeRO-1 (``sharded_adamw``, ``optimizer_sharded.py``). Fault tolerance:
-``elastic`` (``TorchState``, ``TensorState``, ``@elastic.run``, discovery,
-hot spares), ``checkpoint_sharded`` (async two-phase sharded checkpoints in
+and ZeRO-1 (``sharded_adamw``, ``optimizer_sharded.py``). Model-parallel
+layouts (``parallel``): the named dp x mp mesh (``HOROVOD_MESH``,
+``mesh2d``, ``dp_size`` / ``mp_size`` / ``dp_rank`` / ``mp_rank``),
+``PartitionRules``, FSDP / ZeRO-3 (blocks stored as flat shards and
+gathered just in time), ZeRO-2 and Megatron's conjugate operators.
+Fault tolerance: ``elastic`` (``TorchState``, ``TensorState``,
+``FsdpState``, ``@elastic.run``, discovery, hot spares),
+``checkpoint_sharded`` (async two-phase sharded checkpoints in
 the reference's on-disk format), ``checkpoint`` (full state), ``faults``
 (``HOROVOD_FAULT_PLAN``) and ``runner.run_elastic``. The
 flash-attention kernels are CUDA C++ for Hopper (``ops/csrc``), built with
@@ -59,9 +64,9 @@ from horovod_tpu_torch.autotune import (
     AutotuneResult, Autotuner, BayesianAutotuner, autotune_fusion_threshold)
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import (
-    backend, build_info, cross_rank, cross_size, device, init,
-    is_initialized, local_rank, local_size, rank, shutdown, size, topology,
-    topology_str)
+    backend, build_info, cross_rank, cross_size, device, dp_rank, dp_size,
+    init, is_initialized, local_rank, local_size, mesh2d, mesh_spec,
+    mp_rank, mp_size, rank, shutdown, size, topology, topology_str)
 from horovod_tpu_torch import metrics
 from horovod_tpu_torch.metrics import (
     get_stall_watchdog, reset_metrics, start_metrics_flusher,
@@ -88,6 +93,9 @@ from horovod_tpu_torch import elastic  # noqa: E402,F401
 from horovod_tpu_torch import faults  # noqa: E402,F401
 from horovod_tpu_torch.checkpoint_sharded import (  # noqa: E402,F401
     ShardedCheckpointManager, TornCheckpointError)
+# Model-parallel layouts on the named dp x mp mesh (hvd.parallel): meshes,
+# partition rules, FSDP / ZeRO-3, ZeRO-2 and the conjugate operators.
+from horovod_tpu_torch import parallel  # noqa: E402,F401
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
@@ -115,5 +123,6 @@ __all__ = [
     "ShardedCheckpointManager", "TornCheckpointError", "AutotunedStep",
     "DistributedGradientTape", "accumulation_has_updated",
     "broadcast_variables", "grad", "value_and_grad", "ShardedAdamWState",
-    "sharded_adamw",
+    "sharded_adamw", "parallel", "mesh2d", "mesh_spec", "dp_size",
+    "mp_size", "dp_rank", "mp_rank",
 ]

@@ -156,6 +156,30 @@ def _flatten_with_keys(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def _build_like(node, prefix: str, flat_dict: Dict[str, torch.Tensor]):
+    """:func:`_unflatten_like`'s recursion. A module-level function: a
+    recursive closure would sit in a reference cycle with ``flat_dict``
+    and keep its tensors alive until the garbage collector runs."""
+    kids = _children(node)
+    if node is None:
+        return None
+    if kids is None:
+        a = flat_dict[prefix]
+        dtype = getattr(node, "dtype", None)
+        if isinstance(dtype, torch.dtype) and a.dtype != dtype:
+            a = a.to(dtype)
+        return a
+    if isinstance(node, dict):
+        out = type(node)() if isinstance(node, OrderedDict) else {}
+        for k, v in (node.items() if isinstance(node, OrderedDict)
+                     else ((k, node[k]) for k in sorted(node))):
+            out[k] = _build_like(v, prefix + f"[{k!r}]", flat_dict)
+        return out
+    items = [_build_like(v, prefix + f"[{i}]", flat_dict)
+             for i, v in enumerate(node)]
+    return tuple(items) if isinstance(node, tuple) else items
+
+
 def _unflatten_like(template, flat_dict: Dict[str, torch.Tensor]):
     """Rebuild ``template``'s structure from ``{keystr: tensor}``, each
     leaf cast to the template leaf's dtype (keys must match exactly)."""
@@ -166,27 +190,7 @@ def _unflatten_like(template, flat_dict: Dict[str, torch.Tensor]):
         raise KeyError(
             f"checkpoint does not match the template: missing leaves "
             f"{missing}, unexpected leaves {extra}")
-
-    def build(node, prefix):
-        kids = _children(node)
-        if node is None:
-            return None
-        if kids is None:
-            a = flat_dict[prefix]
-            dtype = getattr(node, "dtype", None)
-            if isinstance(dtype, torch.dtype) and a.dtype != dtype:
-                a = a.to(dtype)
-            return a
-        if isinstance(node, dict):
-            out = type(node)() if isinstance(node, OrderedDict) else {}
-            for k, v in (node.items() if isinstance(node, OrderedDict)
-                         else ((k, node[k]) for k in sorted(node))):
-                out[k] = build(v, prefix + f"[{k!r}]")
-            return out
-        items = [build(v, prefix + f"[{i}]") for i, v in enumerate(node)]
-        return tuple(items) if isinstance(node, tuple) else items
-
-    return build(template, "")
+    return _build_like(template, "", flat_dict)
 
 
 # ---------------------------------------------------------------------------

@@ -1036,16 +1036,22 @@ def _in_step_allreduce(tensor: torch.Tensor, op: int, ps: ProcessSet,
 
 
 def _in_step_reducescatter(x: torch.Tensor, ps: ProcessSet,
-                           name: Optional[str] = None) -> torch.Tensor:
+                           name: Optional[str] = None,
+                           trace_one: bool = False) -> torch.Tensor:
     """This rank's chunk of the Sum of a 1-D buffer whose length is a
     multiple of the set's size, inside a training step: the reference's
     in-program ``psum_scatter(tiled=True)``, with no round (see
-    :func:`_in_step_allreduce_async`)."""
+    :func:`_in_step_allreduce_async`). Over one rank it returns ``x``;
+    ``trace_one`` still runs it under the controller there (span,
+    timeline phases, ``collective_traced_total``), with nothing to
+    exchange."""
     k = ps.size()
-    if k == 1:
+    if k == 1 and not trace_one:
         return x
 
     def launch(_, joined):
+        if k == 1:
+            return _ready(x)
         out = x.new_empty(x.numel() // k)
         work = _overlap._RS_SINGLE(out, x, group=ps.group, async_op=True)
         return Handle([work], lambda: out)
@@ -1055,15 +1061,18 @@ def _in_step_reducescatter(x: torch.Tensor, ps: ProcessSet,
 
 
 def _in_step_allgather(x: torch.Tensor, ps: ProcessSet,
-                       name: Optional[str] = None) -> torch.Tensor:
+                       name: Optional[str] = None,
+                       trace_one: bool = False) -> torch.Tensor:
     """Every member's 1-D ``x``, concatenated in set order, inside a
     training step: the reference's in-program ``all_gather(tiled=True)``,
-    with no round."""
+    with no round. ``trace_one`` as in :func:`_in_step_reducescatter`."""
     k = ps.size()
-    if k == 1:
+    if k == 1 and not trace_one:
         return x
 
     def launch(_, joined):
+        if k == 1:
+            return _ready(x)
         out = x.new_empty(x.numel() * k)
         work = _quantized.ALL_GATHER_SINGLE(out, x.contiguous(),
                                             group=ps.group, async_op=True)

@@ -34,7 +34,11 @@ not at the first collective.
   empty, ``none`` and ``off`` mean ``fp32``); ``HOROVOD_OVERLAP_CHUNKS`` --
   the pipeline depth of the ``chunked_*`` lowerings (default 4, at least
   1); ``HOROVOD_TOPOLOGY`` -- the torus dims the ``_2d`` lowerings run on
-  (``"2x2"``; their product must equal the world, checked at ``init``).
+  (``"2x2"``; their product must equal the world, checked at ``init``);
+  ``HOROVOD_MESH`` -- the dp x mp factoring of the world (``"dp2xmp2"``;
+  grammar checked here, stored in its canonical form; ``init`` checks
+  that it factors the world and nests with the topology; unset: dp =
+  world, mp = 1).
   The reference's ``HOROVOD_XLA_LATENCY_HIDING`` sets XLA compiler flags
   and has no counterpart here.
 * ``HOROVOD_AUTOTUNE`` -- the online tuner of ``DistributedOptimizer``
@@ -108,6 +112,7 @@ class Config:
     allreduce_wire: str = "fp32"
     overlap_chunks: int = 4
     topology: Optional[str] = None
+    mesh: Optional[str] = None
     autotune: bool = False
     autotune_log: Optional[str] = None
     autotune_mode: str = "ladder"
@@ -147,6 +152,15 @@ def _env_topology() -> Optional[str]:
     from horovod_tpu_torch.parallel.mesh import parse_topology
     dims = parse_topology(v)   # grammar check: a typo'd spec fails here
     return "x".join(str(d) for d in dims)
+
+
+def _env_mesh() -> Optional[str]:
+    v = os.environ.get("HOROVOD_MESH", "").strip().lower()
+    if not v:
+        return None
+    from horovod_tpu_torch.parallel.mesh import format_mesh, parse_mesh
+    dp, mp = parse_mesh(v)   # grammar check: a typo'd spec fails here
+    return format_mesh(dp, mp)
 
 
 def _env_chunks() -> int:
@@ -221,6 +235,7 @@ def _read() -> Config:
         allreduce_wire=_env_wire(),
         overlap_chunks=_env_chunks(),
         topology=_env_topology(),
+        mesh=_env_mesh(),
         autotune=_env_bool("HOROVOD_AUTOTUNE"),
         autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG") or None,
         autotune_mode=(os.environ.get("HOROVOD_AUTOTUNE_MODE", "ladder")

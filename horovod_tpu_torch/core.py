@@ -29,10 +29,20 @@ the torus along each dim, on every rank in one order: the phases of the
 ``_2d`` allreduce lowerings (``overlap.py``). It also sets the reference's
 ``config_allreduce_algorithm``, ``config_allreduce_wire``,
 ``config_overlap_chunks`` and ``config_topology`` gauges.
+
+``HOROVOD_MESH`` (``"dpXxmpY"``) factors the world into the named 2-D
+``("dp", "mp")`` mesh (``parallel/mesh.py``): ``init`` checks it against
+the world and the detected topology before it forms the group (a spec
+that does not factor the world fails at ``init``), then builds
+:func:`mesh2d` over the world, whose dp and mp process sets each rank
+takes with ``mesh2d().process_set("dp")``, and sets the reference's
+``config_mesh_dp`` / ``config_mesh_mp`` gauges. Unset, the mesh is dp =
+world, mp = 1. Each ``init`` rebuilds it for its world.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import threading
@@ -48,7 +58,8 @@ from horovod_tpu_torch import config as _config
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
            "local_rank", "local_size", "cross_rank", "cross_size", "device",
            "backend", "build_info", "init_epoch", "topology",
-           "topology_str"]
+           "topology_str", "mesh2d", "mesh_spec", "dp_size", "mp_size",
+           "dp_rank", "mp_rank"]
 
 _LOCK = threading.Lock()
 
@@ -67,6 +78,8 @@ class _Context:
     # This rank's line along each dim above 1: (group, extent), the
     # phases of the _2d lowerings; empty on a ring.
     phases: tuple = ()
+    mesh_dims: tuple = (1, 1)   # (dp, mp)
+    mesh2d: object = None       # parallel.mesh.Mesh over the world
 
 
 _CTX: Optional[_Context] = None
@@ -130,6 +143,15 @@ def init(device: Union[str, torch.device, None] = None) -> None:
                 raise RuntimeError(f"already initialized on {_CTX.device}; "
                                    f"call shutdown() before init on {dev}")
             return
+        from horovod_tpu_torch.parallel import mesh as _mesh
+        if cfg.mesh:
+            # dp x mp factoring, checked against the world and its
+            # topology before any group forms: a spec that does not factor
+            # the world fails here, not at the first collective.
+            _mesh.validate_mesh(*_mesh.parse_mesh(cfg.mesh), cfg.world_size,
+                                _mesh.detect_topology(
+                                    cfg.world_size, cfg.local_size,
+                                    cfg.topology))
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         owns = False
@@ -155,20 +177,25 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         # process set's group.
         control = (dist.new_group(backend="gloo") if backend == "nccl"
                    else dist.group.WORLD)
-        from horovod_tpu_torch.parallel.mesh import detect_topology
         world = dist.get_world_size()
-        topo = detect_topology(world, cfg.local_size, cfg.topology)
+        topo = _mesh.detect_topology(world, cfg.local_size, cfg.topology)
+        dims = (_mesh.validate_mesh(*_mesh.parse_mesh(cfg.mesh), world, topo)
+                if cfg.mesh else (world, 1))
         _CTX = _Context(device=dev, backend=backend, rank=dist.get_rank(),
                         size=world, local_rank=cfg.local_rank,
                         local_size=cfg.local_size, owns_group=owns,
                         control=control, topology=topo,
-                        phases=_make_phases(topo, dist.get_rank()))
+                        phases=_make_phases(topo, dist.get_rank()),
+                        mesh_dims=dims)
         from horovod_tpu_torch import collective as _coll
         from horovod_tpu_torch import metrics as _metrics
         from horovod_tpu_torch import process_set as _ps
         from horovod_tpu_torch import timeline as _tl
         _coll._reset_negotiation()
         _ps._reset_for_init()
+        # The mesh's process sets, on every rank in one order.
+        _CTX = dataclasses.replace(_CTX, mesh2d=_mesh.make_mesh2d(
+            *dims, devices=list(range(world))))
         _INIT_EPOCH += 1
         if cfg.timeline_path and _tl.get_timeline() is None:
             _tl.start_timeline(cfg.timeline_path)
@@ -223,6 +250,9 @@ def _set_config_gauges(cfg, topo: tuple) -> None:
     for i in range(max(len(topo), 4)):
         _metrics.gauge("config_topology", dim=str(i)).set(
             topo[i] if i < len(topo) else 0)
+    dp, mp = _CTX.mesh_dims
+    _metrics.gauge("config_mesh_dp").set(dp)
+    _metrics.gauge("config_mesh_mp").set(mp)
 
 
 def shutdown() -> None:
@@ -320,6 +350,40 @@ def torus_phases() -> tuple:
     """This rank's (group, extent) along each dim of the topology above 1
     (the ``_2d`` lowerings' phases); empty on a ring."""
     return _ctx().phases
+
+
+def mesh2d():
+    """The named 2-D ``("dp", "mp")`` mesh over the world
+    (``HOROVOD_MESH``; dp = world x mp = 1 when unset)."""
+    return _ctx().mesh2d
+
+
+def mesh_spec() -> str:
+    """The active dp x mp factoring as a ``"dpXxmpY"`` spec string."""
+    from horovod_tpu_torch.parallel.mesh import format_mesh
+    return format_mesh(*_ctx().mesh_dims)
+
+
+def dp_size() -> int:
+    """Data-parallel degree of the mesh (the world when unset)."""
+    return _ctx().mesh_dims[0]
+
+
+def mp_size() -> int:
+    """Model-parallel degree of the mesh (1 when unset)."""
+    return _ctx().mesh_dims[1]
+
+
+def dp_rank() -> int:
+    """This rank's dp coordinate: ``rank // mp``."""
+    c = _ctx()
+    return c.rank // c.mesh_dims[1]
+
+
+def mp_rank() -> int:
+    """This rank's mp coordinate: ``rank % mp``."""
+    c = _ctx()
+    return c.rank % c.mesh_dims[1]
 
 
 def init_epoch() -> int:

@@ -15,7 +15,7 @@ adopts the last published sharded checkpoint.
 import os as _os
 
 from horovod_tpu_torch.elastic.state import (  # noqa: F401
-    State, TensorState, TorchState,
+    FsdpState, State, TensorState, TorchState,
 )
 
 

@@ -14,9 +14,11 @@ the error-feedback residuals of the quantized wire, as the reference's
 A ``TensorState`` may commit a ZeRO-1 ``ShardedAdamWState`` (each rank's
 row, with the world it was committed in: ``checkpoint_sharded.save_state``
 writes it, ``adopt_state`` adopts it on every rank, and ``sync()`` keeps
-it, refusing a row of another world). The reference's ``FsdpState`` waits for ``parallel/fsdp.py`` and its
-``TensorFlowKerasState`` for the frontends (``ROADMAP.md`` §A items 8a-ii
-and 11).
+it, refusing a row of another world). ``FsdpState`` is the state of
+FSDP / ZeRO-3 training (``parallel/fsdp.py``): its commit is the
+layout-free canonical form, gathered over the ranks, so it restores at
+any world size. The reference's ``TensorFlowKerasState`` waits for the
+frontends (``ROADMAP.md`` §A item 11).
 """
 
 from __future__ import annotations
@@ -25,11 +27,12 @@ import copy
 import logging
 import os
 import pickle
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["State", "TensorState", "TorchState"]
+__all__ = ["State", "TensorState", "TorchState", "FsdpState"]
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -424,3 +427,203 @@ class TorchState(_AttrState):
             self._saved["optimizer"] = _zero_error_feedback(
                 self._saved["optimizer"])
         self.restore()
+
+
+class FsdpState(State):
+    """Elastic state of FSDP / ZeRO-3 training (``parallel/fsdp.py``), the
+    reference's ``FsdpState``.
+
+    The training state is in the shard domain: this rank's ``(c,)`` row
+    of the padded fp32 parameter vector (or ``(layers, c)`` rows of
+    ``stack_layer_shards``) in ``shard``, and a ``ShardedAdamWState``
+    whose ``mu`` / ``nu`` share that layout and whose ``step`` is this
+    rank's (1,) counter in ``opt_state``. ``c = ceil(L / n)`` depends on
+    the world size, so a commit cannot be replayed row by row in another
+    world.
+
+    ``commit()`` therefore gathers the rows over the world (every rank
+    calls it at the same point: it is collective) and keeps the canonical
+    form on the host: padding stripped to ``flat_size(template)``, the
+    step counters collapsed to one int. Every rank holds it, so after a
+    rank is lost the survivors restore for the smaller world from memory.
+    ``restore(num_shards=None)`` pads it again for ``num_shards`` (default:
+    the current world) and gives this rank its row, on the device the
+    rows were committed from (else ``hvd.device()``). ``sync()``
+    broadcasts rank 0's commit (joiners have none), then restores. The
+    AdamW arithmetic is elementwise over the flat domain, so a resumed
+    run equals one that never changed its world.
+
+    ``template`` fixes the unpadded length: the full parameter tree for a
+    ``(c,)`` row, or ONE layer's tree for ``(layers, c)`` rows; a full
+    template with per-layer rows raises at ``commit``. Plain attributes
+    (epoch, step, ...) are tracked as in ``TensorState``. ``save`` /
+    ``load`` write the reference's pickle (``saved`` with ``shard``,
+    ``mu``, ``nu`` as NumPy arrays and ``step``; ``attrs``, ``flat_len``,
+    ``commit_count``), so a file written by either package loads in the
+    other; ``load`` refuses another model by its flat length.
+    """
+
+    def __init__(self, template: Any, shard=None, opt_state=None,
+                 **kwargs: Any):
+        from horovod_tpu_torch.parallel.fsdp import flat_size
+        object.__setattr__(self, "_flat_len", flat_size(template))
+        object.__setattr__(self, "_attrs", dict(kwargs))
+        object.__setattr__(self, "_saved", {})
+        object.__setattr__(self, "_saved_attrs", {})
+        object.__setattr__(self, "_warn", set())
+        object.__setattr__(self, "_device", None)
+        self.shard = shard
+        self.opt_state = opt_state
+        self.commit_count = 0
+        self.commit()
+
+    def __getattr__(self, name):
+        attrs = object.__getattribute__(self, "_attrs")
+        if name in attrs:
+            return attrs[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if (name.startswith("_")
+                or name in ("shard", "opt_state", "commit_count")):
+            object.__setattr__(self, name, value)
+        elif "_attrs" in self.__dict__:
+            self._attrs[name] = value
+        else:
+            object.__setattr__(self, name, value)
+
+    # -- canonical form ---------------------------------------------------
+    @staticmethod
+    def _gathered(row: torch.Tensor) -> torch.Tensor:
+        """Every rank's row side by side: ``(c,) -> (n*c,)``, ``(layers,
+        c) -> (layers, n*c)`` (an eager allgather over the world)."""
+        if _world() == 1:
+            return row.detach()
+        from horovod_tpu_torch.collective import allgather
+        row = row.detach()
+        if row.dim() == 2:
+            return allgather(row.t().contiguous(), name="fsdp_state").t()
+        return allgather(row.contiguous(), name="fsdp_state")
+
+    def _strip(self, arr) -> np.ndarray:
+        """Host copy with the world-size-dependent padding removed:
+        ``(n*c,) -> (L,)`` or ``(layers, n*c) -> (layers, L)``."""
+        a = arr.detach().to("cpu", torch.float32).numpy() \
+            if isinstance(arr, torch.Tensor) else np.asarray(arr, np.float32)
+        if a.ndim > 2:
+            raise ValueError(
+                f"FSDP shard arrays are (n*c,) or (layers, n*c); got "
+                f"shape {a.shape}")
+        if a.shape[-1] < self._flat_len:
+            raise ValueError(
+                f"shard width {a.shape[-1]} < template flat length "
+                f"{self._flat_len}; for stacked per-layer rows the "
+                "template must be ONE layer's pytree")
+        return a[..., :self._flat_len].copy()
+
+    @staticmethod
+    def _pad(a: np.ndarray, n: int) -> np.ndarray:
+        length = a.shape[-1]
+        c = -(-length // n)
+        pad = [(0, 0)] * (a.ndim - 1) + [(0, n * c - length)]
+        return np.pad(a, pad)
+
+    def commit(self) -> None:
+        """Collective when it holds rows: gathers them over the world."""
+        snap: Dict[str, Any] = {}
+        if self.shard is not None:
+            snap["shard"] = self._strip(self._gathered(self.shard))
+            self._device = self.shard.device
+        if self.opt_state is not None:
+            snap["mu"] = self._strip(self._gathered(self.opt_state.mu))
+            snap["nu"] = self._strip(self._gathered(self.opt_state.nu))
+            # per-rank counters advance in lockstep -> one scalar
+            snap["step"] = int(self._gathered(
+                self.opt_state.step.reshape(-1)).max())
+            self._device = self.opt_state.mu.device
+        self._saved = snap
+        self._saved_attrs, failed = _copy_attrs(self._attrs, self._warn)
+        self._no_rollback = set(failed)
+        self.commit_count += 1
+
+    def _row(self, a: np.ndarray, n: int, r: int, dev) -> torch.Tensor:
+        padded = self._pad(a, n)
+        c = padded.shape[-1] // n
+        return torch.from_numpy(np.ascontiguousarray(
+            padded[..., r * c:(r + 1) * c])).to(dev)
+
+    def restore(self, num_shards: Optional[int] = None) -> None:
+        """Rebuild ``shard`` / ``opt_state`` as this rank's rows of the
+        commit padded for ``num_shards`` (default: the current world)."""
+        from horovod_tpu_torch import core
+        from horovod_tpu_torch.optimizer_sharded import ShardedAdamWState
+        n = num_shards or _world()
+        r = _rank()
+        if r >= n:
+            raise ValueError(f"rank {r} has no row among {n} shards")
+        dev = self._device or (core.device() if core.is_initialized()
+                               else torch.device("cpu"))
+        if "shard" in self._saved:
+            self.shard = self._row(self._saved["shard"], n, r, dev)
+        if "mu" in self._saved:
+            self.opt_state = ShardedAdamWState(
+                step=torch.full((1,), self._saved["step"],
+                                dtype=torch.int32, device=dev),
+                mu=self._row(self._saved["mu"], n, r, dev),
+                nu=self._row(self._saved["nu"], n, r, dev))
+        attrs, failed = _copy_attrs(self._saved_attrs, self._warn)
+        self._attrs = attrs
+        _warn_no_rollback(getattr(self, "_no_rollback", set())
+                          | set(failed))
+
+    def sync(self, num_shards: Optional[int] = None) -> None:
+        """After re-init in the new world: broadcast the canonical commit
+        from rank 0 (joiners have none), then restore for the new world.
+        The arrays travel as tensor broadcasts on this rank's device (they
+        are the size of the model), the rest as one object."""
+        if _world() > 1:
+            from horovod_tpu_torch import core
+            from horovod_tpu_torch.collective import (broadcast,
+                                                      broadcast_object)
+            meta = broadcast_object(
+                {k: ("array", v.shape) if isinstance(v, np.ndarray)
+                 else ("value", v) for k, v in self._saved.items()}, 0)
+            saved = {}
+            for k, (kind, v) in meta.items():
+                if kind == "value":
+                    saved[k] = v
+                    continue
+                buf = (torch.from_numpy(self._saved[k]).to(core.device())
+                       if _rank() == 0 else
+                       torch.empty(v, dtype=torch.float32,
+                                   device=core.device()))
+                saved[k] = broadcast(buf, 0, name=f"fsdp_state/{k}").cpu() \
+                    .numpy()
+            self._saved = saved
+            self._saved_attrs = _sync_attrs(self._saved_attrs, self._warn)
+        self.restore(num_shards)
+
+    def save(self, path: str) -> None:
+        """Persist the canonical commit (atomic write), in the reference's
+        pickle layout."""
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump({"saved": self._saved,
+                         "attrs": _picklable_attrs(self._saved_attrs,
+                                                   self._warn),
+                         "flat_len": self._flat_len,
+                         "commit_count": self.commit_count}, f)
+        os.replace(tmp, path)
+
+    def load(self, path: str, num_shards: Optional[int] = None) -> None:
+        """Load a saved commit and restore it for ``num_shards``."""
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        if blob["flat_len"] != self._flat_len:
+            raise ValueError(
+                f"checkpoint flat length {blob['flat_len']} != this "
+                f"template's {self._flat_len} — different model")
+        self._saved = blob["saved"]
+        self._saved_attrs = blob["attrs"]
+        self.commit_count = blob["commit_count"]
+        self.restore(num_shards)

@@ -21,8 +21,9 @@ pretraining" configuration) with the reference's numerics, in the layers of
 
 ``models/convert.py`` carries the reference's parameters over
 (``bert_params_from_jax``). ``remat=True`` checkpoints each layer
-(``utils/remat.py``). Sequence parallelism is not ported yet and raises
-when asked for.
+(``utils/remat.py``). ``use_ring_attention=True`` shards the sequence over
+the global process set (``ops/attention.sp_attention``). The
+tensor-parallel partition rules wait for item 8b of ``ROADMAP.md``.
 """
 
 from __future__ import annotations

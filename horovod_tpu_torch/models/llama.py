@@ -22,8 +22,10 @@ the layers of ``gpt2.py``:
 (``llama_params_from_jax``). ``num_experts > 0`` swaps every SwiGLU for a
 Mixtral-style layer: bias-free SwiGLU experts behind a top-2 router
 (``ops/moe.py``), trained with :func:`loss_fn_moe`. ``remat=True``
-checkpoints each block (``utils/remat.py``). Tensor-parallel partition
-rules and sequence parallelism are not ported yet; the latter raises.
+checkpoints each block (``utils/remat.py``). ``use_ring_attention=True``
+shards the sequence over the global process set
+(``ops/attention.sp_attention``). The tensor-parallel partition rules
+(``partition_rules()``) wait for item 8b of ``ROADMAP.md``.
 """
 
 from __future__ import annotations

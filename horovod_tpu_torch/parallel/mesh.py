@@ -1,9 +1,23 @@
-"""Topology of the world, for the ``_2d`` allreduce lowerings.
+"""Named meshes over the world's ranks, and the topology of the world.
 
-Port of ``parse_topology``, ``detect_topology`` and ``parse_mesh`` (the
-``"dpXxmpY"`` grammar that sharded checkpoints record) of
-``horovod_tpu/parallel/mesh.py``; the rest of that module (named meshes,
-dp x mp) is not ported yet (ROADMAP.md section A item 8a-ii).
+Port of ``horovod_tpu/parallel/mesh.py``: ``make_mesh``, ``make_mesh2d``,
+``parse_mesh`` / ``format_mesh`` / ``validate_mesh`` (the ``"dpXxmpY"``
+grammar of ``HOROVOD_MESH``), ``torus_groups``, ``parse_topology`` and
+``detect_topology``, with the reference's arithmetic and errors.
+
+A reference ``Mesh`` is an array of devices with named axes, and its
+collectives name an axis inside ``shard_map``. Here one process drives one
+device, so a :class:`Mesh` is an array of **global ranks** laid out as the
+reference lays out its devices (row-major over the given order), and an
+axis is reached through :meth:`Mesh.process_set`: this rank's line along
+the axis (every other coordinate fixed). ``make_mesh`` registers one
+process set for each line of each axis, on every rank in the same order
+(``add_process_set`` is collective over the world); a line of one rank
+gets a one-rank set whose group that rank makes alone, and a line that
+spans the whole world is the global set. The reference's TPU-only
+``allow_split_physical_axes`` path (``mesh_utils.create_device_mesh``, a
+device order that follows the physical torus) has no counterpart: ranks
+are laid out in the given order.
 
 The reference reads a TPU slice's torus dims from the devices'
 coordinates. A GPU job has two tiers instead: NVLink inside a host and the
@@ -20,10 +34,184 @@ network between hosts. :func:`detect_topology` resolves, in order:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["parse_topology", "detect_topology", "parse_mesh"]
+import numpy as np
 
+__all__ = ["Mesh", "make_mesh", "parse_topology", "detect_topology",
+           "torus_groups", "parse_mesh", "format_mesh", "validate_mesh",
+           "make_mesh2d"]
+
+
+class Mesh:
+    """Global ranks with named axes (the reference's ``jax.sharding.Mesh``
+    over one device a process).
+
+    ``axis_names``: the axes, outermost first; ``shape``: name -> size;
+    ``devices``: the ranks as an int array of that shape;
+    :meth:`process_set` gives this rank's line along an axis."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...],
+                 sets: Optional[Dict[str, object]] = None):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, devices.shape))
+        self._sets = dict(sets or {})
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """``rank``'s coordinate along each axis."""
+        where = np.argwhere(self.devices == rank)
+        if not len(where):
+            raise ValueError(f"rank {rank} is not in the mesh "
+                             f"{self.devices.tolist()}")
+        return dict(zip(self.axis_names, (int(i) for i in where[0])))
+
+    def process_set(self, axis: str):
+        """This rank's line along ``axis``: the process set its
+        collectives over that axis run on."""
+        if axis not in self.shape:
+            raise ValueError(f"mesh has no axis {axis!r}; axes "
+                             f"{self.axis_names}")
+        if axis not in self._sets:
+            raise ValueError(f"this rank is not in the mesh "
+                             f"{self.devices.tolist()}")
+        return self._sets[axis]
+
+    def __repr__(self) -> str:
+        shape = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"Mesh({shape}, ranks={self.devices.tolist()})"
+
+
+def _sizes(axes: Dict[str, int], count: int) -> List[int]:
+    """The reference's arithmetic: one inferred ``-1`` axis at most, and
+    the product must equal the device count."""
+    names = tuple(axes.keys())
+    sizes = list(axes.values())
+    if sizes.count(-1) > 1:
+        raise ValueError("at most one axis may be -1")
+    known = int(np.prod([s for s in sizes if s != -1]))
+    if -1 in sizes:
+        if count % known:
+            raise ValueError(
+                f"cannot infer axis: {count} devices not divisible by {known}")
+        sizes[sizes.index(-1)] = count // known
+    total = int(np.prod(sizes))
+    if total != count:
+        raise ValueError(
+            f"mesh {dict(zip(names, sizes))} needs {total} devices, "
+            f"have {count}")
+    return sizes
+
+
+def _line_set(line: Sequence[int], world: int, rank: int):
+    """The process set of one line: the global set for the whole world; a
+    one-rank set, not registered, for a single rank (its group made by
+    that rank alone); else a registered set (every rank calls this, in
+    one order)."""
+    import torch.distributed as dist
+    from horovod_tpu_torch import process_set as _ps
+    line = sorted(int(r) for r in line)
+    if len(line) == world:
+        return _ps.global_process_set()
+    if len(line) == 1:
+        if line[0] != rank:
+            return None
+        return _ps.ProcessSet(line, dist.new_group(
+            line, use_local_synchronization=True), -1)
+    return _ps.add_process_set(line)
+
+
+def make_mesh(axes: Dict[str, int],
+              devices: Optional[Sequence[int]] = None) -> Mesh:
+    """Build a named mesh, e.g. ``make_mesh({"dp": 4, "tp": 2})``, over
+    ``devices`` (global ranks; default every rank in order).
+
+    An axis size of ``-1`` is inferred from the rank count (at most one).
+    Rank ``devices[i]`` sits at the i-th coordinate in row-major order.
+    Collective over the world once it is initialized: every rank makes
+    the same call (it registers the lines' process sets)."""
+    from horovod_tpu_torch import core
+    devs = list(range(core.size()) if devices is None else devices)
+    names = tuple(axes.keys())
+    sizes = _sizes(axes, len(devs))
+    arr = np.asarray([int(d) for d in devs], dtype=np.int64).reshape(
+        tuple(sizes))
+    world, rank = core.size(), core.rank()
+    if arr.size and int(arr.max()) >= world:
+        raise ValueError(f"mesh ranks {sorted(devs)} are outside the world "
+                         f"of {world}")
+    sets = {}
+    for j, name in enumerate(names):
+        lines = np.moveaxis(arr, j, -1).reshape(-1, sizes[j])
+        for line in lines:
+            ps = _line_set(line, world, rank)
+            if rank in line.tolist():
+                sets[name] = ps
+    return Mesh(arr, names, sets)
+
+
+# ---------------------------------------------------------------------------
+# dp x mp mesh specs (the HOROVOD_MESH axis)
+# ---------------------------------------------------------------------------
+
+def parse_mesh(spec: str) -> Tuple[int, int]:
+    """Parse a ``HOROVOD_MESH`` spec like ``"dp2xmp4"`` into ``(dp, mp)``
+    (data-parallel degree first, model-parallel last)."""
+    m = re.fullmatch(r"dp(\d+)xmp(\d+)", str(spec).strip().lower())
+    if not m:
+        raise ValueError(
+            f"invalid HOROVOD_MESH {spec!r}; expected 'dpXxmpY' like "
+            f"'dp2xmp4' (data-parallel degree X, model-parallel degree Y)")
+    dp, mp = int(m.group(1)), int(m.group(2))
+    if dp < 1 or mp < 1:
+        raise ValueError(
+            f"invalid HOROVOD_MESH {spec!r}: both degrees must be >= 1")
+    return dp, mp
+
+
+def format_mesh(dp: int, mp: int) -> str:
+    """``(dp, mp)`` -> the canonical ``"dpXxmpY"`` spec string."""
+    return f"dp{int(dp)}xmp{int(mp)}"
+
+
+def validate_mesh(dp: int, mp: int, world: int,
+                  topology: Optional[Sequence[int]] = None
+                  ) -> Tuple[int, int]:
+    """Check a dp x mp request against the world size and the detected
+    topology. ``dp * mp`` must equal ``world`` exactly, and when the
+    topology has two or more dims the mp degree must nest with the
+    innermost one (here the GPUs of a host): fill whole inner lines
+    (``mp % inner == 0``) or subdivide one (``inner % mp == 0``)."""
+    if dp * mp != world:
+        raise ValueError(
+            f"HOROVOD_MESH {format_mesh(dp, mp)} needs {dp * mp} devices "
+            f"but the world has {world}; the mesh must factor the world "
+            f"exactly")
+    dims = tuple(int(d) for d in (topology or ()))
+    if mp > 1 and len(dims) > 1:
+        inner = dims[-1]
+        if mp % inner != 0 and inner % mp != 0:
+            raise ValueError(
+                f"HOROVOD_MESH {format_mesh(dp, mp)}: mp={mp} does not "
+                f"nest with the detected topology {'x'.join(map(str, dims))} "
+                f"(innermost dim {inner}); pick mp dividing {inner} or a "
+                f"multiple of it so tp collectives stay on ICI")
+    return dp, mp
+
+
+def make_mesh2d(dp: int, mp: int,
+                devices: Optional[Sequence[int]] = None) -> Mesh:
+    """The 2-D ``("dp", "mp")`` mesh of a validated dp x mp spec: global
+    rank ``r`` sits at ``(dp=r // mp, mp=r % mp)``, so each mp set is a
+    contiguous run of ranks (``[(r // mp) * mp, ..., (r // mp) * mp + mp -
+    1]``) and each dp set is ``{r % mp + k * mp}``."""
+    return make_mesh({"dp": int(dp), "mp": int(mp)}, devices)
+
+
+# ---------------------------------------------------------------------------
+# topology of the world (the `algorithm=` topology axis)
+# ---------------------------------------------------------------------------
 
 def parse_topology(spec: str) -> Tuple[int, ...]:
     """Parse a ``HOROVOD_TOPOLOGY`` spec like ``"2x2"`` or ``"4x8x2"``
@@ -38,22 +226,6 @@ def parse_topology(spec: str) -> Tuple[int, ...]:
             f"invalid HOROVOD_TOPOLOGY {spec!r}; expected positive torus "
             f"dims like '2x2' or '4x8'")
     return dims
-
-
-def parse_mesh(spec: str) -> Tuple[int, int]:
-    """Parse a ``HOROVOD_MESH`` spec like ``"dp2xmp4"`` into ``(dp, mp)``
-    (data-parallel degree first, model-parallel last)."""
-    import re
-    m = re.fullmatch(r"dp(\d+)xmp(\d+)", str(spec).strip().lower())
-    if not m:
-        raise ValueError(
-            f"invalid HOROVOD_MESH {spec!r}; expected 'dpXxmpY' like "
-            f"'dp2xmp4' (data-parallel degree X, model-parallel degree Y)")
-    dp, mp = int(m.group(1)), int(m.group(2))
-    if dp < 1 or mp < 1:
-        raise ValueError(
-            f"invalid HOROVOD_MESH {spec!r}: both degrees must be >= 1")
-    return dp, mp
 
 
 def detect_topology(world: int, local_size: int = 1,
@@ -76,3 +248,16 @@ def detect_topology(world: int, local_size: int = 1,
     if cross > 1 and local > 1 and cross * local == world:
         return (cross, local)
     return (world,)
+
+
+def torus_groups(dims: Sequence[int]) -> List[List[List[int]]]:
+    """Per-dim groups of a flat rank axis laid out row-major over
+    ``dims``: entry ``j`` partitions the ranks into lines along dim ``j``
+    (every other coordinate fixed, dim ``j``'s increasing)."""
+    dims = tuple(int(d) for d in dims)
+    ranks = np.arange(int(np.prod(dims))).reshape(dims)
+    out = []
+    for j in range(len(dims)):
+        moved = np.moveaxis(ranks, j, -1).reshape(-1, dims[j])
+        out.append([[int(r) for r in row] for row in moved])
+    return out

@@ -756,3 +756,56 @@ def test_sharded_adamw_on_card_matches_cpu(cuda_card):
         tol = (dict(rtol=2 ** -7, atol=1e-6) if dtypes[k] == torch.bfloat16
                else dict(rtol=1e-6, atol=1e-7))
         torch.testing.assert_close(card[0][k], cpu[0][k], **tol)
+
+
+def _one_rank(device, fn):
+    """``fn()`` on a one-rank world: NCCL on the card, gloo on the CPU."""
+    import horovod_tpu_torch as hvd
+    hvd.init(device=None if device == "cuda" else "cpu")
+    try:
+        return fn(hvd.device())
+    finally:
+        hvd.shutdown()
+
+
+def test_fsdp_apply_on_card_matches_cpu(cuda_card):
+    """``fsdp_apply`` of an fp32 MLP block on a one-rank NCCL world
+    against the same call on a one-rank gloo world: the output and the
+    row's gradient within rtol 1e-5, atol 1e-6 (cuBLAS and the CPU sum in
+    other orders)."""
+    from horovod_tpu_torch.parallel import fsdp
+    g = np.random.default_rng(4)
+    p0 = {"w1": g.standard_normal((16, 32)), "b1": g.standard_normal(32),
+          "w2": g.standard_normal((32, 16)), "b2": g.standard_normal(16)}
+    x0 = g.standard_normal((4, 16))
+
+    def run(dev):
+        p = {k: torch.tensor(v, dtype=torch.float32, device=dev) * 0.3
+             for k, v in p0.items()}
+        row = fsdp.fsdp_shard_params(p).requires_grad_()
+        y = fsdp.fsdp_apply(
+            lambda q, x: x + torch.relu(x @ q["w1"] + q["b1"]) @ q["w2"]
+            + q["b2"], p, row, torch.tensor(x0, dtype=torch.float32,
+                                            device=dev))
+        (y ** 2).mean().backward()
+        return y.detach().cpu(), row.grad.cpu()
+
+    card, cpu = _one_rank("cuda", run), _one_rank("cpu", run)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_gather_shard_int8_on_card_matches_cpu(cuda_card):
+    """``gather_shard(wire="int8")`` of a row with a ragged scale tail on
+    the card equals the CPU's bit for bit (the quantizer divides by
+    tensors, so its codes and scales are the CPU's)."""
+    from horovod_tpu_torch.parallel import mp
+    x0 = np.random.default_rng(5).standard_normal(300).astype(np.float32)
+
+    def run(dev):
+        return mp.gather_shard(torch.tensor(x0, device=dev),
+                               wire="int8").cpu()
+
+    card, cpu = _one_rank("cuda", run), _one_rank("cpu", run)
+    assert torch.equal(card, cpu)
+    assert not torch.equal(card, torch.tensor(x0))
