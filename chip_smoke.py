@@ -204,20 +204,44 @@ Phases, in order; any failure exits nonzero and prints no result:
    cards ``tools/torch_zero_bench.py --stage 3`` at 2 (and 4) ranks, and
    ``--mesh dp2xmp2`` with four; with one card a line says it did not
    run. Without phase 3 it runs phase 3's path itself first.
+13. Megatron tensor parallelism (``parallel/mp.py``), on a new one-rank
+   NCCL world: (a) phase 3's GPT-2 medium through ``mp.tensor_parallel``
+   over the mesh's mp set, ``mp.vocab_parallel_loss`` and
+   ``DistributedOptimizer`` over the dp set, 5 steps at mp 1: phase 3's
+   losses bit for bit, 24 launches of each kernel a step, ms a step and
+   peak memory; the three kernels against their plain versions at the
+   local head count of GPT-2 medium split over 2 and 4 ranks (B 8, T 1024,
+   8 and 4 heads, d 64, causal, bf16: BH 64 and 32), with their times,
+   bounds, plain times and SDPA; (b) GPT-2 medium with random biases
+   split by ``split_params`` over 2 and 4 virtual ranks on the one card
+   (``tp_virtual_logits``: one thread a rank runs the port's wired
+   tensor-parallel model and ``vocab_parallel_loss``'s arithmetic, with
+   g and the max reduced over the threads; the vocab slices of the logits
+   concatenated), held against the dense forward's logits and the fp32
+   forward's within twice the dense bf16 forward's own error against
+   fp32 (the bound, derived on the card), every rank's loss within rtol
+   1e-5 of ``loss_fn`` on the same logits; a contiguous qkv split and a
+   row bias added on every rank must leave the bound; K1 launched 24
+   times a virtual rank; (c) ``tp_decode_step`` at mp
+   1 on the model's state dict against ``decode_step``, bit for bit
+   (logits, greedy tokens, cache), at phase 9's decode setting for GPT-2
+   medium (B 8, prompt 32; 96 new tokens) and Llama-340M (B 4, prompt 32,
+   64 new), bf16 parameters. Without phase 3 it runs phase 3's path
+   itself first.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
-(a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's
-and phase 12's paths, each counted from 0 just before the path and read just after) and
-their sum,
-and its numbers at each new path's shape (phases 5, 9 and 10 (a)). The
-last line is ``{"ok": true, "device": {...}}``. ``--phases 1,2`` stops
-after the kernel checks; ``--phases 1,9`` runs phase 9 alone (its remat
-losses then compare with its own run without remat); ``--phases 1,10``
-runs phase 10 alone; ``--phases 1,11`` phase 11 alone; ``--phases 1,12``
-phase 12 alone.
+(a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
+phase 12's and phase 13's paths, each counted from 0 just before the path
+and read just after) and their sum, and its numbers at each new path's
+shape (phases 5, 9, 10 (a) and 13). The last line is ``{"ok": true,
+"device": {...}}``. ``--phases 1,2`` stops after the kernel checks;
+``--phases 1,9`` runs phase 9 alone (its remat losses then compare with
+its own run without remat); ``--phases 1,10`` runs phase 10 alone;
+``--phases 1,11`` phase 11 alone; ``--phases 1,12`` phase 12 alone;
+``--phases 1,13`` phase 13 alone.
 """
 
 from __future__ import annotations
@@ -1450,7 +1474,10 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
     ``striped_lm_loss``). ``opt_extra`` goes to
     ``DistributedOptimizer`` (phase 7: ``overlap``, ``compression``,
     ``error_feedback``). ``rows`` (GPT-2 medium) takes this rank's slice
-    of the batch (phase 8's two-rank worlds)."""
+    of the batch (phase 8's two-rank worlds). ``gpt2_medium_tp`` is GPT-2
+    medium through ``mp.tensor_parallel`` over the mesh's mp set and
+    ``mp.vocab_parallel_loss``, its optimizer over the dp set (phase 13
+    (a))."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1462,16 +1489,24 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
     opt_kw = {}
     dots = dict(remat=True, remat_policy="dots")
     info = {}
-    if name == "gpt2_medium":
+    if name in ("gpt2_medium", "gpt2_medium_tp"):
         from horovod_tpu_torch.models.gpt2 import loss_fn
+        from horovod_tpu_torch.parallel import mp
         model = _gpt2_medium(dev, **(cfg_extra or {}))
+        lm_loss = loss_fn
+        if name == "gpt2_medium_tp":
+            # Tensor parallelism over the mesh's mp set (one rank here),
+            # the optimizer over its dp set.
+            model = mp.tensor_parallel(model)
+            lm_loss = mp.vocab_parallel_loss
+            opt_kw = {"process_set": hvd.mesh2d().process_set("dp")}
         b, t = 8, 1024
         tokens = torch.randint(0, model.cfg.vocab_size, (b, t),
                                generator=torch.Generator().manual_seed(0))
         inputs = (tokens if rows is None else tokens[rows]).to(dev)
 
         def loss():
-            return loss_fn(model(inputs), inputs)
+            return lm_loss(model(inputs), inputs)
     elif name == "gpt2_long":
         from horovod_tpu_torch.models.gpt2 import loss_fn, striped_lm_loss
         with torch.device(dev):
@@ -1584,7 +1619,8 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
             "launches": {k: layers * (2 if getattr(cfg, "remat", False)
                                       and k == "flash_fwd" else 1)
                          for k in fa.KERNELS},
-            "optimizer": "AdamW, op=" + ("Adasum" if opt_kw else "Average"),
+            "optimizer": "AdamW, op=" + ("Adasum" if "op" in opt_kw
+                                         else "Average"),
             **info}
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
@@ -4156,11 +4192,352 @@ def phase_fsdp(card, main_path, zero1, remat_full=None):
 
 
 
+# ---------------------------------------------------------------- phase 13
+
+# The kernels' shapes under tensor parallelism: GPT-2 medium's attention
+# (B 8, T 1024, d 64, causal, bf16) at the local head count 16 / mp.
+TP_SHAPES = {"gpt2_tp2": dict(b=8, h=8, t=1024),
+             "gpt2_tp4": dict(b=8, h=4, t=1024)}
+# Standard deviation of the random biases phase 13 (b) gives every Dense
+# layer (GPT-2's init zeroes them, and a row bias added on every rank must
+# show).
+TP_BIAS_STD = 0.05
+
+
+def phase_tp_kernels():
+    """K1-K3 against their plain versions at TP_SHAPES, then their times,
+    bounds, plain times and SDPA with the same mask: {path: {kernel:
+    numbers}}."""
+    import torch
+    out = {}
+    for path, c in TP_SHAPES.items():
+        b, h, t = c["b"], c["h"], c["t"]
+        log(f"path {path}: B {b} H {h} (B*H {b * h}) T {t} d 64 bf16 "
+            f"causal")
+        errs, case, outs = compare_kernels(
+            _path_inputs(b, h, t, True, h, False, seed=t + h), b, h, 64,
+            True, 0, BF16_TOL)
+        del outs
+        out[path] = shape_report(case, errs, b, h, t, True)
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+class _VirtualSet:
+    """``n`` virtual tensor-parallel ranks on one card, one thread each.
+    One thread runs at a time (``lock``); a reduction hands the card on
+    until every rank has brought its operand, and each rank gets the
+    result over all of them, in rank order, as a collective over a real
+    set gives it."""
+
+    def __init__(self, n):
+        import threading
+        self.n = n
+        self.slots = [None] * n
+        self.lock = threading.Lock()
+        self.barrier = threading.Barrier(n, timeout=600)
+
+    def _meet(self):
+        self.lock.release()
+        try:
+            self.barrier.wait()
+        finally:
+            self.lock.acquire()
+
+    def reduce(self, r, x, op):
+        self.slots[r] = x
+        self._meet()
+        out = op(self.slots)
+        self._meet()
+        return out
+
+
+def _virtual_tp(vset, r):
+    """Rank ``r`` of ``vset`` as a ``mp.TensorParallel``: its embedding
+    and its place in the vocab are the port's; f is the identity (the
+    forward only), g and the max reduce over the virtual ranks."""
+    import torch
+    from horovod_tpu_torch.parallel import mp
+
+    class VirtualTP(mp.TensorParallel):
+        def __init__(self):
+            self.process_set, self.size, self.rank = vset, vset.n, r
+            self.f = lambda x: x
+            self.g = lambda x: vset.reduce(r, x, sum)
+
+        def max(self, x):
+            return vset.reduce(r, x.detach(),
+                               lambda xs: torch.stack(xs).amax(0))
+
+    return VirtualTP()
+
+
+def tp_virtual_logits(model, tokens, mp_, fault=None):
+    """GPT-2 ``model``'s logits and loss from ``mp_`` virtual
+    tensor-parallel ranks on one card (``_VirtualSet``): each rank's
+    ``split_params`` part in a GPT-2 built on the meta device and wired by
+    ``mp._part_model`` as ``tensor_parallel`` wires it, so its forward
+    runs the port's tensor-parallel modules (the local head count, the
+    row-parallel ``Dense.reduce`` with the bias after the sum, the
+    vocab-parallel embedding) and the loss is ``vocab_parallel_loss``'s
+    arithmetic over the vocab slices (``mp._vocab_parallel_loss``); only
+    the collectives are the virtual set's. Returns (the vocab slices of
+    the logits concatenated, each rank's loss). ``fault`` plants
+    ``"contiguous_qkv"`` (qkv rows split in contiguous blocks, not by
+    heads) or ``"bias_every_rank"`` (each rank adds the row bias before
+    the sum)."""
+    import threading
+    import torch
+    from horovod_tpu_torch.parallel import mp
+    cfg = model.cfg
+    full = {k: v.detach() for k, v in model.state_dict().items()}
+    vset = _VirtualSet(mp_)
+    ranks = []
+    for r in range(mp_):
+        part = mp.split_params(cfg, full, mp_, r)
+        if fault == "contiguous_qkv":
+            for k in part:
+                if ".attn.qkv." in k:
+                    part[k] = mp._split_one("rows", full[k], mp_, r)
+        tp = _virtual_tp(vset, r)
+        m = mp._part_model(cfg, part, tp)
+        if fault == "bias_every_rank":
+            for blk in m.h:
+                for d in (blk.attn.out, blk.mlp.proj):
+                    bias, d.bias = d.bias, None
+                    d.reduce = (lambda y, bias=bias, tp=tp:
+                                tp.g(y + bias.to(cfg.dtype)))
+        ranks.append((m, tp))
+    out, errs = [None] * mp_, []
+
+    def run(r):
+        m, tp = ranks[r]
+        vset.lock.acquire()
+        try:
+            with torch.no_grad():
+                lg = m(tokens)
+                out[r] = (lg, mp._vocab_parallel_loss(tp, lg, tokens))
+        except BaseException as e:   # noqa: BLE001 -- re-raised below
+            errs.append(e)
+            vset.barrier.abort()
+        finally:
+            vset.lock.release()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(mp_)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return torch.cat([lg for lg, _ in out], -1), [float(x) for _, x in out]
+
+
+def phase_tp_virtual(dev):
+    """(b) GPT-2 medium with random biases split over 2 and 4 virtual ranks
+    on the one card (``tp_virtual_logits``) against its dense forward. The
+    bound is derived on the card: the dense bf16 forward's own largest
+    error against the same weights run in fp32 (dense attention), twice
+    over, since the tensor-parallel forward rounds once more (each partial
+    to bf16 before the sum) and is held against the fp32 forward as well.
+    Every virtual rank's loss equals the others' and is within rtol 1e-5
+    (the CPU tests' bound on this loss) of ``loss_fn`` over the same
+    logits concatenated. Both planted faults must leave the logits'
+    bound. Counts K1's launches on each virtual forward (24 layers x mp
+    ranks)."""
+    import torch
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.models.gpt2 import Dense, loss_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    model = _gpt2_medium(dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dense) and m.bias is not None:
+                m.bias.normal_(0.0, TP_BIAS_STD, generator=g)
+    tokens = torch.randint(0, model.cfg.vocab_size, (8, 1024),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        dense = model(tokens)
+        with torch.device(dev):
+            ref = get_model("gpt2_medium", attention="dense",
+                            dtype=torch.float32, generator=g)
+        ref.load_state_dict(model.state_dict())
+        exact = ref(tokens)
+        del ref
+    dense_err = _err(dense, exact)
+    tol = 2 * dense_err
+    log(f"phase 13 (b): the dense bf16 forward's largest logit error "
+        f"against the fp32 forward is {dense_err:.4e}; bound on a "
+        f"tensor-parallel forward's error against either: {tol:.4e}")
+    out, launches = {"dense_err_vs_fp32": dense_err, "bound": tol}, {}
+    for n in (2, 4):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        got, losses = tp_virtual_logits(model, tokens, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"gpt2_medium_tp_virtual_mp{n}"] = dict(fa.launches)
+        want = {"flash_fwd": model.cfg.num_layers * n, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+        if dict(fa.launches) != want:
+            fail(f"phase 13 (b): {n} virtual ranks launched {fa.launches}, "
+                 f"want {want}")
+        e_dense, e_exact = _err(got, dense), _err(got, exact)
+        with torch.no_grad():
+            whole = float(loss_fn(got, tokens))
+        out[f"mp{n}"] = {"max_abs_err_vs_dense": e_dense,
+                         "max_abs_err_vs_fp32": e_exact, "wall_s": wall,
+                         "loss": losses[0], "loss_fn_on_logits": whole}
+        log(f"phase 13 (b): {n} virtual ranks: logits within {e_dense:.4e} "
+            f"of the dense forward's and {e_exact:.4e} of the fp32 "
+            f"forward's (bound {tol:.4e}); vocab-parallel loss "
+            f"{losses[0]!r} on every rank, loss_fn on the logits "
+            f"{whole!r}; K1 launches {fa.launches}; {wall:.2f} s")
+        if not (e_dense <= tol and e_exact <= tol):
+            fail(f"phase 13 (b): {n} virtual ranks leave the bound {tol}: "
+                 f"{e_dense} against the dense forward, {e_exact} against "
+                 f"fp32")
+        if len(set(losses)) != 1 or not math.isclose(
+                losses[0], whole, rel_tol=1e-5, abs_tol=0.0):
+            fail(f"phase 13 (b): the vocab-parallel losses {losses} at {n} "
+                 f"ranks are not loss_fn's {whole} (rtol 1e-5)")
+        del got
+        for fault in ("contiguous_qkv", "bias_every_rank"):
+            bad = _err(tp_virtual_logits(model, tokens, n, fault)[0], dense)
+            out[f"mp{n}"][f"planted_{fault}"] = bad
+            log(f"phase 13 (b): planted {fault} at {n} ranks: "
+                f"{bad:.4e} from the dense forward")
+            if not bad > tol:
+                fail(f"phase 13 (b): the planted {fault} at {n} ranks "
+                     f"passed the check ({bad} <= {tol})")
+    del model, dense, exact
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _tp_decode_run(tag, model, prompt, new):
+    """(c) Greedy decode of ``prompt`` and ``new`` tokens through
+    ``decode_step`` and, on the same input token at each position, through
+    ``tp_decode_step`` over the one-rank mp set with the model's state
+    dict: logits and the greedy tokens equal at every step, each step's ms
+    for both."""
+    import torch
+    from horovod_tpu_torch.models import generate as G
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import mp
+    cfg = model.cfg
+    b, p = prompt.shape
+    total = p + new
+    dense, tp = G.decode_step(cfg), mp.tp_decode_step(cfg)
+    state = {k: v for k, v in model.state_dict().items()}
+    ca = G.init_cache(cfg, b, total, device=prompt.device)
+    cb = G.init_cache(cfg, b, total, device=prompt.device)
+    tok = prompt[:, 0]
+    ms = {"dense": [], "tp": []}
+    fa.reset_launches()
+    for t in range(total - 1):
+        for which in ("dense", "tp"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "dense":
+                ca, la = dense(model, ca, tok, t)
+            else:
+                cb, lb = tp(state, cb, tok, t)
+            torch.cuda.synchronize()
+            ms[which].append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(la, lb):
+            fail(f"phase 13 (c) {tag}: tp_decode_step's logits differ from "
+                 f"decode_step's at position {t} by "
+                 f"{(la - lb).abs().max().item()}")
+        ga, gb = G.greedy_token(la), G.greedy_token(lb)
+        if not torch.equal(ga, gb):
+            fail(f"phase 13 (c) {tag}: greedy tokens differ at {t}")
+        tok = prompt[:, t + 1] if t + 1 < p else ga
+    if any(fa.launches.values()):
+        fail(f"phase 13 (c) {tag}: decode launched {fa.launches}")
+    if not all(torch.equal(ca[i][k], cb[i][k]) for i in ca for k in "kv"):
+        fail(f"phase 13 (c) {tag}: the caches differ")
+    res = {"steps": total - 1, "batch": b,
+           "dense_ms_per_step": statistics.median(ms["dense"]),
+           "tp_ms_per_step": statistics.median(ms["tp"])}
+    log(f"phase 13 (c) {tag}: tp_decode_step equals decode_step bit for "
+        f"bit at all {total - 1} positions (B {b}, prompt {p}, {new} new), "
+        f"logits, greedy tokens and cache; median ms a step: dense "
+        f"{res['dense_ms_per_step']:.2f}, tp {res['tp_ms_per_step']:.2f}")
+    return res
+
+
+def phase_tensor_parallel(card, main_path):
+    """Phase 13 on a new one-rank NCCL world: (a) GPT-2 medium through
+    ``mp.tensor_parallel`` and ``mp.vocab_parallel_loss`` at mp = 1 for 5
+    steps, its losses equal to phase 3's bit for bit, 24 launches of each
+    kernel a step; the kernels at the tensor-parallel shapes; (b)
+    ``phase_tp_virtual``; (c) ``tp_decode_step`` at mp = 1 against
+    ``decode_step``, bit for bit, for GPT-2 medium (B 8, prompt 32, 96
+    new) and Llama-340M (B 4, prompt 32, 64 new), bf16 parameters.
+    Without phase 3 it runs phase 3's path itself first."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import get_model
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    t0 = time.perf_counter()
+    if main_path is None:
+        main_path = phase_train_path("gpt2_medium", card, dev)
+    a = phase_train_path("gpt2_medium_tp", card, dev)
+    if a["losses"] != main_path["losses"]:
+        fail(f"phase 13 (a): tensor-parallel losses at mp 1 {a['losses']} "
+             f"are not phase 3's {main_path['losses']} bit for bit")
+    log(f"phase 13 (a): GPT-2 medium through tensor_parallel at mp 1: "
+        f"losses equal phase 3's bit for bit; {a['step_ms_median']:.1f} ms "
+        f"a step (phase 3: {main_path['step_ms_median']:.1f}), peak "
+        f"{a['peak_gib']:.2f} GiB")
+    launches = {"gpt2_medium_tp": a.pop("launches")}
+    kernels = phase_tp_kernels()
+    b, virt = phase_tp_virtual(dev)
+    launches.update(virt)
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    c = {}
+    with torch.device(dev):
+        model = get_model("gpt2_medium", attention="dense", generator=g)
+    model = model.to(torch.bfloat16)
+    prompt = torch.tensor(rng.integers(1, model.cfg.vocab_size, (8, 32)),
+                          device=dev)
+    c["gpt2_medium"] = _tp_decode_run("gpt2_medium", model, prompt, 96)
+    del model
+    with torch.device(dev):
+        model = get_model("llama", vocab_size=32000, max_seq_len=2048,
+                          num_layers=24, num_heads=16, num_kv_heads=4,
+                          d_model=1024, d_ff=2816, attention="dense",
+                          generator=g)
+    model = model.to(torch.bfloat16)
+    prompt = torch.tensor(rng.integers(1, model.cfg.vocab_size, (4, 32)),
+                          device=dev)
+    c["llama_340m"] = _tp_decode_run("llama_340m", model, prompt, 64)
+    del model
+    launches["tp_decode"] = {}
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "train_mp1": a, "virtual": b, "decode": c,
+            "launches": launches}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12; 6, 7 and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13; 6, 7 and 8 need "
+                         "3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -4227,6 +4604,11 @@ def main(argv=None) -> int:
                        zoo["trained"]["gpt2_medium_remat_full"])
         launches.update(z.pop("launches"))
         print(json.dumps({"phase12": z}), flush=True)
+    if 13 in phases:
+        tp = phase_tensor_parallel(card, main_path if 3 in phases else None)
+        launches.update(tp.pop("launches"))
+        shapes.update(tp.pop("kernels"))
+        print(json.dumps({"phase13": tp}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

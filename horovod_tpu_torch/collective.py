@@ -189,6 +189,12 @@ def _resolve_ps(process_set: Optional[ProcessSet]) -> ProcessSet:
 
 
 def _ps_key(ps: ProcessSet):
+    """The set in an op's negotiated signature. The lines of one mesh axis
+    share one key: each rank issues the op over its own line, and the
+    lines run it side by side, as the reference's in-program collective
+    over a mesh axis does."""
+    if ps.line_key is not None:
+        return ps.line_key
     return (ps.process_set_id,
             None if ps.ranks is None else tuple(ps.ranks))
 

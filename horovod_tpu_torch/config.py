@@ -38,7 +38,12 @@ not at the first collective.
   ``HOROVOD_MESH`` -- the dp x mp factoring of the world (``"dp2xmp2"``;
   grammar checked here, stored in its canonical form; ``init`` checks
   that it factors the world and nests with the topology; unset: dp =
-  world, mp = 1).
+  world, mp = 1); ``HOROVOD_MP_RULES`` -- the model-parallel rule set of
+  ``parallel.mp.mp_partition_rules``, which ``mp.tensor_parallel``
+  applies: ``auto`` (default, the model family's split), ``megatron``
+  (the explicit column / row split) or ``off`` (no weight is split: under
+  mp > 1 ``tensor_parallel`` leaves the model whole on every rank and
+  ``mp.vocab_parallel_loss`` is ``loss_fn``; a debugging escape hatch).
   The reference's ``HOROVOD_XLA_LATENCY_HIDING`` sets XLA compiler flags
   and has no counterpart here.
 * ``HOROVOD_AUTOTUNE`` -- the online tuner of ``DistributedOptimizer``
@@ -113,6 +118,7 @@ class Config:
     overlap_chunks: int = 4
     topology: Optional[str] = None
     mesh: Optional[str] = None
+    mp_rules: str = "auto"
     autotune: bool = False
     autotune_log: Optional[str] = None
     autotune_mode: str = "ladder"
@@ -161,6 +167,18 @@ def _env_mesh() -> Optional[str]:
     from horovod_tpu_torch.parallel.mesh import format_mesh, parse_mesh
     dp, mp = parse_mesh(v)   # grammar check: a typo'd spec fails here
     return format_mesh(dp, mp)
+
+
+_MP_RULE_SETS = ("auto", "megatron", "off")
+
+
+def _env_mp_rules() -> str:
+    v = (os.environ.get("HOROVOD_MP_RULES", "auto").strip().lower()
+         or "auto")
+    if v not in _MP_RULE_SETS:
+        raise ValueError(
+            f"HOROVOD_MP_RULES={v!r}: expected one of {_MP_RULE_SETS}")
+    return v
 
 
 def _env_chunks() -> int:
@@ -236,6 +254,7 @@ def _read() -> Config:
         overlap_chunks=_env_chunks(),
         topology=_env_topology(),
         mesh=_env_mesh(),
+        mp_rules=_env_mp_rules(),
         autotune=_env_bool("HOROVOD_AUTOTUNE"),
         autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG") or None,
         autotune_mode=(os.environ.get("HOROVOD_AUTOTUNE_MODE", "ladder")

@@ -22,8 +22,9 @@ pretraining" configuration) with the reference's numerics, in the layers of
 ``models/convert.py`` carries the reference's parameters over
 (``bert_params_from_jax``). ``remat=True`` checkpoints each layer
 (``utils/remat.py``). ``use_ring_attention=True`` shards the sequence over
-the global process set (``ops/attention.sp_attention``). The
-tensor-parallel partition rules wait for item 8b of ``ROADMAP.md``.
+the global process set (``ops/attention.sp_attention``). The reference
+gives BERT no tensor-parallel rule set (its ``validate_tp`` takes the GPT-2
+and Llama families only), and neither does the port.
 """
 
 from __future__ import annotations

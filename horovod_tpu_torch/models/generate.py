@@ -4,7 +4,10 @@ Port of ``horovod_tpu/models/generate.py``. Decode is its own program, one
 token a step against cached K and V, written over the ported models'
 parameters (it reads each ``nn.Module``'s weights and calls its norms and
 ``Dense`` layers) rather than through a ``decode`` flag in the training
-modules. The loop is a Python loop over positions; the prompt is
+modules. A model that ``parallel/mp.py`` made tensor-parallel decodes
+through the same steps: its layers hold this rank's heads and sum their
+row-parallel products, and the head gathers the vocab slices. The loop is
+a Python loop over positions; the prompt is
 teacher-forced through the same step (no prefill), as in the reference.
 
 The cache is one K and one V of (B, T_total, kv heads, head dim) per layer
@@ -120,16 +123,30 @@ def _attend_cached(q, ck, cv, idx, scale):
     return torch.einsum("bkgt,btkd->bkgd", p, cv).reshape(b, h, hd)
 
 
+def _embed(model, tok):
+    """The embedding rows of ``tok``: the vocab-parallel lookup when the
+    model is tensor-parallel (``parallel/mp.py``)."""
+    return model.wte[tok] if model.tp is None else \
+        model.tp.embed(model.wte, tok)
+
+
+def _head(model, logits):
+    """(B, V) logits, or this rank's (B, V/mp) gathered along the vocab."""
+    return logits if model.tp is None else model.tp.gather_vocab(logits)
+
+
 def _gpt2_step(cfg, model, cache, tok, idx):
     """tok (B,) at position idx (scalar or (B,)) -> (cache, fp32 logits
-    (B, V))."""
+    (B, V)). The head count is the one the qkv weight holds: all the
+    heads, or this rank's under tensor parallelism."""
     cache, raw = _as_cache(cache)
     dt = cfg.dtype
-    b, h, hd = tok.shape[0], cfg.num_heads, cfg.d_model // cfg.num_heads
-    x = _pad_rows(model.wte[tok].to(dt) + model.wpe[idx].to(dt))
+    b, hd = tok.shape[0], cfg.d_model // cfg.num_heads
+    x = _pad_rows(_embed(model, tok).to(dt) + model.wpe[idx].to(dt))
     for i, blk in enumerate(model.h):
         att, mlp = blk.attn, blk.mlp
-        q, k, v = att.qkv(blk.ln1(x))[:b].split(cfg.d_model, dim=-1)
+        h = att.qkv.weight.shape[0] // (3 * hd)
+        q, k, v = att.qkv(blk.ln1(x))[:b].split(h * hd, dim=-1)
         cache, ck, cv = cache.update(i, k.reshape(b, h, hd),
                                      v.reshape(b, h, hd), idx)
         o = _attend_cached(q.reshape(b, h, hd), ck, cv, idx, hd ** -0.5)
@@ -137,7 +154,7 @@ def _gpt2_step(cfg, model, cache, tok, idx):
         x = x + mlp.proj(F.gelu(mlp.fc(blk.ln2(x)), approximate="tanh"))
     # fp32 final norm and tied head.
     logits = (model.ln_f(x) @ model.wte.float().t())[:b]
-    return (cache.layers if raw else cache), logits
+    return (cache.layers if raw else cache), _head(model, logits)
 
 
 def _rope_one(x, pos, theta):
@@ -152,11 +169,11 @@ def _rope_one(x, pos, theta):
 def _llama_step(cfg, model, cache, tok, idx):
     cache, raw = _as_cache(cache)
     dt = cfg.dtype
-    b, h, hkv = tok.shape[0], cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.d_model // h
-    x = _pad_rows(model.wte[tok].to(dt))
+    b, hd = tok.shape[0], cfg.d_model // cfg.num_heads
+    x = _pad_rows(_embed(model, tok).to(dt))
     for i, blk in enumerate(model.h):
         att, mlp = blk.attn, blk.mlp
+        h, hkv = att.wq.weight.shape[0] // hd, att.wk.weight.shape[0] // hd
         y = blk.norm_attn(x)
         q = _rope_one(att.wq(y)[:b].reshape(b, h, hd), idx, cfg.rope_theta)
         k = _rope_one(att.wk(y)[:b].reshape(b, hkv, hd), idx,
@@ -169,7 +186,7 @@ def _llama_step(cfg, model, cache, tok, idx):
         x = x + mlp.down(F.silu(mlp.gate(y)) * mlp.up(y))
     # Untied fp32 head.
     logits = (model.norm_f(x).float() @ model.lm_head.float().t())[:b]
-    return (cache.layers if raw else cache), logits
+    return (cache.layers if raw else cache), _head(model, logits)
 
 
 def t5_encode(model, cfg, src, src_mask):

@@ -25,6 +25,16 @@ sequence over the global process set (``ops/attention.sp_attention``): each
 rank feeds its shard of the tokens, wpe follows the shard's global
 positions, and :func:`striped_lm_loss` is the exact loss of the striped
 layout.
+
+Tensor parallelism (``parallel/mp.py``): :func:`partition_rules` is the
+reference's Megatron rule set over the port's parameter names, and
+``mp.tensor_parallel(model)`` turns a built model into this rank's 1/mp
+part. The layers then read their local head count from their weights;
+``tp`` (a ``mp.TensorParallel``, None when the model is whole) places
+Megatron's f at each column-parallel input, g at each row-parallel output
+(``Dense.reduce``, the bias added once after the sum), the vocab-parallel
+embedding and the head's f, and the model returns this rank's
+(B, T, vocab/mp) logits for ``mp.vocab_parallel_loss``.
 """
 
 from __future__ import annotations
@@ -41,10 +51,11 @@ from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
                                              model_positions, sp_attention,
                                              validate_sp_config)
 from horovod_tpu_torch.ops.moe import ROUTERS, MoEMLP
+from horovod_tpu_torch.parallel.sharding import P, PartitionRules
 from horovod_tpu_torch.utils.remat import maybe_remat, remat_context
 
 __all__ = ["GPT2Config", "GPT2", "loss_fn", "loss_fn_moe",
-           "striped_lm_loss"]
+           "striped_lm_loss", "partition_rules"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +112,11 @@ def validate_moe_and_remat(cfg) -> None:
 
 class Dense(nn.Module):
     """flax ``nn.Dense(features, dtype=dtype, use_bias=bias)``: fp32
-    parameters, the product in ``dtype``. ``weight`` is (out, in)."""
+    parameters, the product in ``dtype``. ``weight`` is (out, in).
+    ``reduce`` (set by ``mp.tensor_parallel`` on a row-parallel layer) sums
+    the partial product over the tensor-parallel ranks before the bias."""
+
+    reduce = None
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
                  bias: bool = True):
@@ -121,8 +136,11 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt),
-                        None if self.bias is None else self.bias.to(dt))
+        b = None if self.bias is None else self.bias.to(dt)
+        if self.reduce is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        y = self.reduce(F.linear(x.to(dt), self.weight.to(dt)))
+        return y if b is None else y + b
 
 
 class LayerNorm(nn.Module):
@@ -144,6 +162,11 @@ class LayerNorm(nn.Module):
 
 
 class Attention(nn.Module):
+    """Causal self-attention over the heads its ``qkv`` weight holds: all
+    of them, or this rank's whole heads under tensor parallelism."""
+
+    tp = None
+
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         self.cfg = cfg
@@ -152,18 +175,23 @@ class Attention(nn.Module):
 
     def forward(self, x, segment_ids=None):
         cfg = self.cfg
-        b, t, d = x.shape
-        h = cfg.num_heads
-        q, k, v = self.qkv(x).split(d, dim=-1)
-        q = q.reshape(b, t, h, d // h)
-        k = k.reshape(b, t, h, d // h)
-        v = v.reshape(b, t, h, d // h)
+        b, t, _ = x.shape
+        hd = cfg.d_model // cfg.num_heads
+        h = self.qkv.weight.shape[0] // (3 * hd)
+        if self.tp is not None:
+            x = self.tp.f(x)
+        q, k, v = self.qkv(x).split(h * hd, dim=-1)
+        q = q.reshape(b, t, h, hd)
+        k = k.reshape(b, t, h, hd)
+        v = v.reshape(b, t, h, hd)
         o = sp_attention(q, k, v, cfg, segment_ids=segment_ids)
-        return self.out(o.reshape(b, t, d))
+        return self.out(o.reshape(b, t, h * hd))
 
 
 class MLP(nn.Module):
     """``forward(x)`` -> (out, the MoE aux loss or None)."""
+
+    tp = None
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -178,6 +206,8 @@ class MLP(nn.Module):
     def forward(self, x):
         if hasattr(self, "moe"):
             return self.moe(x)
+        if self.tp is not None:
+            x = self.tp.f(x)
         return self.proj(F.gelu(self.fc(x), approximate="tanh")), None
 
 
@@ -205,6 +235,8 @@ class GPT2(nn.Module):
     differ from JAX's, so parity runs load a JAX checkpoint with
     ``models.convert.gpt2_params_from_jax``.
     """
+
+    tp = None
 
     def __init__(self, cfg: GPT2Config,
                  generator: Optional[torch.Generator] = None):
@@ -237,18 +269,49 @@ class GPT2(nn.Module):
         cfg = self.cfg
         b, t = tokens.shape
         pos = model_positions(cfg, t, tokens.device, segment_ids, positions)
-        x = self.wte[tokens].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
+        emb = self.wte[tokens] if self.tp is None else \
+            self.tp.embed(self.wte, tokens)
+        x = emb.to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
         aux = []
         for block in self.h:
             x, a = maybe_remat(cfg, block)(x, segment_ids)
             if a is not None:
                 aux.append(a)
         x = self.ln_f(x)
+        if self.tp is not None:
+            x = self.tp.f(x)
         # Tied LM head in fp32 (logits precision matters for the loss).
         logits = torch.einsum("btd,vd->btv", x.float(), self.wte.float())
         if not return_aux:
             return logits
         return logits, stack_aux(aux, logits)
+
+
+def partition_rules() -> PartitionRules:
+    """The reference's Megatron tp rule set (``horovod_tpu/models/gpt2.py``
+    ``partition_rules``) over the port's parameter names: flax paths mapped
+    as ``models/convert.py`` maps them (``h0/attn/qkv/kernel`` ->
+    ``h.0.attn.qkv.weight``), each (in, out) kernel's spec transposed for
+    the (out, in) weight. Column-parallel qkv / fc split their output rows,
+    row-parallel out / proj their input columns, the embedding its vocab
+    rows; the row-parallel biases stay whole. The ``ep`` rules of the MoE
+    experts are kept as rules. The packed qkv weight splits by whole heads
+    (``mp.split_params``), not in the contiguous row blocks that its spec
+    alone would give."""
+    return PartitionRules([
+        (r"wte$", P("tp", None)),
+        (r"wpe$", P()),
+        (r"attn\.qkv\.weight", P("tp", None)),
+        (r"attn\.out\.weight", P(None, "tp")),
+        (r"mlp\.fc\.weight", P("tp", None)),
+        (r"mlp\.proj\.weight", P(None, "tp")),
+        (r"attn\.qkv\.bias", P("tp")),
+        (r"mlp\.fc\.bias", P("tp")),
+        (r"moe\.(w_in|w_out)$", P("ep", None, None)),
+        (r"moe\.(b_in|b_out)$", P("ep", None)),
+        (r"moe\.router\.router$", P()),
+        (r"(ln1|ln2|ln_f)\.(weight|bias)", P()),
+    ])
 
 
 def stack_aux(aux, like: torch.Tensor) -> torch.Tensor:

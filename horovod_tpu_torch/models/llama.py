@@ -24,8 +24,13 @@ Mixtral-style layer: bias-free SwiGLU experts behind a top-2 router
 (``ops/moe.py``), trained with :func:`loss_fn_moe`. ``remat=True``
 checkpoints each block (``utils/remat.py``). ``use_ring_attention=True``
 shards the sequence over the global process set
-(``ops/attention.sp_attention``). The tensor-parallel partition rules
-(``partition_rules()``) wait for item 8b of ``ROADMAP.md``.
+(``ops/attention.sp_attention``). Tensor parallelism as GPT-2's
+(``parallel/mp.py``): :func:`partition_rules` is the reference's Megatron
+rule set over the port's names, with the (in, out) specs transposed; under
+``mp.tensor_parallel`` each rank holds whole q and kv heads (local q heads
+over local kv heads keep the GQA grouping), f at the column-parallel
+wq / wk / wv and gate / up inputs, g at the row-parallel wo and down
+outputs, and the vocab-parallel embedding and untied head.
 """
 
 from __future__ import annotations
@@ -43,10 +48,11 @@ from horovod_tpu_torch.ops.attention import (ATTENTION_IMPLS,
                                              model_positions, sp_attention,
                                              validate_sp_config)
 from horovod_tpu_torch.ops.moe import MoEMLP
+from horovod_tpu_torch.parallel.sharding import P, PartitionRules
 from horovod_tpu_torch.utils.remat import maybe_remat
 
 __all__ = ["LlamaConfig", "Llama", "RMSNorm", "apply_rope", "loss_fn",
-           "loss_fn_moe"]
+           "loss_fn_moe", "partition_rules"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +145,11 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
+    """Grouped-query attention over the q and kv heads its weights hold:
+    all of them, or this rank's whole heads under tensor parallelism."""
+
+    tp = None
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         hd = cfg.d_model // cfg.num_heads
@@ -150,9 +161,11 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, segment_ids=None):
         cfg = self.cfg
-        b, t, d = x.shape
-        h, hkv = cfg.num_heads, cfg.num_kv_heads
-        hd = d // h
+        b, t, _ = x.shape
+        hd = cfg.d_model // cfg.num_heads
+        h, hkv = self.wq.weight.shape[0] // hd, self.wk.weight.shape[0] // hd
+        if self.tp is not None:
+            x = self.tp.f(x)
         q = apply_rope(self.wq(x).reshape(b, t, h, hd), positions,
                        cfg.rope_theta)
         k = apply_rope(self.wk(x).reshape(b, t, hkv, hd), positions,
@@ -162,11 +175,13 @@ class Attention(nn.Module):
             k = k.repeat_interleave(h // hkv, dim=2)
             v = v.repeat_interleave(h // hkv, dim=2)
         o = sp_attention(q, k, v, cfg, segment_ids=segment_ids)
-        return self.wo(o.reshape(b, t, d))
+        return self.wo(o.reshape(b, t, h * hd))
 
 
 class SwiGLU(nn.Module):
     """``forward(x)`` -> (out, the MoE aux loss or None)."""
+
+    tp = None
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -183,6 +198,8 @@ class SwiGLU(nn.Module):
     def forward(self, x):
         if hasattr(self, "moe"):
             return self.moe(x)
+        if self.tp is not None:
+            x = self.tp.f(x)
         return self.down(F.silu(self.gate(x)) * self.up(x)), None
 
 
@@ -211,6 +228,8 @@ class Llama(nn.Module):
     ``generator`` (default: a CPU generator seeded with 0) draws the
     initial weights as the reference's initializers shape them.
     """
+
+    tp = None
 
     def __init__(self, cfg: LlamaConfig,
                  generator: Optional[torch.Generator] = None):
@@ -243,12 +262,33 @@ class Llama(nn.Module):
         # positions.
         pos = model_positions(cfg, tokens.shape[1], tokens.device,
                               segment_ids, positions)
-        x = self.wte[tokens].to(cfg.dtype)
+        emb = self.wte[tokens] if self.tp is None else \
+            self.tp.embed(self.wte, tokens)
+        x = emb.to(cfg.dtype)
         aux = []
         for block in self.h:
             x, a = maybe_remat(cfg, block)(x, pos, segment_ids)
             if a is not None:
                 aux.append(a)
         x = self.norm_f(x)
+        if self.tp is not None:
+            x = self.tp.f(x)
         logits = torch.einsum("btd,vd->btv", x.float(), self.lm_head.float())
         return (logits, stack_aux(aux, logits)) if return_aux else logits
+
+
+def partition_rules() -> PartitionRules:
+    """The reference's Megatron tp rule set (``horovod_tpu/models/llama.py``
+    ``partition_rules``) over the port's parameter names, each (in, out)
+    kernel's spec transposed for the (out, in) weight: column-parallel
+    wq / wk / wv / gate / up split their output rows, row-parallel wo /
+    down their input columns, the embedding and the head their vocab rows;
+    the norms are replicated and the MoE experts keep their ``ep`` rule."""
+    return PartitionRules([
+        (r"wte$", P("tp", None)),
+        (r"lm_head$", P("tp", None)),
+        (r"(wq|wk|wv|gate|up)\.weight$", P("tp", None)),
+        (r"(wo|down)\.weight$", P(None, "tp")),
+        (r"moe\.(w_gate|w_in|w_out)$", P("ep", None, None)),
+        (r"(norm_attn|norm_mlp|norm_f)\.weight$", P()),
+    ])

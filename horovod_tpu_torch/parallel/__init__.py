@@ -1,9 +1,10 @@
 """Model-parallel layouts of the port: named meshes over the world's ranks
 (``mesh.py``), sharding rules (``sharding.py``), FSDP / ZeRO-3
-(``fsdp.py``), ZeRO-2 and the ``zero3_*`` surface (``mp.py``) and
-Megatron's conjugate operators (``conjugate.py``). Port of
-``horovod_tpu/parallel``; its tensor-parallel splits and decode steps,
-pipelines and schedule tables wait for ``ROADMAP.md`` items 8b and 8c.
+(``fsdp.py``), Megatron tensor parallelism (the weight splits, training
+and decode), ZeRO-2 and the ``zero3_*`` surface (``mp.py``) and Megatron's
+conjugate operators (``conjugate.py``). Port of ``horovod_tpu/parallel``;
+the ``ep`` and ``sp`` axes wait for ``ROADMAP.md`` item 8b-ii, pipelines
+and their schedule tables for item 8c.
 """
 
 from horovod_tpu_torch.parallel.conjugate import (  # noqa: F401
@@ -18,8 +19,11 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     validate_mesh,
 )
 from horovod_tpu_torch.parallel.mp import (  # noqa: F401
-    MP_AXIS, gather_shard, zero2_grad_shard, zero2_update, zero3_adamw,
-    zero3_apply, zero3_scan_blocks, zero3_shard_params,
+    MP_AXIS, TensorParallel, gather_shard, merge_params, mp_broadcast,
+    mp_fetch, mp_partition_rules, mp_stack, param_bytes, split_params,
+    tensor_parallel, tp_decode_step, tp_decode_verify_step, validate_tp,
+    vocab_parallel_loss, wrap_spmd, zero2_grad_shard, zero2_update,
+    zero3_adamw, zero3_apply, zero3_scan_blocks, zero3_shard_params,
     zero3_stack_layer_shards,
 )
 from horovod_tpu_torch.parallel.sharding import (  # noqa: F401

@@ -144,8 +144,12 @@ def make_mesh(axes: Dict[str, int],
     sets = {}
     for j, name in enumerate(names):
         lines = np.moveaxis(arr, j, -1).reshape(-1, sizes[j])
+        key = ("line", name, names, tuple(sizes),
+               tuple(int(d) for d in arr.ravel()))
         for line in lines:
             ps = _line_set(line, world, rank)
+            if ps is not None and ps.ranks is not None:
+                ps.line_key = key
             if rank in line.tolist():
                 sets[name] = ps
     return Mesh(arr, names, sets)

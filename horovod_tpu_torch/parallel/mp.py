@@ -1,38 +1,82 @@
-"""ZeRO-2 and ZeRO-3 over the named ``dp x mp`` mesh (``HOROVOD_MESH``).
+"""Model parallelism over the named ``dp x mp`` mesh (``HOROVOD_MESH``).
 
-Port of the ZeRO part of ``horovod_tpu/parallel/mp.py``: gradients
-reduce-scatter to their owner's flat chunk, and parameters all-gather just
-in time per block. ZeRO-3 is ``parallel/fsdp.py``'s machinery under the
-``zero3_*`` names, with a ``wire=`` option that puts the parameter
-all-gathers on the bf16 wire or the int8 / fp8 block formats of
-``ops/quantized.py`` (lossy; the exact fp32 path is the default).
-``process_set=`` (default: the global set) takes the place of
-``axis_name=``, and every state is this rank's row, as in ZeRO-1
-(``optimizer_sharded.py``).
+Port of ``horovod_tpu/parallel/mp.py``. One process drives one GPU, so
+where the reference lifts a program into ``shard_map`` over the ``"mp"``
+axis and lets GSPMD place the collectives, the port's models place them
+themselves, over this rank's line of the mesh (a process set). Three
+consumers:
 
-The tensor-parallel part of the reference's ``mp.py`` (``validate_tp``,
-``mp_partition_rules``, ``split_params`` / ``merge_params``, the
-tensor-parallel decode steps, ``mp_stack`` / ``wrap_spmd``) waits for
-item 8b of ``ROADMAP.md``.
+* **Tensor-parallel training.** :func:`mp_partition_rules` maps the model
+  zoo's Megatron rule sets (``models/gpt2.py`` / ``llama.py``
+  ``partition_rules``, over the port's parameter names) onto the ``"mp"``
+  axis. :func:`tensor_parallel` turns a built GPT-2 or Llama into this
+  rank's part (:func:`split_params`): Megatron's f
+  (``identity_fwd_psum_bwd``) at each column-parallel input, g
+  (``psum_fwd_identity_bwd``) at each row-parallel output with the
+  replicated bias added once after the sum, the vocab-parallel embedding
+  and head, and the attention at the local head count (so the flash
+  kernels run at B * H / mp heads). The model returns this rank's
+  (B, T, V/mp) logits, and :func:`vocab_parallel_loss` is the exact cross
+  entropy over them: one max, one sum of exponentials and one target
+  logit, reduced over the set; the logits are never gathered. At mp = 1
+  nothing changes: the model is the dense one and the loss is
+  ``loss_fn``; so it is under ``HOROVOD_MP_RULES=off``, which
+  :func:`mp_partition_rules` maps to no split at all. On a dp x mp mesh ``DistributedOptimizer`` averages over
+  the dp set only, and the ranks of one mp set take the same batch.
+* **ZeRO-2 / ZeRO-3 training**: gradients reduce-scatter to their owner's
+  flat chunk, and parameters all-gather just in time per block. ZeRO-3 is
+  ``parallel/fsdp.py``'s machinery under the ``zero3_*`` names, with a
+  ``wire=`` option that puts the parameter all-gathers on the bf16 wire or
+  the int8 / fp8 block formats of ``ops/quantized.py`` (lossy; the exact
+  fp32 path is the default). Every state is this rank's row, as in ZeRO-1
+  (``optimizer_sharded.py``).
+* **Tensor-parallel decode**: :func:`tp_decode_step` and
+  :func:`tp_decode_verify_step` run ``models/generate.py``'s registry
+  steps over a model that holds :func:`split_params`' part, wired as
+  :func:`tensor_parallel` wires it, and a cache of Hkv/mp kv heads; the
+  head gathers the vocab slices in rank order, so the logits come back
+  whole. At mp = 1 a step is ``decode_step`` itself.
+
+``process_set=`` takes the place of the reference's ``axis=`` /
+``axis_name=``; its default is the mp set that :func:`wrap_spmd` put in
+scope, else this rank's line of ``core.mesh2d()``'s mp axis.
+:func:`mp_stack`, :func:`mp_broadcast` and :func:`mp_fetch` are thin here:
+this rank's row on its device, a value on the device, the host value.
+
+Numerical contract (the reference's): replicated activations agree bit
+for bit across the mp ranks (every member receives the same sum), the
+column-parallel products and the vocab-parallel embedding are exact
+against the replicated ones, and the row-parallel sums differ from the
+replicated product only by the order of the terms.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from horovod_tpu_torch.optimizer_sharded import (ShardedAdamWState,
                                                  _adamw_chunk_update,
                                                  _flatten, _unflatten)
 from horovod_tpu_torch.parallel import fsdp as _fsdp
+from horovod_tpu_torch.parallel.conjugate import (identity_fwd_psum_bwd,
+                                                  psum_fwd_identity_bwd)
 from horovod_tpu_torch.parallel.fsdp import (fsdp_adamw, fsdp_apply,
                                              fsdp_scan_blocks,
                                              fsdp_shard_params,
                                              stack_layer_shards)
+from horovod_tpu_torch.parallel.sharding import (P, PartitionRules,
+                                                 _map_with_path)
 
 __all__ = [
-    "MP_AXIS", "gather_shard",
+    "MP_AXIS", "validate_tp", "mp_partition_rules",
+    "split_params", "merge_params", "param_bytes",
+    "tp_decode_step", "tp_decode_verify_step", "wrap_spmd",
+    "mp_stack", "mp_broadcast", "mp_fetch",
+    "TensorParallel", "tensor_parallel", "vocab_parallel_loss",
+    "gather_shard",
     "zero3_shard_params", "zero3_apply", "zero3_scan_blocks",
     "zero3_stack_layer_shards", "zero3_adamw",
     "zero2_grad_shard", "zero2_update",
@@ -48,6 +92,467 @@ zero3_scan_blocks = fsdp_scan_blocks
 zero3_stack_layer_shards = stack_layer_shards
 zero3_adamw = fsdp_adamw
 
+# The mp sets that wrap_spmd put in scope, innermost last.
+_SCOPE: list = []
+
+
+def _mp_set(process_set=None):
+    """``process_set``, else the one in :func:`wrap_spmd`'s scope, else
+    this rank's line of ``mesh2d()``'s mp axis."""
+    if process_set is not None:
+        return process_set
+    if _SCOPE:
+        return _SCOPE[-1]
+    from horovod_tpu_torch import core
+    return core.mesh2d().process_set(MP_AXIS)
+
+
+# ---------------------------------------------------------------------------
+# validation and partition rules
+# ---------------------------------------------------------------------------
+
+def _family(cfg):
+    from horovod_tpu_torch.models.generate import decode_family
+    return decode_family(cfg)
+
+
+def validate_tp(cfg, mp: int) -> None:
+    """Raise unless ``cfg`` splits cleanly over ``mp`` tensor-parallel
+    ranks: heads, kv heads, the MLP width and the vocab must all divide
+    (the splits are head / vocab aligned, not element-striped)."""
+    fam = _family(cfg)
+    if fam.name not in ("gpt2", "llama"):
+        raise NotImplementedError(
+            f"tensor parallelism is implemented for the gpt2/llama "
+            f"families, not {fam.name!r}")
+    if mp < 1:
+        raise ValueError(f"mp degree must be >= 1, got {mp}")
+    if cfg.num_heads % mp:
+        raise ValueError(
+            f"mp={mp} must divide num_heads={cfg.num_heads} "
+            f"(attention splits by whole heads)")
+    kv = fam.kv_heads(cfg)
+    if kv % mp:
+        raise ValueError(
+            f"mp={mp} must divide num_kv_heads={kv} "
+            f"(the KV pool splits by whole kv heads)")
+    if cfg.vocab_size % mp:
+        raise ValueError(
+            f"mp={mp} must divide vocab_size={cfg.vocab_size} "
+            f"(the embedding/logits head splits by vocab rows)")
+    d_ff = getattr(cfg, "d_ff", 4 * cfg.d_model)
+    if d_ff % mp:
+        raise ValueError(
+            f"mp={mp} must divide the MLP width {d_ff}")
+
+
+def mp_partition_rules(cfg, rules: Optional[str] = None) -> PartitionRules:
+    """The model family's Megatron rule set rebased onto the ``"mp"``
+    axis. ``rules`` is the ``HOROVOD_MP_RULES`` mode (default: the config
+    knob): ``"auto"`` and ``"megatron"`` both give the family's column /
+    row split; ``"off"`` replicates everything (the debugging escape hatch
+    that keeps the mesh but removes the sharding)."""
+    if rules is None:
+        from horovod_tpu_torch.config import get_config
+        rules = get_config().mp_rules
+    if rules == "off":
+        return PartitionRules([])
+    fam = _family(cfg)
+    if fam.name == "gpt2":
+        from horovod_tpu_torch.models.gpt2 import partition_rules as base
+    elif fam.name == "llama":
+        from horovod_tpu_torch.models.llama import partition_rules as base
+    else:
+        raise NotImplementedError(
+            f"no mp rule set for the {fam.name!r} family")
+    return PartitionRules([
+        (pat.pattern, P(*(MP_AXIS if s == "tp" else s for s in spec)))
+        for pat, spec in base().rules])
+
+
+# ---------------------------------------------------------------------------
+# explicit weight splitting (the layout of tensor-parallel training and
+# decode)
+# ---------------------------------------------------------------------------
+
+def param_bytes(tree) -> int:
+    """Total bytes of a tree of tensors or arrays (the per-rank footprint
+    metric)."""
+    sizes = []
+    _map_with_path(lambda _, x: sizes.append(
+        x.numel() * x.element_size() if torch.is_tensor(x)
+        else np.asarray(x).nbytes), tree)
+    return sum(sizes)
+
+
+def _kind(rules: PartitionRules, name: str) -> str:
+    """How parameter ``name`` splits under ``rules`` (an
+    :func:`mp_partition_rules` set): ``"rows"`` of the (out, in) weight
+    for ``P("mp", None)`` / ``P("mp")`` (column-parallel weights and biases,
+    the vocab tables), ``"cols"`` for ``P(None, "mp")`` (row-parallel),
+    ``"qkv"`` for GPT-2's packed q | k | v rows (by whole heads), anything
+    else ``"whole"`` (wpe, the norms, the row-parallel biases)."""
+    spec = tuple(rules.spec_for(name))
+    if spec[:1] == (MP_AXIS,):
+        return "qkv" if ".attn.qkv." in name else "rows"
+    if spec == (None, MP_AXIS):
+        return "cols"
+    return "whole"
+
+
+def _split_one(kind: str, v: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    if kind == "rows":
+        c = v.shape[0] // n
+        return v[r * c:(r + 1) * c]
+    if kind == "cols":
+        c = v.shape[1] // n
+        return v[:, r * c:(r + 1) * c]
+    if kind == "qkv":
+        # (3 * H * hd, ...) rows, head-major within each of q, k and v: a
+        # contiguous run of H * hd / n rows of each is whole heads. A
+        # contiguous block of all the rows would put q alone on rank 0.
+        rest = tuple(v.shape[1:])
+        return v.reshape((3, n, v.shape[0] // (3 * n)) + rest)[:, r] \
+            .reshape((-1,) + rest)
+    return v
+
+
+def _merge_one(kind: str, vs) -> torch.Tensor:
+    if kind == "rows":
+        return torch.cat(vs, 0)
+    if kind == "cols":
+        return torch.cat(vs, 1)
+    if kind == "qkv":
+        rest = tuple(vs[0].shape[1:])
+        return torch.stack([v.reshape((3, -1) + rest) for v in vs], 1) \
+            .reshape((-1,) + rest)
+    return vs[0]
+
+
+def _check_splittable(cfg, mp: int):
+    validate_tp(cfg, mp)
+    if getattr(cfg, "num_experts", 0) > 0:
+        raise NotImplementedError(
+            "tensor parallelism of MoE experts (the ep axis) is not "
+            "ported yet (ROADMAP.md item 8b-ii)")
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v.detach() if torch.is_tensor(v) else torch.as_tensor(
+        np.asarray(v))
+
+
+def split_params(cfg, params, mp: int, rank: int):
+    """Rank ``rank``'s 1/mp part of a state dict in the port's layout
+    (``{name: tensor}``, ``nn.Linear``'s (out, in) weights; numpy arrays
+    are taken too): column-parallel weights (GPT-2's qkv by whole heads,
+    fc; Llama's wq / wk / wv, gate, up) by output rows, row-parallel ones
+    (out, proj; wo, down) by input columns, ``wte`` and Llama's
+    ``lm_head`` by vocab rows; ``wpe``, the norms and the row-parallel
+    biases whole. The parts are views of ``params`` where a slice allows.
+    ``mp == 1`` returns the dict as it is."""
+    _check_splittable(cfg, mp)
+    if not 0 <= rank < mp:
+        raise ValueError(f"rank {rank} outside the mp={mp} axis")
+    if mp == 1:
+        return {k: _as_tensor(v) for k, v in params.items()}
+    rules = mp_partition_rules(cfg, "megatron")
+    return {k: _split_one(_kind(rules, k), _as_tensor(v), mp, rank)
+            for k, v in params.items()}
+
+
+def merge_params(cfg, parts):
+    """Inverse of :func:`split_params`: the whole state dict from all
+    ``mp`` parts in rank order (checkpoint resharding onto another mp
+    degree re-splits the merged dict)."""
+    _check_splittable(cfg, len(parts))
+    rules = mp_partition_rules(cfg, "megatron")
+    return {k: _merge_one(_kind(rules, k), [_as_tensor(p[k])
+                                             for p in parts])
+            for k in parts[0]}
+
+
+# ---------------------------------------------------------------------------
+# this rank's row of the mp axis
+# ---------------------------------------------------------------------------
+
+def mp_stack(fn: Callable[[int], Any], mesh):
+    """``fn(r)`` for this rank's coordinate ``r`` on ``mesh``'s mp axis,
+    its leaves as tensors on this rank's device. The reference stacks the
+    rows of every mp coordinate into global arrays; one process drives
+    one device here, so a rank builds and holds its own row only."""
+    from horovod_tpu_torch import core
+    dev = core.device()
+    return _map_with_path(lambda _, x: torch.as_tensor(x).to(dev),
+                          fn(mesh.coords(core.rank())[MP_AXIS]))
+
+
+def mp_broadcast(tree, mesh):
+    """A value every rank computed alike (the step's tokens and
+    positions), on this rank's device."""
+    return mp_stack(lambda r: tree, mesh)
+
+
+def mp_fetch(x) -> np.ndarray:
+    """A replicated result (greedy picks, gathered logits) back on the
+    host."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def wrap_spmd(body: Callable, mesh) -> Callable:
+    """A callable that runs ``body`` with this rank's line of ``mesh``'s mp
+    axis in scope: the default ``process_set`` of the tensor-parallel
+    steps and of :class:`TensorParallel` inside it. The reference lifts
+    ``body`` into ``shard_map`` over the ``"mp"`` axis; here each process
+    is one position on that axis already."""
+    ps = mesh.process_set(MP_AXIS)
+
+    def wrapped(*args, **kwargs):
+        _SCOPE.append(ps)
+        try:
+            return body(*args, **kwargs)
+        finally:
+            _SCOPE.pop()
+
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training
+# ---------------------------------------------------------------------------
+
+def _masked_lookup(table: torch.Tensor, tok: torch.Tensor,
+                   rank: int) -> torch.Tensor:
+    """The rows of a vocab-sliced ``table`` for the ids this rank owns,
+    zeros elsewhere: summed over the ranks they are the replicated lookup,
+    bit for bit (x + 0 == x)."""
+    vl = table.shape[0]
+    lo = rank * vl
+    e = table[(tok - lo).clamp(0, vl - 1)]
+    ok = ((tok >= lo) & (tok < lo + vl))[..., None]
+    return torch.where(ok, e, torch.zeros((), dtype=e.dtype,
+                                          device=e.device))
+
+
+class TensorParallel:
+    """This rank's place in a tensor-parallel set (default: the mp set in
+    scope, see the module docstring): ``f`` and ``g`` over it, the max, the
+    vocab-parallel lookup and the gather of vocab slices.
+    :func:`tensor_parallel` hangs one on a model's modules."""
+
+    def __init__(self, process_set=None):
+        ps = _mp_set(process_set)
+        self.process_set = ps
+        self.size, self.rank = ps.size(), ps.rank()
+        self.f = identity_fwd_psum_bwd(ps)
+        self.g = psum_fwd_identity_bwd(ps)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the set (no gradient)."""
+        from horovod_tpu_torch import collective as C
+        return C._in_step_allreduce(x.detach().contiguous(), C.Max,
+                                    self.process_set, name="tp/max")
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor):
+        """The vocab-parallel embedding: this rank's rows, one sum over the
+        set (its gradient reaches the rows this rank owns)."""
+        return self.g(_masked_lookup(table, tokens, self.rank))
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B, V/mp) slices -> the (B, V) logits, the ranks' slices in
+        order (decode's head; no gradient)."""
+        from horovod_tpu_torch import collective as C
+        b, vl = logits.shape
+        flat = C._in_step_allgather(logits.contiguous().reshape(-1),
+                                    self.process_set, name="tp/logits")
+        return flat.reshape(self.size, b, vl).permute(1, 0, 2) \
+            .reshape(b, self.size * vl)
+
+    def __repr__(self) -> str:
+        return f"TensorParallel(rank {self.rank} of {self.process_set})"
+
+
+def _wire(model, tp: TensorParallel):
+    """Hang ``tp`` on ``model``'s modules, whose parameters are this rank's
+    :func:`split_params` part: the attention, the MLP and the model place f
+    and the vocab-parallel lookup, each row-parallel ``Dense`` sums its
+    partial product with g before its bias."""
+    from horovod_tpu_torch.models.gpt2 import Dense
+    rules = mp_partition_rules(model.cfg, "megatron")
+    for name, m in model.named_modules():
+        if "tp" in vars(type(m)):
+            m.tp = tp
+        if isinstance(m, Dense) and _kind(rules, f"{name}.weight") == "cols":
+            m.reduce = tp.g
+
+
+def _rules_off() -> bool:
+    from horovod_tpu_torch.config import get_config
+    return get_config().mp_rules == "off"
+
+
+def tensor_parallel(model, process_set=None):
+    """Turn a built GPT-2 or Llama into this rank's tensor-parallel part, in
+    place, and return it. Each parameter becomes its :func:`split_params`
+    slice of the model's own weights (every rank builds them alike), and
+    the modules place the collectives: f at the column-parallel inputs of
+    the attention, the MLP and the head, g at the row-parallel outputs
+    (the bias after the sum), the vocab-parallel embedding. The model's
+    forward then returns this rank's (B, T, V/mp) fp32 logits: train it
+    with :func:`vocab_parallel_loss`. Build the optimizer after this call.
+    Over a one-rank set, or with ``HOROVOD_MP_RULES=off`` (no weight is
+    split: every rank holds and runs the whole model, and
+    :func:`vocab_parallel_loss` is ``loss_fn``), the model is returned
+    unchanged.
+
+    The reference annotates the whole parameters with
+    :func:`mp_partition_rules` and lets GSPMD place the same collectives."""
+    cfg = model.cfg
+    tp = TensorParallel(process_set)
+    _check_splittable(cfg, tp.size)
+    if cfg.use_ring_attention:
+        raise NotImplementedError(
+            "sequence x tensor parallelism (an sp axis beside mp) is not "
+            "ported yet (ROADMAP.md item 8b-ii)")
+    if model.tp is not None:
+        raise ValueError(f"the model is tensor-parallel already ({model.tp})")
+    if tp.size == 1 or not mp_partition_rules(cfg).rules:
+        return model
+    part = split_params(cfg, model.state_dict(), tp.size, tp.rank)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = part[name].to(device=p.device, dtype=p.dtype,
+                                   copy=True)
+    _wire(model, tp)
+    return model
+
+
+def vocab_parallel_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                        process_set=None,
+                        segment_ids: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``loss_fn`` (next-token cross entropy; with ``segment_ids`` the
+    targets that cross a packed document boundary are left out) over
+    this rank's vocab slice of the logits, (B, T, V/mp): the row max is
+    maxed over the set, the sum of exponentials and the target's logit
+    (from the rank that owns it) summed, so every rank returns the loss of
+    the whole vocab and its logits' gradient; the logits are never
+    gathered. Over a one-rank set, or with ``HOROVOD_MP_RULES=off`` (the
+    logits are whole), it is ``loss_fn``."""
+    from horovod_tpu_torch.models.gpt2 import loss_fn
+    ps = _mp_set(process_set)
+    if ps.size() == 1 or _rules_off():
+        return loss_fn(logits, tokens, segment_ids)
+    return _vocab_parallel_loss(TensorParallel(ps), logits, tokens,
+                                segment_ids)
+
+
+def _vocab_parallel_loss(tp, logits, tokens, segment_ids=None):
+    """:func:`vocab_parallel_loss`'s arithmetic over ``tp``'s ``max`` and
+    ``g``."""
+    lg = logits[:, :-1].float()
+    tgt = tokens[:, 1:].long()
+    vl = lg.shape[-1]
+    lo = tp.rank * vl
+    m = tp.max(lg.detach().amax(-1))
+    own = (tgt >= lo) & (tgt < lo + vl)
+    t_own = lg.gather(-1, (tgt - lo).clamp(0, vl - 1)[..., None])[..., 0]
+    t_own = torch.where(own, t_own, torch.zeros((), device=lg.device))
+    se = torch.exp(lg - m[..., None]).sum(-1)
+    se, t = tp.g(torch.stack([se, t_own]))
+    ll = t - m - torch.log(se)
+    if segment_ids is None:
+        return -ll.mean()
+    w = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ll.dtype)
+    return -(ll * w).sum() / w.sum().clamp_min(1)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel decode: the models/generate.py registry steps over a
+# model that holds this rank's part
+# ---------------------------------------------------------------------------
+
+def _part_model(cfg, params, tp: TensorParallel):
+    """A GPT-2 or Llama built on the meta device whose parameters are
+    ``params`` (this rank's :func:`split_params` part, any device), wired
+    as :func:`tensor_parallel` wires it (over a one-rank set: the dense
+    model)."""
+    from horovod_tpu_torch.models.gpt2 import GPT2
+    from horovod_tpu_torch.models.llama import Llama
+    with torch.device("meta"):
+        model = (GPT2 if _family(cfg).name == "gpt2" else Llama)(cfg)
+    for name, t in params.items():
+        owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        setattr(model.get_submodule(owner), leaf,
+                torch.nn.Parameter(t, requires_grad=False))
+    if tp.size > 1:
+        _wire(model, tp)
+    return model
+
+
+def tp_decode_step(cfg, process_set=None):
+    """Tensor-parallel ``(params, cache, tok, pos, extras=None) -> (cache,
+    logits)``: the registry decode step (``models.generate.decode_step``)
+    over this rank's :func:`split_params` part and a cache of 1/mp of the
+    kv heads (``process_set``: see the module docstring). The part is put
+    into a model built on the meta device and wired as
+    :func:`tensor_parallel` wires it; the step's head gathers the vocab
+    slices, so the logits come back whole and ``greedy_token``, the verify
+    loop and sampling work unchanged. Over a one-rank set it is
+    ``decode_step`` on the whole parameters."""
+    from horovod_tpu_torch.models.generate import decode_step
+    fam = _family(cfg)
+    if fam.name not in ("gpt2", "llama"):
+        raise NotImplementedError(
+            f"tensor-parallel decode is implemented for gpt2/llama, "
+            f"not {fam.name!r}")
+    step = decode_step(cfg)
+    held = {}
+
+    def tp_step(params, cache, tok, pos, extras=None):
+        tp = TensorParallel(process_set)
+        validate_tp(cfg, tp.size)
+        key = (id(tp.process_set), tuple(map(id, params.values())))
+        if held.get("key") != key:
+            # The set and the tensors stay referenced, so their ids are not
+            # reused while the model is held.
+            held.update(key=key, refs=(tp, list(params.values())),
+                        model=_part_model(cfg, params, tp))
+        return step(held["model"], cache, tok, pos, extras)
+
+    return tp_step
+
+
+def tp_decode_verify_step(cfg, process_set=None):
+    """Tensor-parallel twin of ``models.generate.decode_verify_step``: the
+    same K-token chain (K = 1 is the one-token step) over
+    :func:`tp_decode_step`."""
+    from horovod_tpu_torch.models.generate import greedy_token
+    step = tp_decode_step(cfg, process_set)
+
+    @torch.no_grad()
+    def verify(params, cache, tok_seq, pos0, counts=None, extras=None,
+               mask_fn=None):
+        pos0 = torch.as_tensor(pos0, dtype=torch.long,
+                               device=tok_seq.device)
+        first, greedy = None, []
+        for j in range(tok_seq.shape[0]):
+            if mask_fn is not None and counts is not None:
+                cache = mask_fn(cache, j < counts)
+            cache, logits = step(params, cache, tok_seq[j], pos0 + j, extras)
+            if first is None:
+                first = logits.float()
+            greedy.append(greedy_token(logits))
+        return cache, first, torch.stack(greedy)
+
+    return verify
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-2 / ZeRO-3
+# ---------------------------------------------------------------------------
 
 def gather_shard(shard: torch.Tensor, process_set=None,
                  wire: Optional[str] = None) -> torch.Tensor:

@@ -32,6 +32,10 @@ class ProcessSet:
             None if ranks is None else sorted(int(r) for r in ranks))
         self.group = group
         self.process_set_id = process_set_id
+        # A line of a mesh axis (``parallel/mesh.py``): the key every line
+        # of that axis shares, so that ranks on sibling lines negotiate one
+        # op over their own lines as one op; None for other sets.
+        self.line_key = None
         # Set once a call of every member has made the group's NCCL
         # communicator (Adasum's subset point-to-point ops need it).
         self.p2p_ready = False

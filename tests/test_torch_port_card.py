@@ -809,3 +809,46 @@ def test_gather_shard_int8_on_card_matches_cpu(cuda_card):
     card, cpu = _one_rank("cuda", run), _one_rank("cpu", run)
     assert torch.equal(card, cpu)
     assert not torch.equal(card, torch.tensor(x0))
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_tensor_parallel_at_mp1_on_card_equals_dense(cuda_card, family):
+    """Tensor parallelism over a one-rank mp set on the card is the dense
+    model bit for bit: ``tensor_parallel`` returns the model as it is, the
+    flash forward's logits and ``vocab_parallel_loss`` equal ``loss_fn``'s,
+    and ``tp_decode_step`` over the state dict equals ``decode_step`` at
+    every position, logits and cache."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import generate as G
+    from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    from horovod_tpu_torch.parallel import mp
+    hvd.init()
+    try:
+        dev = hvd.device()
+        g = torch.Generator(device=dev).manual_seed(0)
+        tok = torch.randint(1, 256, (4, 24), generator=g, device=dev)
+        with torch.device(dev):
+            build = {"gpt2": lambda: GPT2(GPT2Config.tiny(
+                attention="flash"), g), "llama": lambda: Llama(
+                LlamaConfig.tiny(attention="flash"), g)}[family]
+            m = build()
+        dense = copy.deepcopy(m)
+        assert mp.tensor_parallel(m) is m and m.tp is None
+        with torch.no_grad():
+            lg, want = m(tok), dense(tok)
+            assert torch.equal(lg, want)
+            assert torch.equal(mp.vocab_parallel_loss(lg, tok),
+                               loss_fn(want, tok))
+        m = m.to(torch.bfloat16)
+        step, tp = G.decode_step(m.cfg), mp.tp_decode_step(m.cfg)
+        state = m.state_dict()
+        ca = G.init_cache(m.cfg, 4, 24, device=dev)
+        cb = G.init_cache(m.cfg, 4, 24, device=dev)
+        for t in range(24):
+            ca, la = step(m, ca, tok[:, t], t)
+            cb, lb = tp(state, cb, tok[:, t], t)
+            assert torch.equal(la, lb)
+        assert all(torch.equal(ca[i][k], cb[i][k]) for i in ca for k in "kv")
+    finally:
+        hvd.shutdown()
