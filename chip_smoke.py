@@ -229,19 +229,47 @@ Phases, in order; any failure exits nonzero and prints no result:
    64 new), bf16 parameters. Without phase 3 it runs phase 3's path
    itself first.
 
+14. The other mesh axes (``make_mesh`` with sp or ep beside dp and tp),
+   on a new one-rank NCCL world: (a) phase 3's GPT-2 medium through the
+   reference's dp x sp x tp step (``__graft_entry__.py:66-103``) at one
+   rank: ``mp.tensor_parallel(model, tp, sp=)`` with the flash ring over
+   the sp line, ``mp.vocab_parallel_loss(..., sp=)`` and
+   ``DistributedOptimizer`` over the dp x sp plane, 5 steps: phase 3's
+   losses bit for bit, 24 launches of each kernel a step; the three
+   kernels against their plain versions at the new shapes
+   (``MESH_SHAPES``: ``gpt2_long``'s hops at sp 2 x tp 2, BH 16, t 2048,
+   causal, full and strict; the Mixtral-style Llama at tp 2, BH 32 over 2
+   kv heads), with their times, bounds, plain times and SDPA; (b)
+   ``gpt2_long`` over 4 virtual ranks, sp 2 x tp 2, both ring layouts
+   (``sp_tp_virtual``: one thread a rank runs the port's wired model, its
+   rings over a ``Ring`` whose hops go through the threads, and the
+   port's loss), the assembled logits within twice the dense bf16
+   forward's error against fp32, every rank's loss ``loss_fn``'s on them
+   (rtol 1e-5); positions from the whole set and a loss without the
+   shift across shards must fail; (c) each MoE layer of the Mixtral-style
+   Llama-340M over 2 and 4 virtual ep ranks (``ep_virtual_layer``: the
+   port's ``MoEMLP`` with an ``ExpertParallel`` whose gather goes through
+   the threads), outputs within the layer's own bf16 error against fp32
+   (bit for bit reported), aux losses bit for bit, 1/ep of the expert
+   bytes a rank, a rank routing among its own experts with their capacity
+   outside the bound; (d) the dp x ep x tp step of the Mixtral-style Llama
+   at one rank: phase 9's ``llama_moe`` losses bit for bit, ms a step and
+   peak memory. Without phases 3 and 9 it runs their paths first.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
 (a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
-phase 12's and phase 13's paths, each counted from 0 just before the path
-and read just after) and their sum, and its numbers at each new path's
-shape (phases 5, 9, 10 (a) and 13). The last line is ``{"ok": true,
+phase 12's, phase 13's and phase 14's paths, each counted from 0 just
+before the path and read just after) and their sum, and its numbers at
+each new path's shape (phases 5, 9, 10 (a), 13 and 14). The last line is
+``{"ok": true,
 "device": {...}}``. ``--phases 1,2`` stops after the kernel checks;
 ``--phases 1,9`` runs phase 9 alone (its remat losses then compare with
 its own run without remat); ``--phases 1,10`` runs phase 10 alone;
 ``--phases 1,11`` phase 11 alone; ``--phases 1,12`` phase 12 alone;
-``--phases 1,13`` phase 13 alone.
+``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone.
 """
 
 from __future__ import annotations
@@ -1477,23 +1505,47 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
     of the batch (phase 8's two-rank worlds). ``gpt2_medium_tp`` is GPT-2
     medium through ``mp.tensor_parallel`` over the mesh's mp set and
     ``mp.vocab_parallel_loss``, its optimizer over the dp set (phase 13
-    (a))."""
+    (a)). ``gpt2_medium_sp_tp`` and ``llama_moe_ep_tp`` are the reference's
+    dryrun steps over ``make_mesh`` of the world (``dryrun_dims``): GPT-2
+    medium with the contiguous flash ring over the sp line, the
+    vocab-parallel loss over the whole sequence and the optimizer over the
+    dp x sp plane; ``llama_moe`` with E/ep experts a rank and the
+    optimizer over the dp line (phase 14)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import get_model
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import make_mesh
     g = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     opt_kw = {}
     dots = dict(remat=True, remat_policy="dots")
     info = {}
-    if name in ("gpt2_medium", "gpt2_medium_tp"):
+    if name in ("gpt2_medium", "gpt2_medium_tp", "gpt2_medium_sp_tp"):
         from horovod_tpu_torch.models.gpt2 import loss_fn
         from horovod_tpu_torch.parallel import mp
-        model = _gpt2_medium(dev, **(cfg_extra or {}))
         lm_loss = loss_fn
+        if name == "gpt2_medium_sp_tp":
+            # The reference's dp x sp x tp step: the rings over the sp
+            # line at the local head count, the loss exact over the whole
+            # sequence and the vocab slices, the optimizer over the dp x
+            # sp plane.
+            model = _gpt2_medium(dev, use_ring_attention=True)
+            mesh = make_mesh(dict(zip(("dp", "sp", "tp"),
+                                      dryrun_dims(hvd.size()))))
+            tp_set = mesh.process_set("tp")
+            model = mp.tensor_parallel(model, tp_set,
+                                       sp=mesh.process_set("sp"))
+
+            def lm_loss(logits, x):
+                return mp.vocab_parallel_loss(logits, x, tp_set,
+                                              sp=model.sp,
+                                              layout=model.cfg.ring_layout)
+            opt_kw = {"process_set": mesh.process_set(("dp", "sp"))}
+        else:
+            model = _gpt2_medium(dev, **(cfg_extra or {}))
         if name == "gpt2_medium_tp":
             # Tensor parallelism over the mesh's mp set (one rank here),
             # the optimizer over its dp set.
@@ -1586,7 +1638,7 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
         from horovod_tpu_torch.models.llama import loss_fn, loss_fn_moe
         moe = dict(num_experts=8, moe_router="top2",
                    expert_capacity_factor=1.25, **dots) \
-            if name == "llama_moe" else {}
+            if name in ("llama_moe", "llama_moe_ep_tp") else {}
         with torch.device(dev):
             model = get_model("llama", vocab_size=32000, max_seq_len=2048,
                               num_layers=24, num_heads=16, num_kv_heads=4,
@@ -1595,6 +1647,22 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
         b, t = 4, 2048
         inputs = torch.tensor(rng.integers(0, model.cfg.vocab_size, (b, t)),
                               device=dev)
+        moe_loss = loss_fn_moe
+        if name == "llama_moe_ep_tp":
+            # The reference's dp x ep x tp step: E/ep experts a rank, the
+            # tokens replicated over ep, the optimizer over the dp line.
+            from horovod_tpu_torch.parallel import mp
+            mesh = make_mesh(dict(zip(("dp", "ep", "tp"),
+                                      dryrun_dims(hvd.size()))))
+            tp_set = mesh.process_set("tp")
+            model = mp.tensor_parallel(model, tp_set,
+                                       ep=mesh.process_set("ep"))
+            opt_kw = {"process_set": mesh.process_set("dp")}
+
+            def moe_loss(m, x):
+                logits, aux = m(x, return_aux=True)
+                return mp.vocab_parallel_loss(logits, x, tp_set) \
+                    + 1e-2 * aux.mean()
         if moe:
             info["moe_steps"] = moe_steps = []
             seen = _moe_hooks(model)
@@ -1603,7 +1671,7 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
             if not moe:
                 return loss_fn(model(inputs), inputs)
             seen.clear()
-            out = loss_fn_moe(model, inputs)
+            out = moe_loss(model, inputs)
             # The forward's layers only (the recompute comes later).
             moe_steps.append(_moe_step_stats(seen, b * t, 2))
             return out
@@ -4231,11 +4299,13 @@ class _VirtualSet:
     result over all of them, in rank order, as a collective over a real
     set gives it."""
 
-    def __init__(self, n):
+    def __init__(self, n, lock=None):
         import threading
         self.n = n
         self.slots = [None] * n
-        self.lock = threading.Lock()
+        # Sets of one grid of virtual ranks share one lock: one thread of
+        # the grid runs at a time.
+        self.lock = lock or threading.Lock()
         self.barrier = threading.Barrier(n, timeout=600)
 
     def _meet(self):
@@ -4251,6 +4321,36 @@ class _VirtualSet:
         out = op(self.slots)
         self._meet()
         return out
+
+
+def _run_virtual(n, body, lock, sets):
+    """``body(r)`` on ``n`` threads, one at a time under the grid's
+    ``lock``: returns the results in rank order. A rank that raises
+    aborts the barriers of the ``_VirtualSet``s ``sets``, so the others
+    stop too, and the first error is raised after every thread has
+    stopped."""
+    import threading
+    out, errs = [None] * n, []
+
+    def run(r):
+        lock.acquire()
+        try:
+            out[r] = body(r)
+        except BaseException as e:   # noqa: BLE001 -- re-raised below
+            errs.append(e)
+            for vs in sets:
+                vs.barrier.abort()
+        finally:
+            lock.release()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
 
 
 def _virtual_tp(vset, r):
@@ -4287,7 +4387,6 @@ def tp_virtual_logits(model, tokens, mp_, fault=None):
     ``"contiguous_qkv"`` (qkv rows split in contiguous blocks, not by
     heads) or ``"bias_every_rank"`` (each rank adds the row bias before
     the sum)."""
-    import threading
     import torch
     from horovod_tpu_torch.parallel import mp
     cfg = model.cfg
@@ -4309,28 +4408,13 @@ def tp_virtual_logits(model, tokens, mp_, fault=None):
                     d.reduce = (lambda y, bias=bias, tp=tp:
                                 tp.g(y + bias.to(cfg.dtype)))
         ranks.append((m, tp))
-    out, errs = [None] * mp_, []
-
-    def run(r):
+    def body(r):
         m, tp = ranks[r]
-        vset.lock.acquire()
-        try:
-            with torch.no_grad():
-                lg = m(tokens)
-                out[r] = (lg, mp._vocab_parallel_loss(tp, lg, tokens))
-        except BaseException as e:   # noqa: BLE001 -- re-raised below
-            errs.append(e)
-            vset.barrier.abort()
-        finally:
-            vset.lock.release()
+        with torch.no_grad():
+            lg = m(tokens)
+            return lg, mp._vocab_parallel_loss(tp, lg, tokens)
 
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(mp_)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errs:
-        raise errs[0]
+    out = _run_virtual(mp_, body, vset.lock, [vset])
     return torch.cat([lg for lg, _ in out], -1), [float(x) for _, x in out]
 
 
@@ -4532,12 +4616,467 @@ def phase_tensor_parallel(card, main_path):
 
 
 
+# ---------------------------------------------------------------- phase 14
+
+def dryrun_dims(n):
+    """The reference's dryrun factorization of ``n`` ranks into (dp, sp,
+    tp) and (dp, ep, tp) (``__graft_entry__.py:69-74``, ``:107-109``):
+    8 -> (2, 2, 2), 4 -> (1, 2, 2), 2 -> (1, 1, 2), 1 -> (1, 1, 1)."""
+    tp = 2 if n % 2 == 0 else 1
+    mid = 2 if n % (2 * tp) == 0 else 1
+    return n // (tp * mid), mid, tp
+
+
+# The kernels' shapes on the other axes: gpt2_long's shard (B 2, T 4096)
+# at sp 2 x tp 2, 8 heads a rank and t 2048 a hop, in each of its hops'
+# modes (the diagonal, the contiguous ring's full hop, the striped ring's
+# strict one), and the Mixtral-style Llama-340M at tp 2 (8 heads over 2 kv
+# heads, T 2048).
+MESH_SHAPES = {
+    "gpt2_long_sp2tp2_causal": dict(b=2, h=8, t=2048, causal=True,
+                                    offset=0, hkv=8),
+    "gpt2_long_sp2tp2_full": dict(b=2, h=8, t=2048, causal=False, offset=0,
+                                  hkv=8),
+    "gpt2_long_sp2tp2_strict": dict(b=2, h=8, t=2048, causal=True,
+                                    offset=-1, hkv=8),
+    "llama_moe_tp2": dict(b=4, h=8, t=2048, causal=True, offset=0, hkv=2),
+}
+
+
+def phase_mesh_kernels():
+    """K1-K3 against their plain versions at MESH_SHAPES (a ring hop's
+    backward with an outside lse and delta, as the ring gives it), then
+    their times, bounds, plain times and SDPA with the same mask: {path:
+    {kernel: numbers}}."""
+    import torch
+    out = {}
+    for path, c in MESH_SHAPES.items():
+        b, h, t, causal, offset = c["b"], c["h"], c["t"], c["causal"], \
+            c["offset"]
+        log(f"path {path}: B {b} H {h} (B*H {b * h}) T {t} d 64 bf16 "
+            f"causal {causal} offset {offset} KV heads {c['hkv']}")
+        errs, case, outs = compare_kernels(
+            _path_inputs(b, h, t, causal, c["hkv"], False, seed=t + h + 7),
+            b, h, 64, causal, offset, BF16_TOL,
+            outside=path.startswith("gpt2_long"))
+        del outs
+        out[path] = shape_report(case, errs, b, h, t, causal, offset=offset)
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+def _virtual_ring(vset, r):
+    """Rank ``r`` of ``vset`` as an ``ops.ring_attention.Ring``: its place
+    and its reduction are the virtual set's, a hop hands each rank's
+    tensors to its neighbour through the set (``post``); the rings, the
+    merges and the losses that run over it are the port's."""
+    import torch
+    from horovod_tpu_torch.ops.ring_attention import Ring
+
+    class VirtualRing(Ring):
+        def __init__(self):
+            self.ps, self.group, self.n, self.rank = vset, None, vset.n, r
+            self.next, self.prev = (r + 1) % vset.n, (r - 1) % vset.n
+
+        def post(self, send, forward=True, into=None):
+            if self.n == 1 or not send:
+                return list(send), [], ()
+            got = vset.reduce(r, [x.contiguous() for x in send],
+                              list)[self.prev if forward else self.next]
+            if into is None:
+                return [x.clone() for x in got], [], ()
+            for buf, x in zip(into, got):
+                buf.copy_(x)
+            return list(into), [], ()
+
+        def psum(self, x):
+            return vset.reduce(r, x, lambda xs: torch.stack(xs).sum(0))
+
+    return VirtualRing()
+
+
+def sp_tp_virtual(model, tokens, sp, tp, layout, fault=None):
+    """GPT-2 ``model``'s logits and loss from ``sp`` x ``tp`` virtual ranks
+    on one card, the reference's dp x sp x tp layout at dp 1: rank (s, c)
+    holds tp part c (``split_params``, wired by ``mp._part_model``: the
+    local heads, ``Dense.reduce``, the vocab-parallel embedding), feeds
+    shard s of the tokens in ``layout``, runs the port's rings over its
+    sp line (``_virtual_ring``, bound by ``mp._bind`` as
+    ``tensor_parallel(sp=)`` binds it) and takes the port's loss
+    (``sharded_lm_loss`` over ``mp._vocab_parallel_ll``). Only the
+    collectives are the virtual sets'. Returns (the (B, T, V) logits
+    assembled from the shards, each rank's loss). ``fault`` plants
+    ``"global_positions"`` (wpe read at the positions the whole 4-rank
+    set gives: the model's wpe extended to 2T rows for that run, so the
+    wrong rows exist) or ``"no_shift"`` (each shard's loss over its own
+    next tokens, the shift across shards left out)."""
+    import dataclasses
+    import functools
+    import threading
+    import torch
+    from horovod_tpu_torch.models.gpt2 import sharded_lm_loss
+    from horovod_tpu_torch.parallel import mp
+    cfg = dataclasses.replace(model.cfg, use_ring_attention=True,
+                              ring_layout=layout)
+    full = {k: v.detach() for k, v in model.state_dict().items()}
+    b, t_all = tokens.shape
+    t = t_all // sp
+    if fault == "global_positions":
+        g = torch.Generator(device=tokens.device).manual_seed(17)
+        extra = torch.randn(full["wpe"].shape, generator=g,
+                            device=tokens.device) * 0.01
+        full["wpe"] = torch.cat([full["wpe"], extra])
+        cfg = dataclasses.replace(cfg, max_seq_len=2 * cfg.max_seq_len)
+    lock = threading.Lock()
+    tp_sets = [_VirtualSet(tp, lock) for _ in range(sp)]
+    sp_sets = [_VirtualSet(sp, lock) for _ in range(tp)]
+    whole = _VirtualSet(sp * tp, lock)
+    ranks = []
+    for s in range(sp):
+        for c in range(tp):
+            vtp = _virtual_tp(tp_sets[s], c)
+            m = mp._part_model(cfg, mp.split_params(cfg, full, tp, c), vtp)
+            mp._bind(m, "sp", _virtual_ring(sp_sets[c], s))
+            if fault == "global_positions":
+                m.sp = _virtual_ring(whole, s * tp + c)
+            shard = tokens[:, s::sp].contiguous() if layout == "striped" \
+                else tokens[:, s * t:(s + 1) * t]
+            ranks.append((m, vtp, shard))
+
+    def body(i):
+        m, vtp, shard = ranks[i]
+        ring = m.h[0].attn.sp
+        with torch.no_grad():
+            lg = m(shard)
+            if fault == "no_shift":
+                return lg, mp._vocab_parallel_loss(vtp, lg, shard)
+            return lg, sharded_lm_loss(
+                lg, shard, ring, layout,
+                functools.partial(mp._vocab_parallel_ll, vtp))
+    got = _run_virtual(sp * tp, body, lock, tp_sets + sp_sets)
+    shards = [torch.cat([got[s * tp + c][0] for c in range(tp)], -1)
+              for s in range(sp)]
+    if layout == "striped":
+        logits = torch.stack(shards, 2).reshape(b, t_all, -1)
+    else:
+        logits = torch.cat(shards, 1)
+    return logits, [float(x) for _, x in got]
+
+
+def phase_sp_tp_virtual(dev):
+    """(b) ``gpt2_long`` (GPT-2 medium at T 4096, B 2, flash) over 4
+    virtual ranks, sp 2 x tp 2 (``sp_tp_virtual``), both ring layouts,
+    against its dense one-card forward. The bound is derived on the card
+    as phase 13 (b) derives its own: the dense bf16 forward's largest
+    logit error against the same weights in fp32 (dense attention), twice
+    over. Each virtual rank's loss equals the others' and is within rtol
+    1e-5 of ``loss_fn`` over the assembled logits. The planted faults
+    (positions from the whole set, contiguous; the shift across shards
+    left out of the loss, striped) must leave the logits' bound or the
+    loss's. K1 launches: one a non-skipped hop, a layer and a rank."""
+    import torch
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.models.gpt2 import loss_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(14)
+    with torch.device(dev):
+        model = get_model("gpt2_medium", max_seq_len=4096, attention="flash",
+                          generator=g)
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 4096),
+                           generator=torch.Generator().manual_seed(14)).to(
+                               dev)
+    with torch.no_grad():
+        dense = model(tokens)
+        with torch.device(dev):
+            ref = get_model("gpt2_medium", max_seq_len=4096,
+                            attention="dense", dtype=torch.float32,
+                            generator=g)
+        ref.load_state_dict(model.state_dict())
+        exact = ref(tokens)
+        del ref
+        whole_loss = float(loss_fn(dense, tokens))
+    dense_err = _err(dense, exact)
+    tol = 2 * dense_err
+    log(f"phase 14 (b): gpt2_long's dense bf16 logits are within "
+        f"{dense_err:.4e} of its fp32 forward's; bound on a virtual sp x tp "
+        f"forward's error against either: {tol:.4e}")
+    out, launches = {"dense_err_vs_fp32": dense_err, "bound": tol,
+                     "dense_loss": whole_loss}, {}
+    layers = model.cfg.num_layers
+    # Non-skipped hops of the two sp ranks (contiguous: 1 and 2; striped:
+    # 2 and 2), on each of the 2 tp ranks.
+    want_k1 = {"contiguous": 3 * 2 * layers, "striped": 4 * 2 * layers}
+    for layout in ("contiguous", "striped"):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        got, losses = sp_tp_virtual(model, tokens, 2, 2, layout)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"gpt2_long_sp2tp2_virtual_{layout}"] = dict(fa.launches)
+        want = {"flash_fwd": want_k1[layout], "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+        if dict(fa.launches) != want:
+            fail(f"phase 14 (b) {layout}: the virtual ranks launched "
+                 f"{fa.launches}, want {want}")
+        e_dense, e_exact = _err(got, dense), _err(got, exact)
+        with torch.no_grad():
+            on_logits = float(loss_fn(got, tokens))
+        out[layout] = {"max_abs_err_vs_dense": e_dense,
+                       "max_abs_err_vs_fp32": e_exact, "wall_s": wall,
+                       "losses": losses, "loss_fn_on_logits": on_logits}
+        log(f"phase 14 (b) {layout}: sp 2 x tp 2 logits within "
+            f"{e_dense:.4e} of the dense forward's and {e_exact:.4e} of "
+            f"fp32's (bound {tol:.4e}); losses {losses}, loss_fn on the "
+            f"logits {on_logits!r} (dense forward's {whole_loss!r}); K1 "
+            f"launches {fa.launches}; {wall:.2f} s")
+        if not (e_dense <= tol and e_exact <= tol):
+            fail(f"phase 14 (b) {layout}: the virtual ranks leave the "
+                 f"bound {tol}: {e_dense} against the dense forward, "
+                 f"{e_exact} against fp32")
+        if len(set(losses)) != 1 or not math.isclose(
+                losses[0], on_logits, rel_tol=1e-5, abs_tol=0.0):
+            fail(f"phase 14 (b) {layout}: the losses {losses} are not "
+                 f"loss_fn's {on_logits} on the same logits (rtol 1e-5)")
+        del got
+    for layout, fault in (("contiguous", "global_positions"),
+                          ("striped", "no_shift")):
+        bad, losses = sp_tp_virtual(model, tokens, 2, 2, layout, fault)
+        e = _err(bad, dense)
+        rel = max(abs(x - out[layout]["loss_fn_on_logits"])
+                  / abs(out[layout]["loss_fn_on_logits"]) for x in losses)
+        out[f"planted_{fault}"] = {"logits_err": e, "loss_rel_err": rel}
+        log(f"phase 14 (b): planted {fault} ({layout}): logits {e:.4e} "
+            f"from the dense forward (bound {tol:.4e}), losses {losses} "
+            f"{rel:.3e} relative from loss_fn's (limit 1e-5)")
+        if not (e > tol or rel > 1e-5):
+            fail(f"phase 14 (b): the planted {fault} passed the checks "
+                 f"({e} <= {tol}, {rel} <= 1e-5)")
+        del bad
+    del model, dense, exact
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _virtual_ep(vset, r):
+    """Rank ``r`` of ``vset`` as an ``ops.moe.ExpertParallel``: its place
+    is the virtual set's and its all-gather concatenates the ranks' expert
+    outputs through the set; f (the identity forward) and the layer are
+    the port's."""
+    import torch
+    from horovod_tpu_torch.ops.moe import ExpertParallel
+
+    class VirtualEP(ExpertParallel):
+        def __init__(self):
+            self.process_set, self.size, self.rank = vset, vset.n, r
+            self.f = lambda x: x
+
+        def all_gather(self, x):
+            return vset.reduce(r, x.contiguous(), torch.cat)
+
+    return VirtualEP()
+
+
+def _planted_local_router(router, lo, el):
+    """The planted (c) fault: a router whose dispatch for experts [lo, lo
+    + el) comes from routing among those experts alone, with the capacity
+    of an el-expert layer, cut to the layer's C slots."""
+    import copy
+    import torch
+
+    sub = copy.deepcopy(router)
+    sub.num_experts = el
+    sub.router = torch.nn.Parameter(router.router[:, lo:lo + el].detach())
+
+    def forward(x):
+        dispatch, combine, aux = type(router).forward(router, x)
+        mine = sub(x)[0][..., :dispatch.shape[2]]
+        dispatch = dispatch.clone()
+        dispatch[:, lo:lo + el] = mine
+        return dispatch, combine, aux
+    return forward
+
+
+def ep_virtual_layer(layer, x, ep, fault=False):
+    """One MoE ``layer`` split over ``ep`` virtual ranks: rank e keeps
+    experts [e*E/ep, (e+1)*E/ep) of a copy of the layer, with a
+    ``_virtual_ep`` on its ``ep``, and runs the port's ``MoEMLP.forward``
+    on the same tokens ``x``. Returns each rank's (out, aux) and its
+    expert bytes. ``fault`` plants ``_planted_local_router`` on rank 1."""
+    import copy
+    import threading
+    import torch
+    from horovod_tpu_torch.parallel import mp
+    e = layer.router.num_experts
+    el = e // ep
+    lock = threading.Lock()
+    vset = _VirtualSet(ep, lock)
+    ranks = []
+    for r in range(ep):
+        part = copy.copy(layer)
+        part._parameters = dict(layer._parameters)
+        for name in ("w_in", "w_out", "w_gate", "b_in", "b_out"):
+            if name in part._parameters:
+                part._parameters[name] = torch.nn.Parameter(
+                    layer._parameters[name].detach()[r * el:(r + 1) * el],
+                    requires_grad=False)
+        part.ep = _virtual_ep(vset, r)
+        if fault and r == 1:
+            part._modules = dict(layer._modules)
+            part._modules["router"] = copy.copy(layer.router)
+            part._modules["router"].forward = _planted_local_router(
+                layer.router, r * el, el)
+        ranks.append(part)
+
+    def body(r):
+        with torch.no_grad():
+            return ranks[r](x)
+    outs = _run_virtual(ep, body, lock, [vset])
+    nbytes = [mp.param_bytes({k: v for k, v in p._parameters.items()
+                              if k != "router"}) for p in ranks]
+    return outs, nbytes
+
+
+def phase_ep_virtual(dev):
+    """(c) The Mixtral-style Llama-340M of phase 9 (8 experts, top-2,
+    SwiGLU, B 4, T 2048): each MoE layer's input from one dense forward,
+    then the layer split over 2 and 4 virtual ep ranks
+    (``ep_virtual_layer``): every rank's output within the layer's own
+    bound (its bf16 output's largest error against the same layer in
+    fp32; bit for bit is reported) and its aux loss bit for bit the dense
+    layer's, every rank holding 1/ep of the expert bytes; the planted
+    router (rank 1 routing among its own experts with their capacity)
+    must leave the bound on every layer."""
+    import copy
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.ops.moe import MoEMLP
+    from horovod_tpu_torch.parallel import mp
+    g = torch.Generator(device=dev).manual_seed(15)
+    with torch.device(dev):
+        model = get_model("llama", vocab_size=32000, max_seq_len=2048,
+                          num_layers=24, num_heads=16, num_kv_heads=4,
+                          d_model=1024, d_ff=2816, attention="flash",
+                          num_experts=8, moe_router="top2",
+                          expert_capacity_factor=1.25, generator=g)
+    tokens = torch.tensor(np.random.default_rng(15).integers(
+        0, 32000, (4, 2048)), device=dev)
+    seen = []
+    layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o: seen.append((mod, i[0].detach(), o[0].detach(),
+                                       o[1].detach()))) for m in layers]
+    with torch.no_grad():
+        model(tokens)
+        for h in hooks:
+            h.remove()
+        # Each layer's bound: its bf16 output's error against the same
+        # layer computing in fp32 (the same routing: the router is fp32).
+        bounds = []
+        for layer, x, want, _ in seen:
+            f32 = copy.copy(layer)
+            f32.dtype = torch.float32
+            bounds.append(_err(want, f32(x.float())[0]))
+    out = {"layers": len(seen), "smallest_bound": min(bounds)}
+    for ep in (2, 4):
+        worst, exact, faults, ratios = 0.0, True, [], set()
+        for (layer, x, want, want_aux), bound in zip(seen, bounds):
+            outs, nbytes = ep_virtual_layer(layer, x, ep)
+            whole = mp.param_bytes({k: v for k, v in
+                                    layer._parameters.items()})
+            ratios.update(nb / whole for nb in nbytes)
+            for o, aux in outs:
+                err = _err(o, want)
+                exact = exact and torch.equal(o, want)
+                if not torch.equal(aux, want_aux):
+                    fail(f"phase 14 (c): ep {ep} aux loss {aux.item()} is "
+                         f"not the dense layer's {want_aux.item()}")
+                if err > bound:
+                    fail(f"phase 14 (c): ep {ep} output {err} from the "
+                         f"dense layer's, beyond its bound {bound}")
+                worst = max(worst, err)
+            bad, _ = ep_virtual_layer(layer, x, ep, fault=True)
+            faults.append(min(_err(o, want) / bound for o, _ in bad))
+            del outs, bad
+        if ratios != {1.0 / ep}:
+            fail(f"phase 14 (c): ep {ep} ranks hold {sorted(ratios)} of the "
+                 f"expert bytes, want {1.0 / ep}")
+        if not min(faults) > 1.0:
+            fail(f"phase 14 (c): the planted router at ep {ep} stayed "
+                 f"within the bound on a layer ({min(faults)} of it)")
+        out[f"ep{ep}"] = {"max_abs_err": worst, "bit_for_bit": exact,
+                          "expert_bytes_share": 1.0 / ep,
+                          "planted_min_share_of_bound": min(faults)}
+        log(f"phase 14 (c): {len(seen)} MoE layers over {ep} virtual ep "
+            f"ranks: outputs within {worst:.4e} of the dense layers' "
+            f"(bit for bit: {exact}; the smallest layer bound "
+            f"{min(bounds):.4e}), "
+            f"aux losses bit for bit, 1/{ep} of the expert bytes a rank; "
+            f"the planted router {min(faults):.1f}x the bound or more")
+    del model, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(card, main_path, moe_run):
+    """Phase 14 on a new one-rank NCCL world: (a) GPT-2 medium through the
+    reference's dp x sp x tp step at one rank (``gpt2_medium_sp_tp``):
+    phase 3's losses bit for bit, 24 launches of each kernel a step; the
+    kernels at MESH_SHAPES; (b) ``phase_sp_tp_virtual``; (c)
+    ``phase_ep_virtual``; (d) the dp x ep x tp step of the Mixtral-style
+    Llama at one rank (``llama_moe_ep_tp``), phase 9's ``llama_moe``
+    losses bit for bit, with (a)'s and (d)'s ms a step and peak memory.
+    Without phases 3 and 9 it runs their paths itself first."""
+    import torch
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    t0 = time.perf_counter()
+    if main_path is None:
+        main_path = phase_train_path("gpt2_medium", card, dev)
+    a = phase_train_path("gpt2_medium_sp_tp", card, dev)
+    if a["losses"] != main_path["losses"]:
+        fail(f"phase 14 (a): the dp x sp x tp step's losses {a['losses']} "
+             f"are not phase 3's {main_path['losses']} bit for bit")
+    log(f"phase 14 (a): GPT-2 medium through the dp x sp x tp step at one "
+        f"rank: losses equal phase 3's bit for bit; "
+        f"{a['step_ms_median']:.1f} ms a step (phase 3: "
+        f"{main_path['step_ms_median']:.1f}), peak {a['peak_gib']:.2f} GiB")
+    launches = {"gpt2_medium_sp_tp": a.pop("launches")}
+    kernels = phase_mesh_kernels()
+    b, virt = phase_sp_tp_virtual(dev)
+    launches.update(virt)
+    c = phase_ep_virtual(dev)
+    if moe_run is None:
+        moe_run = phase_train_path("llama_moe", card, dev)
+        launches["llama_moe"] = moe_run.pop("launches")
+    d = phase_train_path("llama_moe_ep_tp", card, dev)
+    launches["llama_moe_ep_tp"] = d.pop("launches")
+    if d["losses"] != moe_run["losses"]:
+        fail(f"phase 14 (d): the dp x ep x tp step's losses {d['losses']} "
+             f"are not llama_moe's {moe_run['losses']} bit for bit")
+    log(f"phase 14 (d): the Mixtral-style Llama through the dp x ep x tp "
+        f"step at one rank: losses equal llama_moe's bit for bit; "
+        f"{d['step_ms_median']:.1f} ms a step (llama_moe: "
+        f"{moe_run['step_ms_median']:.1f}), peak {d['peak_gib']:.2f} GiB")
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "sp_tp_step": a, "virtual_sp_tp": b,
+            "virtual_ep": c, "ep_tp_step": d, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12,13; 6, 7 and 8 need "
-                         "3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14; 6, 7 and 8 "
+                         "need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -4609,6 +5148,13 @@ def main(argv=None) -> int:
         launches.update(tp.pop("launches"))
         shapes.update(tp.pop("kernels"))
         print(json.dumps({"phase13": tp}), flush=True)
+    if 14 in phases:
+        mesh = phase_mesh(card, main_path if 3 in phases else None,
+                          zoo["trained"]["llama_moe"] if 9 in phases
+                          else None)
+        launches.update(mesh.pop("launches"))
+        shapes.update(mesh.pop("kernels"))
+        print(json.dumps({"phase14": mesh}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -9,7 +9,11 @@ The rendezvous comes from the environment (``config.py``): ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT`` as ``python -m horovod_tpu_torch.runner`` sets them. A
 one-process world with no ``MASTER_*`` gets a private store on a free
-localhost port, so a single script needs no launcher.
+localhost port, so a single script needs no launcher. Rank 0 serves the
+rendezvous store for as long as its process lives, and each ``init`` forms
+its world under a prefix of its own over it, so an elastic reset
+(``shutdown()`` + ``init()`` on the same address) never meets the store
+of the world before, nor the addresses that world left there.
 
 The controller (``collective.py``) runs its host rounds -- negotiation and
 object collectives -- on a control group over the whole world. On a NCCL
@@ -109,6 +113,25 @@ def _resolve_device(device, local_rank: int) -> torch.device:
 # How long a rank waits for the others at rendezvous and in a collective.
 _TIMEOUT = datetime.timedelta(seconds=300)
 
+# (MASTER_ADDR, MASTER_PORT) -> [the rendezvous store there, the number of
+# worlds this process has formed over it] (see the module docstring).
+_STORES: dict = {}
+
+
+def _rendezvous(cfg):
+    """The store of this init's world: the process's store at the
+    configured address, under the prefix of its next world. The ranks of
+    one address are launched together and re-form together, so they count
+    its worlds alike."""
+    entry = _STORES.get((cfg.master_addr, cfg.master_port))
+    if entry is None:
+        store = dist.TCPStore(cfg.master_addr, cfg.master_port,
+                              is_master=cfg.rank == 0, timeout=_TIMEOUT,
+                              wait_for_workers=False)
+        entry = _STORES[(cfg.master_addr, cfg.master_port)] = [store, 0]
+    entry[1] += 1
+    return dist.PrefixStore(f"hvd/world{entry[1]}", entry[0])
+
 
 def init(device: Union[str, torch.device, None] = None) -> None:
     """Join the job (``hvd.init()``).
@@ -164,10 +187,8 @@ def init(device: Union[str, torch.device, None] = None) -> None:
                                         world_size=1, timeout=_TIMEOUT)
             else:
                 dist.init_process_group(
-                    backend,
-                    init_method=f"tcp://{cfg.master_addr}:{cfg.master_port}",
-                    rank=cfg.rank, world_size=cfg.world_size,
-                    timeout=_TIMEOUT)
+                    backend, store=_rendezvous(cfg), rank=cfg.rank,
+                    world_size=cfg.world_size, timeout=_TIMEOUT)
             owns = True
         elif dist.get_world_size() != cfg.world_size:
             raise RuntimeError(

@@ -21,10 +21,12 @@ Dense weights are stored as ``nn.Linear`` stores them, (out, in);
 with ``return_aux=True`` and :func:`loss_fn_moe` adds their mean.
 ``remat=True`` checkpoints each block under ``remat_policy`` ``"full"`` or
 ``"dots"`` (``utils/remat.py``). ``use_ring_attention=True`` shards the
-sequence over the global process set (``ops/attention.sp_attention``): each
-rank feeds its shard of the tokens, wpe follows the shard's global
-positions, and :func:`striped_lm_loss` is the exact loss of the striped
-layout.
+sequence over the model's sp set (``ops/attention.sp_attention``; ``sp``,
+bound by ``mp.tensor_parallel(model, sp=...)``, default the global process
+set): each rank feeds its shard of the tokens, wpe follows the shard's
+global positions, and :func:`striped_lm_loss` is the exact loss of the
+striped layout (``mp.vocab_parallel_loss(..., sp=...)`` that of either
+layout, over vocab slices too).
 
 Tensor parallelism (``parallel/mp.py``): :func:`partition_rules` is the
 reference's Megatron rule set over the port's parameter names, and
@@ -55,7 +57,7 @@ from horovod_tpu_torch.parallel.sharding import P, PartitionRules
 from horovod_tpu_torch.utils.remat import maybe_remat, remat_context
 
 __all__ = ["GPT2Config", "GPT2", "loss_fn", "loss_fn_moe",
-           "striped_lm_loss", "partition_rules"]
+           "striped_lm_loss", "sharded_lm_loss", "partition_rules"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,9 +165,10 @@ class LayerNorm(nn.Module):
 
 class Attention(nn.Module):
     """Causal self-attention over the heads its ``qkv`` weight holds: all
-    of them, or this rank's whole heads under tensor parallelism."""
+    of them, or this rank's whole heads under tensor parallelism; under
+    sequence parallelism over ``sp`` (None: the global set)."""
 
-    tp = None
+    tp = sp = None
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -184,7 +187,8 @@ class Attention(nn.Module):
         q = q.reshape(b, t, h, hd)
         k = k.reshape(b, t, h, hd)
         v = v.reshape(b, t, h, hd)
-        o = sp_attention(q, k, v, cfg, segment_ids=segment_ids)
+        o = sp_attention(q, k, v, cfg, segment_ids=segment_ids,
+                         process_set=self.sp)
         return self.out(o.reshape(b, t, h * hd))
 
 
@@ -236,7 +240,7 @@ class GPT2(nn.Module):
     ``models.convert.gpt2_params_from_jax``.
     """
 
-    tp = None
+    tp = sp = None
 
     def __init__(self, cfg: GPT2Config,
                  generator: Optional[torch.Generator] = None):
@@ -268,7 +272,8 @@ class GPT2(nn.Module):
         reference's sown ``losses`` collection."""
         cfg = self.cfg
         b, t = tokens.shape
-        pos = model_positions(cfg, t, tokens.device, segment_ids, positions)
+        pos = model_positions(cfg, t, tokens.device, segment_ids, positions,
+                              self.sp)
         emb = self.wte[tokens] if self.tp is None else \
             self.tp.embed(self.wte, tokens)
         x = emb.to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
@@ -341,27 +346,51 @@ def striped_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
     (default: the global set), so every rank returns the global mean, and
     each rank's gradient is n times its share of it, as the reference's
     ``psum`` gives under ``shard_map``: the optimizer's average cancels n."""
-    from torch.distributed.nn.functional import all_reduce
-    from horovod_tpu_torch.ops.ring_attention import Ring
-    ring = Ring(process_set)
+    return sharded_lm_loss(logits, tokens, process_set, "striped")
+
+
+def sharded_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    process_set=None, layout: str = "contiguous",
+                    token_ll=None) -> torch.Tensor:
+    """``loss_fn`` over the whole sequence of a ``layout`` sequence shard
+    (:func:`striped_lm_loss` for ``"striped"``; ``"contiguous"``: rank r
+    holds positions [r*t, (r+1)*t) and its last target is rank r + 1's
+    first token, fetched by one hop). ``process_set``: the sp set, or a
+    ``Ring`` over it. ``token_ll(logits, targets)`` gives the (B, t)
+    log-likelihoods (default: ``log_softmax`` over the whole vocab;
+    ``mp.vocab_parallel_loss`` passes its vocab-parallel one). One rank
+    holds the sequence in order: ``loss_fn``'s pairs and sums."""
+    from horovod_tpu_torch.ops.ring_attention import Ring, check_layout
+    check_layout(layout)
+    ring = Ring.of(process_set)
     n, r = ring.n, ring.rank
-    if n == 1:
-        # One rank holds the sequence in order: loss_fn's pairs and sums.
-        return loss_fn(logits, tokens)
+    if token_ll is None:
+        if n == 1:
+            return loss_fn(logits, tokens)
+        token_ll = _token_ll
+    elif n == 1:
+        return -token_ll(logits[:, :-1], tokens[:, 1:]).mean()
     t = tokens.shape[1]
-    recv = ring.shift([tokens], forward=False)[0]
-    targets = torch.cat([recv[:, 1:], recv[:, :1]], 1) if r == n - 1 \
-        else recv
+    if layout == "striped":
+        recv = ring.shift([tokens], forward=False)[0]
+        targets = torch.cat([recv[:, 1:], recv[:, :1]], 1) if r == n - 1 \
+            else recv
+    else:
+        first = ring.shift([tokens[:, :1]], forward=False)[0]
+        targets = torch.cat([tokens[:, 1:], first], 1)
     # The last global position (last rank, last slot) predicts nothing.
     valid = torch.ones(t, dtype=torch.bool, device=tokens.device)
     if r == n - 1:
         valid[-1] = False
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    ll = token_ll(logits, targets)
     s = torch.where(valid, ll, torch.zeros((), device=ll.device)).sum()
     c = valid.to(ll.dtype).sum() * tokens.shape[0]
-    return -all_reduce(s, group=ring.group) / all_reduce(c,
-                                                         group=ring.group)
+    return -ring.psum(s) / ring.psum(c)
+
+
+def _token_ll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return logp.gather(-1, targets[..., None].long())[..., 0]
 
 
 def loss_fn_moe(model: nn.Module, tokens: torch.Tensor,

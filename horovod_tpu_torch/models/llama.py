@@ -23,8 +23,8 @@ the layers of ``gpt2.py``:
 Mixtral-style layer: bias-free SwiGLU experts behind a top-2 router
 (``ops/moe.py``), trained with :func:`loss_fn_moe`. ``remat=True``
 checkpoints each block (``utils/remat.py``). ``use_ring_attention=True``
-shards the sequence over the global process set
-(``ops/attention.sp_attention``). Tensor parallelism as GPT-2's
+shards the sequence over the model's sp set, as GPT-2's
+(``ops/attention.sp_attention``; default the global process set). Tensor parallelism as GPT-2's
 (``parallel/mp.py``): :func:`partition_rules` is the reference's Megatron
 rule set over the port's names, with the (in, out) specs transposed; under
 ``mp.tensor_parallel`` each rank holds whole q and kv heads (local q heads
@@ -146,9 +146,10 @@ class RMSNorm(nn.Module):
 
 class Attention(nn.Module):
     """Grouped-query attention over the q and kv heads its weights hold:
-    all of them, or this rank's whole heads under tensor parallelism."""
+    all of them, or this rank's whole heads under tensor parallelism;
+    under sequence parallelism over ``sp`` (None: the global set)."""
 
-    tp = None
+    tp = sp = None
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -174,7 +175,8 @@ class Attention(nn.Module):
         if hkv != h:
             k = k.repeat_interleave(h // hkv, dim=2)
             v = v.repeat_interleave(h // hkv, dim=2)
-        o = sp_attention(q, k, v, cfg, segment_ids=segment_ids)
+        o = sp_attention(q, k, v, cfg, segment_ids=segment_ids,
+                         process_set=self.sp)
         return self.wo(o.reshape(b, t, h * hd))
 
 
@@ -229,7 +231,7 @@ class Llama(nn.Module):
     initial weights as the reference's initializers shape them.
     """
 
-    tp = None
+    tp = sp = None
 
     def __init__(self, cfg: LlamaConfig,
                  generator: Optional[torch.Generator] = None):
@@ -261,7 +263,7 @@ class Llama(nn.Module):
         # Under sequence parallelism RoPE turns by the shard's global
         # positions.
         pos = model_positions(cfg, tokens.shape[1], tokens.device,
-                              segment_ids, positions)
+                              segment_ids, positions, self.sp)
         emb = self.wte[tokens] if self.tp is None else \
             self.tp.embed(self.wte, tokens)
         x = emb.to(cfg.dtype)

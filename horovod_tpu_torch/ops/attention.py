@@ -3,8 +3,10 @@ one rank or sequence-parallel.
 
 Port of ``horovod_tpu/ops/attention.py``. Layout (B, T, H, D) at every
 public function, masking constant -1e30, and a row whose keys are all
-masked gives 0 on every path. Sequence parallelism runs over the global
-process set, where the reference's models name the mesh axis ``"sp"``.
+masked gives 0 on every path. Sequence parallelism runs over the model's
+sp set (``process_set=``: a process set, or an ``ops.ring_attention.Ring``
+over one), where the reference's models name the mesh axis ``"sp"``; its
+default is the global set.
 """
 
 from __future__ import annotations
@@ -111,18 +113,20 @@ def validate_sp_config(cfg) -> None:
             "wrong pairs: wrong logits, no error)")
 
 
-def sp_global_positions(t: int, cfg, device=None) -> torch.Tensor:
-    """(t,) global token positions of this rank's sequence shard:
+def sp_global_positions(t: int, cfg, device=None,
+                        process_set=None) -> torch.Tensor:
+    """(t,) global token positions of this rank's sequence shard over
+    ``process_set`` (the model's sp set; default: the global set):
     rank-major for the contiguous layout, rank-offset stride n for the
     striped one; ``arange(t)`` without sequence parallelism."""
     pos = torch.arange(t, device=device)
     if not cfg.use_ring_attention:
         return pos
-    from horovod_tpu_torch.process_set import global_process_set
-    ps = global_process_set()
+    from horovod_tpu_torch.ops.ring_attention import Ring
+    ring = Ring.of(process_set)
     if cfg.ring_layout == "striped":
-        return ps.rank() + ps.size() * pos
-    return pos + ps.rank() * t
+        return ring.rank + ring.n * pos
+    return pos + ring.rank * t
 
 
 def segment_mask(seg_q: torch.Tensor, seg_k: torch.Tensor) -> torch.Tensor:
@@ -139,11 +143,13 @@ def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     return ar - torch.cummax(starts, dim=1).values
 
 
-def model_positions(cfg, t: int, device, segment_ids=None, positions=None):
+def model_positions(cfg, t: int, device, segment_ids=None, positions=None,
+                    process_set=None):
     """The position ids of GPT-2, Llama and BERT: ``positions`` when given;
     else restarting per packed document; else the shard's global positions
-    under sequence parallelism (``arange(t)`` without it). A packed shard
-    cannot see where its documents began, so it needs ``positions``."""
+    under sequence parallelism over ``process_set`` (``arange(t)`` without
+    it). A packed shard cannot see where its documents began, so it needs
+    ``positions``."""
     if positions is not None:
         return positions
     if segment_ids is not None:
@@ -153,17 +159,18 @@ def model_positions(cfg, t: int, device, segment_ids=None, positions=None):
                 "(per-shard pos-in-segment; the shard cannot see "
                 "where its documents started)")
         return packed_positions(segment_ids)
-    return sp_global_positions(t, cfg, device)
+    return sp_global_positions(t, cfg, device, process_set)
 
 
 def sp_attention(q, k, v, cfg, causal: bool = True, key_mask=None,
-                 segment_ids=None) -> torch.Tensor:
+                 segment_ids=None, process_set=None) -> torch.Tensor:
     """The models' self-attention dispatch (causal decoders and, with
     ``causal=False``, bidirectional encoders), selected by ``cfg``:
 
     * no sp             -> :func:`multihead_attention` (dense or flash);
-    * ``sp_impl="ring"``    -> the dense ring or the flash ring over the
-      global process set, in ``cfg.ring_layout``;
+    * ``sp_impl="ring"``    -> the dense ring or the flash ring over
+      ``process_set`` (the model's sp set; default: the global set), in
+      ``cfg.ring_layout``;
     * ``sp_impl="ulysses"`` -> heads <-> sequence all-to-all, then local
       attention (``cfg.attention``).
 
@@ -177,18 +184,18 @@ def sp_attention(q, k, v, cfg, causal: bool = True, key_mask=None,
             if cfg.flash_blocks is not None:
                 blocks = {"block_q": int(cfg.flash_blocks[0]),
                           "block_k": int(cfg.flash_blocks[1])}
-            return ulysses_attention(q, k, v, causal=causal,
+            return ulysses_attention(q, k, v, process_set, causal=causal,
                                      impl=cfg.attention, key_mask=key_mask,
                                      segment_ids=segment_ids, **blocks)
         if cfg.attention == "flash":
             from horovod_tpu_torch.ops.ring_flash import ring_flash_attention
-            return ring_flash_attention(q, k, v, causal=causal,
+            return ring_flash_attention(q, k, v, process_set, causal=causal,
                                         layout=cfg.ring_layout,
                                         key_mask=key_mask,
                                         segment_ids=segment_ids)
         if cfg.attention == "dense":
             from horovod_tpu_torch.ops.ring_attention import ring_attention
-            return ring_attention(q, k, v, causal=causal,
+            return ring_attention(q, k, v, process_set, causal=causal,
                                   layout=cfg.ring_layout, key_mask=key_mask,
                                   segment_ids=segment_ids)
         raise ValueError(

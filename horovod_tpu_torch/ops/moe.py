@@ -20,8 +20,22 @@ products (``aten.mm``), so that the ``"dots"`` remat policy saves them as
 ``dots_with_no_batch_dims_saveable`` does; the experts' products carry the
 expert dimension as a batch (``aten.bmm``) and are recomputed.
 
-Expert parallelism (the reference's ``ep`` mesh axis) is not ported: on the
-data-parallel path every rank holds every expert.
+Expert parallelism over the reference's ``ep`` mesh axis
+(:class:`ExpertParallel`, hung on a layer as ``ep`` by
+``mp.tensor_parallel(model, ep=...)``): a rank keeps the experts
+``[e*E/ep, (e+1)*E/ep)`` of its place e on the ep line, and the router
+stays whole. Tokens are replicated over ep (the reference's dryrun lays
+them out ``P("dp")``), so every rank routes the same tokens to the same
+slots. Then f over ep at the experts' input (identity forward, sum
+backward: each rank's dispatch reaches only its own experts), the dispatch
+product against this rank's (N, E/ep, C) slice of the dispatch tensor,
+its experts, and one all-gather of the (E/ep, C, d) outputs, whose
+backward keeps this rank's slice (every rank holds the same cotangent);
+the combine product is whole. Every slot holds at most one token, so the
+dispatch product is exact; the experts' batched products are each
+expert's own, and the forward came out the dense layer's bit for bit on
+the CPU and on the H100 (``chip_smoke.py`` phase 14 (c)). Without ``ep``
+every rank holds every expert.
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["switch_load_balance_loss", "Top1Router", "Top2Router",
-           "MoEMLP", "ROUTERS", "ACTIVATIONS"]
+           "MoEMLP", "ExpertParallel", "ROUTERS", "ACTIVATIONS"]
 
 ROUTERS = ("top1", "top2")
 ACTIVATIONS = ("gelu", "swiglu")
@@ -146,9 +160,54 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
                           generator=generator)
 
 
+class _GatherExperts(torch.autograd.Function):
+    """(E/ep, C, d) -> (E, C, d) over the ep line, in rank order; the
+    backward keeps this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, ep):
+        ctx.ep = ep
+        return ep.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        el = g.shape[0] // ctx.ep.size
+        return g[ctx.ep.rank * el:(ctx.ep.rank + 1) * el], None
+
+
+class ExpertParallel:
+    """This rank's place on an ep line (``process_set``): f over it, and
+    the gather of the experts' outputs (see the module docstring)."""
+
+    def __init__(self, process_set):
+        from horovod_tpu_torch.parallel.conjugate import \
+            identity_fwd_psum_bwd
+        self.process_set = process_set
+        self.size, self.rank = process_set.size(), process_set.rank()
+        self.f = identity_fwd_psum_bwd(process_set)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's (E/ep, ...) ``x`` stacked in rank order, no
+        gradient (the exchange; :meth:`gather` differentiates it)."""
+        from horovod_tpu_torch import collective as C
+        flat = C._in_step_allgather(x.contiguous().reshape(-1),
+                                    self.process_set, name="ep/experts")
+        return flat.reshape((-1,) + tuple(x.shape[1:]))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherExperts.apply(x, self)
+
+    def __repr__(self) -> str:
+        return f"ExpertParallel(rank {self.rank} of {self.process_set})"
+
+
 class MoEMLP(nn.Module):
     """Drop-in for a transformer's dense MLP: ``forward(x (B, T, d))`` ->
-    (out (B, T, d) in ``dtype``, fp32 aux loss)."""
+    (out (B, T, d) in ``dtype``, fp32 aux loss). Under expert parallelism
+    (``ep``, an :class:`ExpertParallel`) its expert weights hold this
+    rank's E/ep experts."""
+
+    ep = None
 
     def __init__(self, d: int, num_experts: int, d_ff: int,
                  capacity_factor: float = 1.25,
@@ -190,9 +249,15 @@ class MoEMLP(nn.Module):
         tokens = x.reshape(b * t, d)
         dispatch, combine, aux = self.router(tokens)
         n, e, c = dispatch.shape
+        el, x_in, local = self.w_in.shape[0], tokens, dispatch
+        if self.ep is not None:
+            # This rank's experts: their slice of the dispatch tensor, and
+            # f, so that the tokens' gradient sums every rank's experts.
+            lo = self.ep.rank * el
+            x_in, local = self.ep.f(tokens), dispatch[:, lo:lo + el]
         # (N, E·C)ᵀ (N, d) -> (E, C, d): the reference's "nec,nd->ecd".
-        expert_in = (dispatch.to(dt).reshape(n, e * c).t()
-                     @ tokens.to(dt)).reshape(e, c, d)
+        expert_in = (local.to(dt).reshape(n, el * c).t()
+                     @ x_in.to(dt)).reshape(el, c, d)
         if self.activation == "swiglu":
             g = torch.bmm(expert_in, self.w_gate.to(dt))
             u = torch.bmm(expert_in, self.w_in.to(dt))
@@ -203,15 +268,18 @@ class MoEMLP(nn.Module):
             h = F.gelu(h, approximate="tanh")
             expert_out = torch.bmm(h, self.w_out.to(dt)) \
                 + self.b_out[:, None].to(dt)
+        if self.ep is not None:
+            expert_out = self.ep.gather(expert_out)
         # (N, E·C) (E·C, d) -> (N, d): "nec,ecd->nd"; dropped tokens get 0.
         out = combine.to(dt).reshape(n, e * c) @ expert_out.reshape(e * c, d)
         return out.reshape(b, t, d), aux
 
     def macs(self, n: int) -> int:
         """Multiply-adds of one forward over ``n`` tokens: the router, the
-        dispatch and combine products and the experts."""
-        e, d, f = self.w_in.shape
-        c = self.router.capacity(n)
+        dispatch and combine products and the experts (this rank's under
+        ``ep``)."""
+        el, d, f = self.w_in.shape
+        e, c = self.router.num_experts, self.router.capacity(n)
         mats = 3 if self.activation == "swiglu" else 2
-        return n * d * e + 2 * n * e * c * d + mats * e * c * d * f
+        return n * d * e + n * (el + e) * c * d + mats * el * c * d * f
 

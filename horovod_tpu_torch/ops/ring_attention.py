@@ -11,8 +11,9 @@ n = 2 where both peers are the same rank), and :class:`_RingShift` carries
 the cotangent one hop back in the backward (``torch.distributed.nn`` has no
 differentiable send or receive).
 
-The ring runs over ``process_set`` (default: the global set), which takes
-the place of the reference's ``axis_name``. This module also holds the
+The ring runs over ``process_set`` (default: the global set; a
+:class:`Ring` is taken as it is), which takes the place of the reference's
+``axis_name``. This module also holds the
 transport that ``ops/ring_flash.py`` posts around its kernels.
 """
 
@@ -48,6 +49,21 @@ class Ring:
         self.next = ranks[(self.rank + 1) % self.n]
         self.prev = ranks[(self.rank - 1) % self.n]
         self._collective = collective
+
+    @classmethod
+    def of(cls, process_set=None) -> "Ring":
+        """``process_set`` when it is a ring already, else the ring of
+        that set (default: the global set)."""
+        return process_set if isinstance(process_set, Ring) \
+            else cls(process_set)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the set, differentiable (its backward sums
+        the cotangents over the set), as ``lax.psum`` under ``shard_map``."""
+        if self.n == 1:
+            return x
+        from torch.distributed.nn.functional import all_reduce
+        return all_reduce(x, group=self.group)
 
     def post(self, send: Sequence[torch.Tensor], forward: bool = True,
              into: Optional[Sequence[torch.Tensor]] = None) -> tuple:
@@ -140,7 +156,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (batch, t_local, heads, head_dim) in q's dtype.
     """
     check_layout(layout)
-    ring = Ring(process_set)
+    ring = Ring.of(process_set)
     n, rank = ring.n, ring.rank
     b, tq, h, d = q.shape
     tk = k.shape[1]

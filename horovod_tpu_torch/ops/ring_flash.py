@@ -233,7 +233,7 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seg = None
     if segment_ids is not None:
         seg = segment_ids.to(torch.int32).contiguous()
-    ring = Ring(process_set)
+    ring = Ring.of(process_set)
     o = _RingFlash.apply(_pack(q), _pack(k), _pack(v), bias, seg, ring,
                          bool(causal), float(scale), (block_q, block_k),
                          layout == "striped", h, False)

@@ -80,7 +80,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl not in ("dense", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}; expected "
                          "'dense' or 'flash'")
-    ring = Ring(process_set)
+    ring = Ring.of(process_set)
     n, group = ring.n, ring.group
     b, tq, h, d = q.shape
     scale = d ** -0.5 if scale is None else scale

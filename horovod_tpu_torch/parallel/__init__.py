@@ -2,9 +2,10 @@
 (``mesh.py``), sharding rules (``sharding.py``), FSDP / ZeRO-3
 (``fsdp.py``), Megatron tensor parallelism (the weight splits, training
 and decode), ZeRO-2 and the ``zero3_*`` surface (``mp.py``) and Megatron's
-conjugate operators (``conjugate.py``). Port of ``horovod_tpu/parallel``;
-the ``ep`` and ``sp`` axes wait for ``ROADMAP.md`` item 8b-ii, pipelines
-and their schedule tables for item 8c.
+conjugate operators (``conjugate.py``), with the ``sp`` and ``ep`` axes
+beside tp (``mp.tensor_parallel(model, tp_set, sp=, ep=)``). Port of
+``horovod_tpu/parallel``; T5's rules wait for ``ROADMAP.md`` item 8b-iii,
+pipelines and their schedule tables for item 8c.
 """
 
 from horovod_tpu_torch.parallel.conjugate import (  # noqa: F401

@@ -10,11 +10,16 @@ collectives name an axis inside ``shard_map``. Here one process drives one
 device, so a :class:`Mesh` is an array of **global ranks** laid out as the
 reference lays out its devices (row-major over the given order), and an
 axis is reached through :meth:`Mesh.process_set`: this rank's line along
-the axis (every other coordinate fixed). ``make_mesh`` registers one
-process set for each line of each axis, on every rank in the same order
+the axis (every other coordinate fixed), or its plane over a tuple of
+axes, where the reference names a tuple of axes in a ``psum``.
+``make_mesh`` registers one process set for each line of each axis and
+each plane of each tuple of axes, on every rank in the same order
 (``add_process_set`` is collective over the world); a line of one rank
-gets a one-rank set whose group that rank makes alone, and a line that
-spans the whole world is the global set. The reference's TPU-only
+gets a one-rank set whose group that rank makes alone, a line that spans
+the whole world is the global set, and a plane with the ranks of a line
+is that line's set. The lines (and planes) of one axis (or tuple) share
+one ``line_key``, so an eager op that each rank issues over its own line
+negotiates as one op. The reference's TPU-only
 ``allow_split_physical_axes`` path (``mesh_utils.create_device_mesh``, a
 device order that follows the physical torus) has no counterpart: ranks
 are laid out in the given order.
@@ -34,6 +39,7 @@ network between hosts. :func:`detect_topology` resolves, in order:
 
 from __future__ import annotations
 
+import itertools
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -67,16 +73,23 @@ class Mesh:
                              f"{self.devices.tolist()}")
         return dict(zip(self.axis_names, (int(i) for i in where[0])))
 
-    def process_set(self, axis: str):
-        """This rank's line along ``axis``: the process set its
-        collectives over that axis run on."""
-        if axis not in self.shape:
-            raise ValueError(f"mesh has no axis {axis!r}; axes "
-                             f"{self.axis_names}")
-        if axis not in self._sets:
+    def process_set(self, axis):
+        """This rank's line along ``axis``, or with a tuple of axes its
+        plane over them (every other coordinate fixed): the process set
+        its collectives over that axis, or that tuple of axes, run on (the
+        reference names the axis, or the tuple, inside ``shard_map``)."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"mesh has no axis {a!r}; axes "
+                                 f"{self.axis_names}")
+        if len(set(names)) != len(names) or not names:
+            raise ValueError(f"axes {axis!r} must name distinct axes")
+        key = tuple(a for a in self.axis_names if a in names)
+        if key not in self._sets:
             raise ValueError(f"this rank is not in the mesh "
                              f"{self.devices.tolist()}")
-        return self._sets[axis]
+        return self._sets[key]
 
     def __repr__(self) -> str:
         shape = ", ".join(f"{k}={v}" for k, v in self.shape.items())
@@ -141,17 +154,25 @@ def make_mesh(axes: Dict[str, int],
     if arr.size and int(arr.max()) >= world:
         raise ValueError(f"mesh ranks {sorted(devs)} are outside the world "
                          f"of {world}")
-    sets = {}
-    for j, name in enumerate(names):
-        lines = np.moveaxis(arr, j, -1).reshape(-1, sizes[j])
-        key = ("line", name, names, tuple(sizes),
-               tuple(int(d) for d in arr.ravel()))
-        for line in lines:
-            ps = _line_set(line, world, rank)
-            if ps is not None and ps.ranks is not None:
-                ps.line_key = key
-            if rank in line.tolist():
-                sets[name] = ps
+    sets, made = {}, {}
+    for k in range(1, len(names) + 1):
+        for axes_ in itertools.combinations(range(len(names)), k):
+            rest = [j for j in range(len(names)) if j not in axes_]
+            width = int(np.prod([sizes[j] for j in axes_]))
+            lines = np.transpose(arr, rest + list(axes_)).reshape(-1, width)
+            which = tuple(names[j] for j in axes_)
+            key = ("line", which[0] if k == 1 else which, names,
+                   tuple(sizes), tuple(int(d) for d in arr.ravel()))
+            for line in lines:
+                ranks = tuple(sorted(int(r) for r in line))
+                # A plane with the ranks of a line (an axis of size 1
+                # beside it) is that line's set.
+                if ranks not in made:
+                    made[ranks] = ps = _line_set(ranks, world, rank)
+                    if ps is not None and ps.ranks is not None:
+                        ps.line_key = key
+                if rank in ranks:
+                    sets[which] = made[ranks]
     return Mesh(arr, names, sets)
 
 

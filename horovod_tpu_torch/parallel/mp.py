@@ -21,8 +21,18 @@ consumers:
   logit, reduced over the set; the logits are never gathered. At mp = 1
   nothing changes: the model is the dense one and the loss is
   ``loss_fn``; so it is under ``HOROVOD_MP_RULES=off``, which
-  :func:`mp_partition_rules` maps to no split at all. On a dp x mp mesh ``DistributedOptimizer`` averages over
-  the dp set only, and the ranks of one mp set take the same batch.
+  :func:`mp_partition_rules` maps to no split at all. On a dp x mp mesh
+  ``DistributedOptimizer`` averages over the dp set only, and the ranks
+  of one mp set take the same batch. The other axes of a
+  ``make_mesh({"dp": a, "sp": b, "tp": c})`` or ``{"dp", "ep", "tp"}``
+  mesh come in through the same call: ``sp=`` binds the model's rings to
+  its sp line (the kernels at B * H / tp heads a hop, the loss exact over
+  the whole sequence with ``vocab_parallel_loss(..., sp=)``; the optimizer
+  averages over the dp x sp plane, ``mesh.process_set(("dp", "sp"))``),
+  and ``ep=`` keeps E/ep experts of every MoE layer a rank
+  (``ops/moe.ExpertParallel``; the optimizer averages over the dp line,
+  and the replicated weights' gradients are equal across ep and tp by
+  construction).
 * **ZeRO-2 / ZeRO-3 training**: gradients reduce-scatter to their owner's
   flat chunk, and parameters all-gather just in time per block. ZeRO-3 is
   ``parallel/fsdp.py``'s machinery under the ``zero3_*`` names, with a
@@ -52,6 +62,7 @@ replicated product only by the order of the terms.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -233,8 +244,15 @@ def _check_splittable(cfg, mp: int):
     validate_tp(cfg, mp)
     if getattr(cfg, "num_experts", 0) > 0:
         raise NotImplementedError(
-            "tensor parallelism of MoE experts (the ep axis) is not "
-            "ported yet (ROADMAP.md item 8b-ii)")
+            "split_params / merge_params refuse an MoE config, as the "
+            "reference's do (a KeyError there); tensor_parallel(model, "
+            "ep=...) keeps this rank's experts")
+
+
+def _ep_split(rules: PartitionRules, name: str) -> bool:
+    """Whether ``name`` is an expert weight (its rule's leading axis is
+    ``"ep"``): rank e of the ep line keeps experts [e*E/ep, (e+1)*E/ep)."""
+    return tuple(rules.spec_for(name))[:1] == ("ep",)
 
 
 def _as_tensor(v) -> torch.Tensor:
@@ -374,6 +392,14 @@ class TensorParallel:
         return f"TensorParallel(rank {self.rank} of {self.process_set})"
 
 
+def _bind(model, attr: str, value) -> None:
+    """Set ``attr`` on ``model`` and each of its modules whose class
+    declares it."""
+    for m in model.modules():
+        if attr in vars(type(m)):
+            setattr(m, attr, value)
+
+
 def _wire(model, tp: TensorParallel):
     """Hang ``tp`` on ``model``'s modules, whose parameters are this rank's
     :func:`split_params` part: the attention, the MLP and the model place f
@@ -381,9 +407,8 @@ def _wire(model, tp: TensorParallel):
     partial product with g before its bias."""
     from horovod_tpu_torch.models.gpt2 import Dense
     rules = mp_partition_rules(model.cfg, "megatron")
+    _bind(model, "tp", tp)
     for name, m in model.named_modules():
-        if "tp" in vars(type(m)):
-            m.tp = tp
         if isinstance(m, Dense) and _kind(rules, f"{name}.weight") == "cols":
             m.reduce = tp.g
 
@@ -393,7 +418,7 @@ def _rules_off() -> bool:
     return get_config().mp_rules == "off"
 
 
-def tensor_parallel(model, process_set=None):
+def tensor_parallel(model, process_set=None, *, sp=None, ep=None):
     """Turn a built GPT-2 or Llama into this rank's tensor-parallel part, in
     place, and return it. Each parameter becomes its :func:`split_params`
     slice of the model's own weights (every rank builds them alike), and
@@ -404,34 +429,78 @@ def tensor_parallel(model, process_set=None):
     with :func:`vocab_parallel_loss`. Build the optimizer after this call.
     Over a one-rank set, or with ``HOROVOD_MP_RULES=off`` (no weight is
     split: every rank holds and runs the whole model, and
-    :func:`vocab_parallel_loss` is ``loss_fn``), the model is returned
-    unchanged.
+    :func:`vocab_parallel_loss` is ``loss_fn``), the weights stay whole.
+
+    ``sp`` (this rank's line of the mesh's sp axis) binds the model's
+    sequence parallelism (``use_ring_attention``) to that line: the rings
+    or Ulysses run over it at the local head count, wpe / RoPE follow the
+    shard's global positions on it, and :func:`vocab_parallel_loss` takes
+    it as ``sp=``. Without it the rings run over the global set, which
+    holds the tp ranks too, so a split model refuses that.
+
+    ``ep`` (this rank's line of the mesh's ep axis) splits an MoE model's
+    experts over it (``ops/moe.ExpertParallel``): this rank keeps experts
+    [e*E/ep, (e+1)*E/ep) of every layer, by the models' ``ep`` rules; the
+    router stays whole, and tokens are replicated over ep. The experts
+    are not split over tp (the reference's rules give ``P("ep", None,
+    None)``). Under ``HOROVOD_MP_RULES=off`` every rank keeps every
+    expert.
 
     The reference annotates the whole parameters with
-    :func:`mp_partition_rules` and lets GSPMD place the same collectives."""
+    :func:`mp_partition_rules` and lets GSPMD place the same collectives,
+    naming the ``"sp"`` and ``"ep"`` axes where the port takes their
+    lines."""
+    from horovod_tpu_torch.ops.moe import ExpertParallel
+    from horovod_tpu_torch.ops.ring_attention import Ring
     cfg = model.cfg
     tp = TensorParallel(process_set)
-    _check_splittable(cfg, tp.size)
-    if cfg.use_ring_attention:
-        raise NotImplementedError(
-            "sequence x tensor parallelism (an sp axis beside mp) is not "
-            "ported yet (ROADMAP.md item 8b-ii)")
-    if model.tp is not None:
-        raise ValueError(f"the model is tensor-parallel already ({model.tp})")
-    if tp.size == 1 or not mp_partition_rules(cfg).rules:
-        return model
-    part = split_params(cfg, model.state_dict(), tp.size, tp.rank)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.data = part[name].to(device=p.device, dtype=p.dtype,
-                                   copy=True)
-    _wire(model, tp)
+    validate_tp(cfg, tp.size)
+    if model.tp is not None or model.sp is not None:
+        raise ValueError(f"the model is tensor-parallel already "
+                         f"({model.tp}, sp {model.sp})")
+    rules = mp_partition_rules(cfg)
+    split_tp = tp.size > 1 and bool(rules.rules)
+    if sp is not None and not cfg.use_ring_attention:
+        raise ValueError("sp= binds the sequence-parallel attention: the "
+                         "config needs use_ring_attention=True")
+    if cfg.use_ring_attention and sp is None and split_tp:
+        raise ValueError(
+            "a tensor-parallel model with use_ring_attention needs its sp "
+            "line: tensor_parallel(model, process_set=mesh.process_set("
+            "'tp'), sp=mesh.process_set('sp')); over the global set the "
+            "rings would hold the tp ranks too")
+    experts = getattr(cfg, "num_experts", 0)
+    if ep is not None and experts <= 0:
+        raise ValueError("ep= splits the experts of an MoE config; this "
+                         "one has none")
+    if ep is not None and experts % ep.size():
+        raise ValueError(f"ep={ep.size()} must divide num_experts="
+                         f"{experts} (each rank keeps whole experts)")
+    moe_ep = ExpertParallel(ep) if ep is not None and ep.size() > 1 \
+        and rules.rules else None
+    if split_tp or moe_ep is not None:
+        state = model.state_dict()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                v = state[name]
+                if split_tp:
+                    v = _split_one(_kind(rules, name), v, tp.size, tp.rank)
+                if moe_ep is not None and _ep_split(rules, name):
+                    v = _split_one("rows", v, moe_ep.size, moe_ep.rank)
+                p.data = v.to(device=p.device, dtype=p.dtype, copy=True)
+    if split_tp:
+        _wire(model, tp)
+    if sp is not None:
+        _bind(model, "sp", Ring(sp))
+    if moe_ep is not None:
+        _bind(model, "ep", moe_ep)
     return model
 
 
 def vocab_parallel_loss(logits: torch.Tensor, tokens: torch.Tensor,
                         process_set=None,
-                        segment_ids: Optional[torch.Tensor] = None
+                        segment_ids: Optional[torch.Tensor] = None,
+                        *, sp=None, layout: str = "contiguous"
                         ) -> torch.Tensor:
     """``loss_fn`` (next-token cross entropy; with ``segment_ids`` the
     targets that cross a packed document boundary are left out) over
@@ -440,20 +509,38 @@ def vocab_parallel_loss(logits: torch.Tensor, tokens: torch.Tensor,
     (from the rank that owns it) summed, so every rank returns the loss of
     the whole vocab and its logits' gradient; the logits are never
     gathered. Over a one-rank set, or with ``HOROVOD_MP_RULES=off`` (the
-    logits are whole), it is ``loss_fn``."""
-    from horovod_tpu_torch.models.gpt2 import loss_fn
+    logits are whole), it is ``loss_fn``.
+
+    ``sp`` (the model's sp line, or a ``Ring`` over it) takes the logits
+    and tokens as this rank's sequence shard in ``layout`` (the model's
+    ``ring_layout``): the loss is then ``loss_fn`` over the whole
+    sequence, each shard's last target fetched from the next shard
+    (``models.gpt2.sharded_lm_loss``), the sums reduced over the line, so
+    every rank returns the global mean and each rank's gradient is sp
+    times its share (the optimizer's average over the dp x sp plane
+    cancels it). Packed sequences under sp are refused."""
+    from horovod_tpu_torch.models.gpt2 import loss_fn, sharded_lm_loss
     ps = _mp_set(process_set)
-    if ps.size() == 1 or _rules_off():
+    whole = ps.size() == 1 or _rules_off()
+    if sp is not None:
+        if segment_ids is not None:
+            raise ValueError("vocab_parallel_loss: packed sequences under "
+                             "sp are not supported (segment_ids with sp=)")
+        return sharded_lm_loss(
+            logits, tokens, sp, layout,
+            None if whole else functools.partial(_vocab_parallel_ll,
+                                                 TensorParallel(ps)))
+    if whole:
         return loss_fn(logits, tokens, segment_ids)
     return _vocab_parallel_loss(TensorParallel(ps), logits, tokens,
                                 segment_ids)
 
 
-def _vocab_parallel_loss(tp, logits, tokens, segment_ids=None):
-    """:func:`vocab_parallel_loss`'s arithmetic over ``tp``'s ``max`` and
-    ``g``."""
-    lg = logits[:, :-1].float()
-    tgt = tokens[:, 1:].long()
+def _vocab_parallel_ll(tp, logits, targets):
+    """The (B, t) log-likelihoods of ``targets`` under this rank's vocab
+    slice of ``logits``, over ``tp``'s ``max`` and ``g``."""
+    lg = logits.float()
+    tgt = targets.long()
     vl = lg.shape[-1]
     lo = tp.rank * vl
     m = tp.max(lg.detach().amax(-1))
@@ -462,7 +549,13 @@ def _vocab_parallel_loss(tp, logits, tokens, segment_ids=None):
     t_own = torch.where(own, t_own, torch.zeros((), device=lg.device))
     se = torch.exp(lg - m[..., None]).sum(-1)
     se, t = tp.g(torch.stack([se, t_own]))
-    ll = t - m - torch.log(se)
+    return t - m - torch.log(se)
+
+
+def _vocab_parallel_loss(tp, logits, tokens, segment_ids=None):
+    """:func:`vocab_parallel_loss`'s arithmetic over ``tp``'s ``max`` and
+    ``g``."""
+    ll = _vocab_parallel_ll(tp, logits[:, :-1], tokens[:, 1:])
     if segment_ids is None:
         return -ll.mean()
     w = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ll.dtype)

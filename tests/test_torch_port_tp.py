@@ -230,7 +230,8 @@ def test_split_errors():
         "ValueError", "rank 2 outside the mp=2 axis")
     moe = GPT2Config.tiny(dtype=torch.float32, num_experts=2)
     err = _error(lambda: mp.split_params(moe, GPT2(moe).state_dict(), 2, 0))
-    assert err[0] == "NotImplementedError" and "8b-ii" in err[1]
+    assert err[0] == "NotImplementedError" and \
+        "refuse an MoE config" in err[1]
 
 
 _WORKER = textwrap.dedent('''
@@ -294,8 +295,9 @@ _WORKER = textwrap.dedent('''
         except (ValueError, NotImplementedError) as e:
             return type(e).__name__ + ": " + str(e)
     info["twice"] = error(lambda: mp.tensor_parallel(m))
-    info["moe"] = error(lambda: mp.tensor_parallel(
-        GPT2(GPT2Config.tiny(num_experts=2))))
+    moe = mp.tensor_parallel(GPT2(GPT2Config.tiny(num_experts=2)))
+    info["moe"] = [list(moe.h[0].mlp.moe.w_in.shape),
+                   list(moe.h[0].attn.qkv.weight.shape)]
     info["sp"] = error(lambda: mp.tensor_parallel(
         GPT2(GPT2Config.tiny(use_ring_attention=True))))
     x = torch.full((2,), float(r))
@@ -341,10 +343,11 @@ def test_tensor_parallel_one_rank_and_refusals(world):
         assert info["split_shape"] == [96, 64]
         assert info["twice"].startswith("ValueError: the model is "
                                         "tensor-parallel already")
-        assert info["moe"].startswith("NotImplementedError") and \
-            "8b-ii" in info["moe"]
-        assert info["sp"].startswith("NotImplementedError") and \
-            "8b-ii" in info["sp"]
+        # MoE: the experts stay whole over tp (no ep line given), the
+        # attention splits; sp: a split model must name its sp line.
+        assert info["moe"] == [[2, 64, 256], [96, 64]]
+        assert info["sp"].startswith("ValueError") and \
+            "sp=mesh.process_set('sp')" in info["sp"]
 
 
 def test_mp_rules_off_keeps_the_model_whole(world):
