@@ -255,13 +255,31 @@ Phases, in order; any failure exits nonzero and prints no result:
    outside the bound; (d) the dp x ep x tp step of the Mixtral-style Llama
    at one rank: phase 9's ``llama_moe`` losses bit for bit, ms a step and
    peak memory. Without phases 3 and 9 it runs their paths first.
+15. T5 under tensor parallelism on a new one-rank NCCL world, T5-small at
+   full width (d 512, 8 heads of 64, d_ff 1024, 6 + 6 layers, vocab 32128)
+   at ``bench.py``'s T5 shape (B 16, 512 source and 512 target tokens,
+   dots remat), four source rows with padded tails: (a) the plain T5
+   trainer (``t5_small_padded``) and T5-small through
+   ``mp.tensor_parallel`` over the mesh's mp set with
+   ``DistributedOptimizer`` over its dp set (``t5_small_tp``), 5 AdamW
+   steps each: the same losses bit for bit; (b) T5-small, its bias tables
+   redrawn at ``T5_TABLE_STD`` and its query projections at the original
+   T5 init, split over 2 and 4 virtual tp ranks
+   (``t5_virtual_logits``: one thread a rank runs the port's wired T5 on
+   its split of the model's own weights), forward only: the concatenated
+   logits within twice the dense bf16 forward's error against fp32, every
+   rank's vocab-parallel ``seq2seq_loss`` arithmetic the same and within
+   rtol 1e-5 of it over the whole logits, and a planted fault (every rank
+   adding heads [0, H/mp) of the tables) outside that bound; (c) no flash
+   kernel launches on any of these paths.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
 (a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
-phase 12's, phase 13's and phase 14's paths, each counted from 0 just
+phase 12's, phase 13's, phase 14's and phase 15's paths, each counted
+from 0 just
 before the path and read just after) and their sum, and its numbers at
 each new path's shape (phases 5, 9, 10 (a), 13 and 14). The last line is
 ``{"ok": true,
@@ -269,12 +287,14 @@ each new path's shape (phases 5, 9, 10 (a), 13 and 14). The last line is
 ``--phases 1,9`` runs phase 9 alone (its remat losses then compare with
 its own run without remat); ``--phases 1,10`` runs phase 10 alone;
 ``--phases 1,11`` phase 11 alone; ``--phases 1,12`` phase 12 alone;
-``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone.
+``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone;
+``--phases 1,15`` phase 15 alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import re
@@ -489,7 +509,7 @@ def compare_kernels(inputs, b, h, d, causal, offset, tol, dead_row=False,
     delta, the plain O, the keys' segment ids) and the kernels' O, dQ, dK,
     dV."""
     import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     q, k, v, do, kb, sg = inputs
     sg_k = sg if sg_k is None else sg_k
     scale = d ** -0.5
@@ -544,7 +564,7 @@ def planted_faults(inputs, outs, b, h, d, tol):
     must fail the check of every kernel. Also prints what a bound of
     1.6e-2 * max(1, max |want|) would have said."""
     import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     q, k, v, do = inputs[:4]
     tk = k.shape[1]
     scale = d ** -0.5
@@ -589,7 +609,7 @@ def planted_rounding(inputs, h, d, tol):
     nowhere."""
     import torch
     from horovod_tpu_torch.ops import _build
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     q, k, v, do, _, _, lse_p, delta, o_p, _ = inputs
     scale = d ** -0.5
     dq_p = fa.flash_bwd_dq_plain(q, k, v, None, None, None, do, lse_p,
@@ -628,7 +648,7 @@ def kernel_times(case, b, h, d, causal=True, offset=0):
     10))."""
     import torch
     import torch.nn.functional as F
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     q, k, v, do, kb, sg, lse, delta, _, sg_k = case
     t_ = q.shape[1]
     scale = d ** -0.5
@@ -680,7 +700,7 @@ def kernel_times(case, b, h, d, causal=True, offset=0):
 
 def plain_times(case, h, d, causal=True, reps=5, offset=0):
     """Median ms of each kernel's plain version on one case's inputs."""
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     q, k, v, do, kb, sg, lse, delta, _, sk = case
     scale = d ** -0.5
     return {
@@ -740,7 +760,7 @@ def host_us(fn, reps: int = 200) -> float:
 
 def phase_kernels():
     import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 
     B, T, H, D = 8, 1024, 16, 64
     errs, main, main_outs = compare_case("main", B, T, T, H, D,
@@ -996,7 +1016,7 @@ def _train_steps(model, opt, x, y, steps, tag, generator=None):
     still be 0 just after."""
     import torch
     import torch.nn.functional as F
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     fa.reset_launches()
     losses, wall, parts = [], [], []
     for step in range(steps):
@@ -1318,7 +1338,7 @@ def shape_report(case, errs, b, h, t, causal, bias_rows=0, offset=0):
     """Times (one call / back to back), plain times, bounds and SDPA with
     the same mask of the three kernels on one checked case (d 64):
     {kernel: numbers}."""
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     one, ten, (sdpa, sdpa10) = kernel_times(case, b, h, 64, causal, offset)
     plain = plain_times(case, h, 64, causal, offset=offset)
     seg, seg_k = case[5], case[9]
@@ -1496,27 +1516,30 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
     bench's ``remat_policy="dots"``: ``gpt2_long`` (``:520-549``),
     ``gpt2_packed`` (``:589-630``), ``llama_moe`` (``:552-586``'s Llama
     with 8 experts, top-2, capacity 1.25) and ``t5_small``
-    (``:632-667``). ``cfg_extra`` replaces fields of GPT-2 medium's config
-    (phase 9 (b): ``remat``, ``remat_policy``) and of ``gpt2_long``'s
-    (phase 10 (c): sequence parallelism; the striped layout trains on
-    ``striped_lm_loss``). ``opt_extra`` goes to
+    (``:632-667``); ``t5_small_padded`` is ``t5_small`` with the padded
+    source tails of ``t5_source`` and ``t5_small_tp`` the same through
+    ``mp.tensor_parallel`` over the mesh's mp set, its optimizer over the
+    dp set (phase 15 (a)). ``cfg_extra`` replaces fields of GPT-2 medium's
+    config (phase 9 (b): ``remat``, ``remat_policy``) and of
+    ``gpt2_long``'s (phase 10 (c): sequence parallelism; the striped layout
+    trains on ``striped_lm_loss``). ``opt_extra`` goes to
     ``DistributedOptimizer`` (phase 7: ``overlap``, ``compression``,
-    ``error_feedback``). ``rows`` (GPT-2 medium) takes this rank's slice
-    of the batch (phase 8's two-rank worlds). ``gpt2_medium_tp`` is GPT-2
+    ``error_feedback``). ``rows`` (GPT-2 medium) takes this rank's slice of
+    the batch (phase 8's two-rank worlds). ``gpt2_medium_tp`` is GPT-2
     medium through ``mp.tensor_parallel`` over the mesh's mp set and
     ``mp.vocab_parallel_loss``, its optimizer over the dp set (phase 13
     (a)). ``gpt2_medium_sp_tp`` and ``llama_moe_ep_tp`` are the reference's
     dryrun steps over ``make_mesh`` of the world (``dryrun_dims``): GPT-2
     medium with the contiguous flash ring over the sp line, the
     vocab-parallel loss over the whole sequence and the optimizer over the
-    dp x sp plane; ``llama_moe`` with E/ep experts a rank and the
-    optimizer over the dp line (phase 14)."""
+    dp x sp plane; ``llama_moe`` with E/ep experts a rank and the optimizer
+    over the dp line (phase 14)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import get_model
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.parallel import make_mesh
     g = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
@@ -1611,7 +1634,7 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
 
         def loss():
             return F.cross_entropy(model(inputs), labels)
-    elif name == "t5_small":
+    elif name in ("t5_small", "t5_small_padded", "t5_small_tp"):
         from horovod_tpu_torch.models.t5 import seq2seq_loss, shift_right
         with torch.device(dev):
             model = get_model("t5_small", generator=g, **dots)
@@ -1621,6 +1644,15 @@ def build_path(name, dev, rows=None, cfg_extra=None, **opt_extra):
                            device=dev)
         inputs = torch.tensor(rng.integers(1, cfg.vocab_size, (b, t)),
                               device=dev)
+        if name != "t5_small":
+            src = t5_source(src, cfg.pad_id)
+        if name == "t5_small_tp":
+            # T5's own split over the mesh's mp set (one rank here), the
+            # optimizer over its dp set.
+            from horovod_tpu_torch.parallel import mp
+            model = mp.tensor_parallel(model,
+                                       hvd.mesh2d().process_set("mp"))
+            opt_kw = {"process_set": hvd.mesh2d().process_set("dp")}
         h = cfg.num_heads
         # Encoder self (all pairs), decoder self (causal) and cross.
         info.update(
@@ -1709,7 +1741,7 @@ def phase_train_path(name, card, dev, steps=5, cfg_extra=None, **opt_extra):
     gradient hooks did; under error feedback the largest residual."""
     import torch
     from horovod_tpu_torch import collective as C
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     t0 = time.perf_counter()
     model, opt, loss_of, info = build_path(name, dev, cfg_extra=cfg_extra,
                                            **opt_extra)
@@ -2628,7 +2660,7 @@ def phase_elastic_reset(card, main_path):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import core, elastic, metrics
     from horovod_tpu_torch.elastic import driver
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     hvd.init()
     if hvd.backend() != "nccl" or hvd.size() != 1:
         fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
@@ -2929,7 +2961,7 @@ def _decode_run(tag, card, model, prompt, new, src=None):
     step dispatches, no flash launch; then the check."""
     import torch
     from horovod_tpu_torch.models import generate as G
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     cfg = model.cfg
     b = prompt.shape[0]
     run = ((lambda n: G.t5_generate(model, src, n)) if src is not None
@@ -3098,7 +3130,7 @@ def planted_shared_ids(case, h, d, causal, offset):
     the keys': the kernels fed ``seg_q`` as their ``seg_k`` give an O, dQ,
     dK and dV that must fail against the plain versions with the keys' own
     ids."""
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     q, k, v, do, kb, sg, lse, delta, o_p, sk = case
     scale = d ** -0.5
     want = (o_p,
@@ -3183,7 +3215,7 @@ def _ring_slack(q, k, v, do, mag_o, causal, key_bias, seg):
     H, D) sequence: (dQ's, dK's). sum_j P_ij |K_j| is the forward with |K|
     for V; sum_i P_ij x_i is the dV of upstream x."""
     import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     scale = q.shape[-1] ** -0.5
     e = RING_ROUNDING * (do.float().abs() * mag_o).sum(-1, keepdim=True)
     kw = dict(causal=causal, key_bias=key_bias, segment_ids=seg)
@@ -3232,7 +3264,7 @@ def phase_ring_assembly():
     (``_ring_check``), and the launches per virtual rank: r + 1 hops on
     rank r under the contiguous causal mask, n otherwise."""
     import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.ops import ring_flash as rf
     c = RING_ASSEMBLY
     n, b, h, T, d = c["n"], c["b"], c["h"], c["t"], c["d"]
@@ -3510,7 +3542,7 @@ def _phase11_steps(tag, steps, step_fn, layers, pre=None, phase=11,
     ``layers`` times a step (a number, or a count per kernel), counted
     from 0 just before the run."""
     import torch
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     want = layers if isinstance(layers, dict) else {k: layers
                                                      for k in fa.KERNELS}
     torch.cuda.synchronize()
@@ -4433,7 +4465,7 @@ def phase_tp_virtual(dev):
     import torch
     from horovod_tpu_torch.models import get_model
     from horovod_tpu_torch.models.gpt2 import Dense, loss_fn
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     model = _gpt2_medium(dev)
     g = torch.Generator(device=dev).manual_seed(13)
     with torch.no_grad():
@@ -4509,7 +4541,7 @@ def _tp_decode_run(tag, model, prompt, new):
     for both."""
     import torch
     from horovod_tpu_torch.models import generate as G
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.parallel import mp
     cfg = model.cfg
     b, p = prompt.shape
@@ -4778,7 +4810,7 @@ def phase_sp_tp_virtual(dev):
     import torch
     from horovod_tpu_torch.models import get_model
     from horovod_tpu_torch.models.gpt2 import loss_fn
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     g = torch.Generator(device=dev).manual_seed(14)
     with torch.device(dev):
         model = get_model("gpt2_medium", max_seq_len=4096, attention="flash",
@@ -5070,12 +5102,207 @@ def phase_mesh(card, main_path, moe_run):
             "virtual_ep": c, "ep_tp_step": d, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 15
+
+# Source rows of phase 15 with padded tails: row i < T5_PAD_ROWS ends in
+# 64 * (i + 1) pad ids.
+T5_PAD_ROWS = 4
+# Standard deviation of the relative bias tables in phase 15 (b): the
+# init's 0.02 moves the scores too little for a wrong head slice to show
+# against bf16 rounding; trained T5 tables are of order 1 and more.
+T5_TABLE_STD = 1.0
+# Phase 15 (b) redraws the query projections at the original T5 init, std
+# (d_model * head_dim) ** -0.5, which carries the 1/sqrt(head_dim) score
+# scale T5 leaves out of its attention. Under the lecun init that the
+# reference and the port draw, T5-small's untrained scores have a std of
+# about sqrt(head_dim) = 8, its softmax is nearly one-hot, and bf16
+# rounding flips its near ties: the dense bf16 logits were 3.1 from the
+# fp32 ones, and a wrong bias slice hid under twice that.
+
+
+def t5_source(src, pad_id):
+    """``src`` with the tails of its first ``T5_PAD_ROWS`` rows padded."""
+    src = src.clone()
+    for i in range(T5_PAD_ROWS):
+        src[i, src.shape[1] - 64 * (i + 1):] = pad_id
+    return src
+
+
+def t5_virtual_logits(model, src, labels, mp_, fault=False):
+    """T5 ``model``'s logits and loss from ``mp_`` virtual tensor-parallel
+    ranks on one card (``_VirtualSet``): each rank's split of the model's
+    own weights (``mp._split_t5``, as ``tensor_parallel`` splits them) in a
+    T5 built on the meta device and wired by ``mp._part_model``, so its
+    forward runs the port's tensor-parallel modules (H/mp heads, this
+    rank's columns of each bias table, ``o`` and ``wo`` summed by g, the
+    vocab-parallel embedding for both stacks) and the loss is
+    ``seq2seq_loss``'s vocab-parallel arithmetic (``t5._token_loss``);
+    only the collectives are the virtual set's. Returns (the vocab slices
+    of the logits concatenated, each rank's loss). ``fault`` makes every
+    rank add heads [0, H/mp) of the tables."""
+    import types
+    import torch
+    from horovod_tpu_torch.models.t5 import _token_loss, shift_right
+    from horovod_tpu_torch.parallel import mp
+    cfg = model.cfg
+    full = {k: v.detach() for k, v in model.state_dict().items()}
+    vset = _VirtualSet(mp_)
+    ranks = []
+    for r in range(mp_):
+        tp = _virtual_tp(vset, r)
+        m = mp._part_model(cfg, mp._split_t5(cfg, full, mp_, r), tp)
+        if fault:
+            for rb in (m.enc_rel, m.dec_rel):
+                rb.tp = types.SimpleNamespace(f=tp.f, size=tp.size, rank=0)
+        ranks.append((m, tp))
+    dec_in = shift_right(labels, cfg.pad_id)
+
+    def body(r):
+        m, tp = ranks[r]
+        with torch.no_grad():
+            lg = m(src, dec_in)
+            return lg, _token_loss(lg, labels, cfg.pad_id, tp)
+
+    out = _run_virtual(mp_, body, vset.lock, [vset])
+    return torch.cat([lg for lg, _ in out], -1), [float(x) for _, x in out]
+
+
+def phase_t5_virtual(dev):
+    """(b) T5-small, its bias tables redrawn at ``T5_TABLE_STD`` and its
+    query projections at the original T5 init, split over 2 and 4
+    virtual ranks on the one card (``t5_virtual_logits``) against
+    its dense forward, at phase 15's batch. The bound is derived on the
+    card as phase 13 (b) derives its own: twice the dense bf16 forward's
+    largest logit error against the same weights run in fp32. Every
+    virtual rank's loss equals the others' and is within rtol 1e-5 of the
+    loss over the logits concatenated. The planted bias-slice fault must
+    leave the logits' bound. Counts the flash kernels' launches on each
+    virtual forward (none: T5's attention is dense)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.models.t5 import (T5Attention, _token_loss,
+                                             shift_right)
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=dev).manual_seed(15)
+    with torch.device(dev):
+        model = get_model("t5_small", generator=g)
+    cfg = model.cfg
+    with torch.no_grad():
+        for rb in (model.enc_rel, model.dec_rel):
+            rb.rel_bias.normal_(0.0, T5_TABLE_STD, generator=g)
+        for m in model.modules():
+            if isinstance(m, T5Attention):
+                m.q.weight.normal_(0.0, (cfg.d_model * cfg.head_dim) ** -0.5,
+                                   generator=g)
+    rng = np.random.default_rng(15)
+    b, t = 16, 512
+    src = t5_source(torch.tensor(rng.integers(1, cfg.vocab_size, (b, t)),
+                                 device=dev), cfg.pad_id)
+    labels = torch.tensor(rng.integers(1, cfg.vocab_size, (b, t)),
+                          device=dev)
+    dec_in = shift_right(labels, cfg.pad_id)
+    with torch.no_grad():
+        dense = model(src, dec_in)
+        with torch.device(dev):
+            ref = get_model("t5_small", dtype=torch.float32, generator=g)
+        ref.load_state_dict(model.state_dict())
+        exact = ref(src, dec_in)
+        del ref
+    dense_err = _err(dense, exact)
+    tol = 2 * dense_err
+    rms = float(exact.pow(2).mean().sqrt())
+    log(f"phase 15 (b): the dense bf16 forward's largest logit error "
+        f"against the fp32 forward is {dense_err:.4e} (the fp32 logits' "
+        f"rms {rms:.4e}); bound on a tensor-parallel forward's error "
+        f"against either: {tol:.4e}")
+    out, launches = {"dense_err_vs_fp32": dense_err, "bound": tol,
+                     "logits_rms": rms}, {}
+    for n in (2, 4):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        got, losses = t5_virtual_logits(model, src, labels, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"t5_small_tp_virtual_mp{n}"] = dict(fa.launches)
+        if any(fa.launches.values()):
+            fail(f"phase 15 (c): {n} virtual T5 ranks launched "
+                 f"{fa.launches}; T5's attention is dense")
+        e_dense, e_exact = _err(got, dense), _err(got, exact)
+        with torch.no_grad():
+            whole = float(_token_loss(got, labels, cfg.pad_id))
+        out[f"mp{n}"] = {"max_abs_err_vs_dense": e_dense,
+                         "max_abs_err_vs_fp32": e_exact, "wall_s": wall,
+                         "loss": losses[0], "loss_on_logits": whole}
+        log(f"phase 15 (b): {n} virtual ranks: logits within {e_dense:.4e} "
+            f"of the dense forward's and {e_exact:.4e} of the fp32 "
+            f"forward's (bound {tol:.4e}); vocab-parallel seq2seq loss "
+            f"{losses[0]!r} on every rank, on the whole logits {whole!r}; "
+            f"flash launches {fa.launches}; {wall:.2f} s")
+        if not (e_dense <= tol and e_exact <= tol):
+            fail(f"phase 15 (b): {n} virtual ranks leave the bound {tol}: "
+                 f"{e_dense} against the dense forward, {e_exact} against "
+                 f"fp32")
+        if len(set(losses)) != 1 or not math.isclose(
+                losses[0], whole, rel_tol=1e-5, abs_tol=0.0):
+            fail(f"phase 15 (b): the vocab-parallel losses {losses} at {n} "
+                 f"ranks are not seq2seq_loss's {whole} (rtol 1e-5)")
+        del got
+        bad = _err(t5_virtual_logits(model, src, labels, n, True)[0], dense)
+        out[f"mp{n}"]["planted_bias_slice"] = bad
+        log(f"phase 15 (b): planted bias slice (heads [0, H/mp) on every "
+            f"rank) at {n} ranks: {bad:.4e} from the dense forward")
+        if not bad > tol:
+            fail(f"phase 15 (b): the planted bias slice at {n} ranks passed "
+                 f"the check ({bad} <= {tol})")
+    del model, dense, exact
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_t5_tp(card):
+    """Phase 15 on a new one-rank NCCL world: (a) the plain T5 trainer and
+    T5-small through ``mp.tensor_parallel`` at mp 1 with
+    ``DistributedOptimizer`` over the dp set, 5 steps each on the padded
+    batch, losses bit for bit; (b) ``phase_t5_virtual``; (c) no flash
+    kernel launches on any of them."""
+    import torch
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    dev = hvd.device()
+    t0 = time.perf_counter()
+    plain = phase_train_path("t5_small_padded", card, dev)
+    a = phase_train_path("t5_small_tp", card, dev)
+    if a["losses"] != plain["losses"]:
+        fail(f"phase 15 (a): tensor-parallel T5 losses at mp 1 "
+             f"{a['losses']} are not the plain trainer's "
+             f"{plain['losses']} bit for bit")
+    launches = {"t5_small_padded": plain.pop("launches"),
+                "t5_small_tp": a.pop("launches")}
+    if any(n for k in launches.values() for n in k.values()):
+        fail(f"phase 15 (c): the T5 paths launched {launches}")
+    log(f"phase 15 (a): T5-small through tensor_parallel at mp 1: losses "
+        f"equal the plain trainer's bit for bit; {a['step_ms_median']:.1f} "
+        f"ms a step (plain: {plain['step_ms_median']:.1f}), peak "
+        f"{a['peak_gib']:.2f} GiB (plain: {plain['peak_gib']:.2f})")
+    b, virt = phase_t5_virtual(dev)
+    launches.update(virt)
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return {"plain": plain, "train_mp1": a, "virtual": b,
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14; 6, 7 and 8 "
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15; 6, 7 and 8 "
                          "need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -5155,6 +5382,10 @@ def main(argv=None) -> int:
         launches.update(mesh.pop("launches"))
         shapes.update(mesh.pop("kernels"))
         print(json.dumps({"phase14": mesh}), flush=True)
+    if 15 in phases:
+        t5_tp = phase_t5_tp(card)
+        launches.update(t5_tp.pop("launches"))
+        print(json.dumps({"phase15": t5_tp}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -9,26 +9,30 @@ Data-parallel training on NVIDIA GPUs with Horovod's API::
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters()))
 
 Entry points run on the GPU unless asked otherwise: ``init()`` raises when
-no CUDA device is present; ``init(device="cpu")`` runs on the CPU with gloo.
-Models: ``models.get_model`` (MNIST, ResNet-18/50 with local,
+no CUDA device is present; ``init(device="cpu")`` runs on the CPU with
+gloo. Models: ``models.get_model`` (MNIST, ResNet-18/50 with local,
 cross-replica or bf16-statistics batch norm, GPT-2 medium, BERT, ViT,
-Llama). Collectives: Horovod's eager API with ``*_async`` handles,
-``synchronize`` and ``poll``, Adasum (``adasum.py``), and subset process
-sets (``add_process_set``); eager ``join()`` for uneven data and the join
-mask (``alive``) of ``DistributedOptimizer``; ``SyncBatchNorm`` for users'
-own models. Horovod's controller runs around every eager op: negotiation
-(a readable error, not a NCCL hang, when ranks issue collectives in another
-order), the timeline (``HOROVOD_TIMELINE`` or ``start_timeline``), the
-metrics registry (``metrics()``, ``HOROVOD_METRICS_FILE``) and the stall
-watchdog (``HOROVOD_STALL_CHECK_TIME_SECONDS``). The allreduce algorithm
-axis (``overlap.py``: ``algorithm=`` ``psum``, ``rs_ag``,
-``chunked_rs_ag``, their ``_int8`` / ``_fp8`` quantized forms, the ``_2d``
-forms over ``topology()``, ``swing``, or ``auto``; ``wire=`` and
-``overlap_chunks=``; ``HOROVOD_ALLREDUCE_ALGORITHM``,
-``HOROVOD_ALLREDUCE_WIRE``, ``HOROVOD_OVERLAP_CHUNKS``,
-``HOROVOD_TOPOLOGY``), the quantized wire ``Compression.int8`` / ``fp8``
-(``ops/quantized.py``), and in ``DistributedOptimizer`` gradient overlap
-in the backward (``overlap=True``), error feedback (``error_feedback=``,
+Llama, T5). Upstream's build flags (``nccl_built``, ``gloo_built``,
+``mpi_built``, ``cuda_built``, ``rocm_built``, ``mpi_enabled``,
+``gloo_enabled``, ``mpi_threads_supported``) report this PyTorch's build
+and the backend ``init`` chose. Collectives: Horovod's eager API with
+``*_async`` handles, ``synchronize`` and ``poll``, Adasum (``adasum.py``),
+and subset process sets (``add_process_set``); eager ``join()`` for uneven
+data and the join mask (``alive``) of ``DistributedOptimizer``;
+``SyncBatchNorm`` for users' own models. Horovod's controller runs around
+every eager op: negotiation (a readable error, not a NCCL hang, when ranks
+issue collectives in another order), the timeline (``HOROVOD_TIMELINE`` or
+``start_timeline``), the metrics registry (``metrics()``,
+``HOROVOD_METRICS_FILE``) and the stall watchdog
+(``HOROVOD_STALL_CHECK_TIME_SECONDS``). The allreduce algorithm axis
+(``overlap.py``: ``algorithm=`` ``psum``, ``rs_ag``, ``chunked_rs_ag``,
+their ``_int8`` / ``_fp8`` quantized forms, the ``_2d`` forms over
+``topology()``, ``swing``, or ``auto``; ``wire=`` and ``overlap_chunks=``;
+``HOROVOD_ALLREDUCE_ALGORITHM``, ``HOROVOD_ALLREDUCE_WIRE``,
+``HOROVOD_OVERLAP_CHUNKS``, ``HOROVOD_TOPOLOGY``), the quantized wire
+``Compression.int8`` / ``fp8`` (``ops/quantized.py``), and in
+``DistributedOptimizer`` gradient overlap in the backward
+(``overlap=True``), error feedback (``error_feedback=``,
 ``reset_error_feedback``), ``gradient_predivide_factor`` and the online
 tuner (``HOROVOD_AUTOTUNE``, ``autotune.py``). The functional step:
 ``grad`` / ``value_and_grad`` over trees of tensors (for example through
@@ -39,14 +43,13 @@ and ZeRO-1 (``sharded_adamw``, ``optimizer_sharded.py``). Model-parallel
 layouts (``parallel``): the named dp x mp mesh (``HOROVOD_MESH``,
 ``mesh2d``, ``dp_size`` / ``mp_size`` / ``dp_rank`` / ``mp_rank``),
 ``PartitionRules``, FSDP / ZeRO-3 (blocks stored as flat shards and
-gathered just in time), ZeRO-2 and Megatron's conjugate operators.
-Fault tolerance: ``elastic`` (``TorchState``, ``TensorState``,
-``FsdpState``, ``@elastic.run``, discovery, hot spares),
-``checkpoint_sharded`` (async two-phase sharded checkpoints in
-the reference's on-disk format), ``checkpoint`` (full state), ``faults``
-(``HOROVOD_FAULT_PLAN``) and ``runner.run_elastic``. The
-flash-attention kernels are CUDA C++ for Hopper (``ops/csrc``), built with
-nvcc at first use. This package imports nothing
+gathered just in time), ZeRO-2 and Megatron's conjugate operators. Fault
+tolerance: ``elastic`` (``TorchState``, ``TensorState``, ``FsdpState``,
+``@elastic.run``, discovery, hot spares), ``checkpoint_sharded`` (async
+two-phase sharded checkpoints in the reference's on-disk format),
+``checkpoint`` (full state), ``faults`` (``HOROVOD_FAULT_PLAN``) and
+``runner.run_elastic``. The flash-attention kernels are CUDA C++ for Hopper
+(``ops/csrc``), built with nvcc at first use. This package imports nothing
 of JAX or of ``horovod_tpu``.
 """
 
@@ -64,9 +67,11 @@ from horovod_tpu_torch.autotune import (
     AutotuneResult, Autotuner, BayesianAutotuner, autotune_fusion_threshold)
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.core import (
-    backend, build_info, cross_rank, cross_size, device, dp_rank, dp_size,
-    init, is_initialized, local_rank, local_size, mesh2d, mesh_spec,
-    mp_rank, mp_size, rank, shutdown, size, topology, topology_str)
+    backend, build_info, cross_rank, cross_size, cuda_built, device,
+    dp_rank, dp_size, gloo_built, gloo_enabled, init, is_initialized,
+    local_rank, local_size, mesh2d, mesh_spec, mp_rank, mp_size, mpi_built,
+    mpi_enabled, mpi_threads_supported, nccl_built, rank, rocm_built,
+    shutdown, size, topology, topology_str)
 from horovod_tpu_torch import metrics
 from horovod_tpu_torch.metrics import (
     get_stall_watchdog, reset_metrics, start_metrics_flusher,
@@ -97,7 +102,11 @@ from horovod_tpu_torch.checkpoint_sharded import (  # noqa: E402,F401
 # partition rules, FSDP / ZeRO-3, ZeRO-2 and the conjugate operators.
 from horovod_tpu_torch import parallel  # noqa: E402,F401
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "__version__", "nccl_built", "gloo_built", "mpi_built", "cuda_built",
+    "rocm_built", "mpi_enabled", "gloo_enabled", "mpi_threads_supported",
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "device", "backend",
     "build_info", "allreduce", "allreduce_", "allreduce_async",

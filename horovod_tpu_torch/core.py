@@ -63,7 +63,9 @@ __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
            "local_rank", "local_size", "cross_rank", "cross_size", "device",
            "backend", "build_info", "init_epoch", "topology",
            "topology_str", "mesh2d", "mesh_spec", "dp_size", "mp_size",
-           "dp_rank", "mp_rank"]
+           "dp_rank", "mp_rank", "nccl_built", "gloo_built", "mpi_built",
+           "cuda_built", "rocm_built", "mpi_enabled", "gloo_enabled",
+           "mpi_threads_supported"]
 
 _LOCK = threading.Lock()
 
@@ -412,12 +414,60 @@ def init_epoch() -> int:
     return _INIT_EPOCH
 
 
+# Upstream Horovod's build and runtime flags, reporting this port's build
+# (the PyTorch it runs on) and the backend ``init`` chose. The reference
+# answers False to every one (no MPI, NCCL, Gloo, CUDA or ROCm on a TPU).
+
+def nccl_built() -> bool:
+    """Whether this PyTorch has NCCL (``init`` picks it on the GPU)."""
+    return bool(dist.is_nccl_available())
+
+
+def gloo_built() -> bool:
+    """Whether this PyTorch has Gloo (the CPU backend and the controller's
+    rounds)."""
+    return bool(dist.is_gloo_available())
+
+
+def mpi_built() -> bool:
+    """Whether this PyTorch has MPI (``init`` never picks it)."""
+    return bool(dist.is_mpi_available())
+
+
+def cuda_built() -> bool:
+    """Whether this PyTorch is built for CUDA."""
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    """Whether this PyTorch is built for ROCm."""
+    return getattr(torch.version, "hip", None) is not None
+
+
+def mpi_enabled() -> bool:
+    """Whether ``init`` runs the world on MPI: never."""
+    return _CTX is not None and _CTX.backend == "mpi"
+
+
+def gloo_enabled() -> bool:
+    """Whether ``init`` runs the world's collectives on Gloo (the CPU)."""
+    return _CTX is not None and _CTX.backend == "gloo"
+
+
+def mpi_threads_supported() -> bool:
+    """Whether MPI runs with multi-threading: no MPI, so False."""
+    return mpi_enabled()
+
+
 def build_info() -> dict:
-    """Capability flags (``hvd.nccl_built()`` and friends)."""
+    """The build and runtime flags in one dict: ``nccl_built()``,
+    ``gloo_built()``, the CUDA version, whether a card is there, whether
+    the kernels are built, and the backend ``init`` chose (None before
+    it)."""
     from horovod_tpu_torch.ops import _build
     return {
-        "nccl_built": bool(dist.is_nccl_available()),
-        "gloo_built": bool(dist.is_gloo_available()),
+        "nccl_built": nccl_built(),
+        "gloo_built": gloo_built(),
         "cuda": torch.version.cuda,
         "cuda_available": torch.cuda.is_available(),
         "kernels_built": _build.built(),

@@ -1,6 +1,7 @@
 """Models of the port (MNIST, ResNet, GPT-2, BERT, ViT, Llama, T5) and parameter
 conversion from the JAX package's trees, and ``striped_lm_loss``, the exact
-loss of the striped sequence-parallel layout.
+loss of the striped sequence-parallel layout. ``MnistCNN``, ``ResNet50`` and
+``ResNet18`` are re-exported here, as the reference does.
 
 ``get_model(name, **kw)`` builds the ported models by the reference's
 names (``horovod_tpu.models.get_model``); any other name raises, pointing
@@ -8,8 +9,11 @@ to ``ROADMAP.md``, which lists the reference's models still to be ported.
 """
 
 from horovod_tpu_torch.models.gpt2 import striped_lm_loss  # noqa: F401
+from horovod_tpu_torch.models.mnist import MnistCNN  # noqa: F401
+from horovod_tpu_torch.models.resnet import ResNet18, ResNet50  # noqa: F401
 
-__all__ = ["get_model", "PORTED", "striped_lm_loss"]
+__all__ = ["MnistCNN", "ResNet50", "ResNet18", "get_model", "PORTED",
+           "striped_lm_loss"]
 
 PORTED = ("mnist", "resnet18", "resnet50", "gpt2", "gpt2_medium", "bert",
           "bert_large", "vit", "vit_b16", "llama", "llama7b", "llama_small",

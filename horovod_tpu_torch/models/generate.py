@@ -189,10 +189,24 @@ def _llama_step(cfg, model, cache, tok, idx):
     return (cache.layers if raw else cache), _head(model, logits)
 
 
+def _refuse_split_t5(model) -> None:
+    """T5's decode reshapes by ``cfg.num_heads`` and reads the whole bias
+    table and head, so on a tensor-parallel part it would give wrong
+    tokens without an error: refuse it."""
+    if model.tp is not None:
+        raise NotImplementedError(
+            "T5 decode runs on a whole model; this one is tensor-parallel "
+            "(mp.tensor_parallel holds 1/mp of its heads, bias columns and "
+            "vocab rows a rank). Decode a whole T5 (tensor-parallel decode "
+            "is implemented for gpt2/llama, mp.tp_decode_step)")
+
+
 def t5_encode(model, cfg, src, src_mask):
     """The encoder (the training one: ``model(src, None, enc_mask=)``) and
     every decoder layer's cross-attention K and V, once a generation:
-    [{"k", "v": (B, T_src, H, hd)}] in ``cfg.dtype``."""
+    [{"k", "v": (B, T_src, H, hd)}] in ``cfg.dtype``. A tensor-parallel
+    model is refused."""
+    _refuse_split_t5(model)
     h, hd = cfg.num_heads, cfg.head_dim
     t = src.shape[1]
     enc = model(src, None, enc_mask=src_mask)
@@ -211,7 +225,9 @@ def t5_decoder_bias(cfg, model, t_dec: int) -> torch.Tensor:
 def _t5_step(cfg, model, cache, cross, src_mask, dec_bias, tok, idx):
     """One decoder token against the self-attention cache and the fixed
     cross K and V (T5: no 1/sqrt(d) scale; the causal relative bias of row
-    ``idx``; cross-attention unbiased, and zero on an all-pad source)."""
+    ``idx``; cross-attention unbiased, and zero on an all-pad source). A
+    tensor-parallel model is refused."""
+    _refuse_split_t5(model)
     cache, raw = _as_cache(cache)
     b, h, hd = tok.shape[0], cfg.num_heads, cfg.head_dim
     dt = cfg.dtype
@@ -429,7 +445,7 @@ def t5_generate(model: Any, src: torch.Tensor, max_new_tokens: int, *,
     """Seq2seq decode: (B, T_src) -> (B, max_new_tokens) target ids. The
     encoder and every layer's cross K and V run once; the decoder starts
     from the pad/start token with a cached self-attention. Sampling as
-    :func:`generate`."""
+    :func:`generate`. A tensor-parallel T5 is refused (``t5_encode``)."""
     from horovod_tpu_torch.models.t5 import T5
     if not isinstance(model, T5):
         raise TypeError(f"t5_generate needs a T5 model, got "

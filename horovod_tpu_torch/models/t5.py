@@ -18,7 +18,22 @@ layers of ``gpt2.py`` and ``llama.py``:
 ``models/convert.py`` carries the reference's parameters over
 (``t5_params_from_jax``); ``remat=True`` checkpoints each layer
 (``utils/remat.py``). Decoding with a KV cache is ``models/generate.py``'s
-``t5_generate``.
+``t5_generate`` (on a whole model only).
+
+Tensor parallelism (``parallel/mp.py``): :func:`partition_rules` is the
+reference's Megatron rule set over the port's names, and
+``mp.tensor_parallel(model, tp_set)`` turns a built T5 into this rank's
+1/mp part. ``tp`` (a ``mp.TensorParallel``, None when the model is whole)
+places f at each column-parallel input (the query input of every
+attention, separately the encoder's states that the cross attention
+reads, the gated-GELU input and the head's input), g at the row-parallel
+``o`` and ``wo`` outputs (``Dense.reduce``), and the vocab-parallel lookup
+of the shared embedding for both stacks. The attention runs at the local
+head count H/mp. Each rank adds its own heads' columns of the replicated
+bias tables, taken after an f on the table, so each table's gradient is
+the whole one on every rank. The model then returns this rank's
+(B, T_dec, V/mp) logits, and :func:`seq2seq_loss` is the exact loss over
+the vocab slices.
 """
 
 from __future__ import annotations
@@ -33,10 +48,11 @@ import torch.nn.functional as F
 from horovod_tpu_torch.models.gpt2 import Dense
 from horovod_tpu_torch.models.llama import RMSNorm
 from horovod_tpu_torch.ops.attention import multihead_attention
+from horovod_tpu_torch.parallel.sharding import P, PartitionRules
 from horovod_tpu_torch.utils.remat import maybe_remat, remat_context
 
 __all__ = ["T5", "T5Config", "relative_position_bucket", "shift_right",
-           "seq2seq_loss"]
+           "seq2seq_loss", "partition_rules"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +117,10 @@ def relative_position_bucket(rel_pos: torch.Tensor, *, bidirectional: bool,
 
 class RelativeBias(nn.Module):
     """The learned (buckets, H) bias table of one stack; ``forward(t_q,
-    t_kv)`` -> the (H, t_q, t_kv) fp32 bias."""
+    t_kv)`` -> the (H, t_q, t_kv) fp32 bias, under tensor parallelism this
+    rank's H/mp heads of it."""
+
+    tp = None
 
     def __init__(self, cfg: T5Config, bidirectional: bool):
         super().__init__()
@@ -119,12 +138,22 @@ class RelativeBias(nn.Module):
             max_distance=self.cfg.rel_max_distance)
 
     def forward(self, t_q: int, t_kv: int) -> torch.Tensor:
-        return self.rel_bias[self.buckets(t_q, t_kv)].permute(2, 0, 1)
+        table = self.rel_bias
+        if self.tp is not None:
+            # The table is whole on every rank and each adds its own heads'
+            # columns: f sums the column gradients over the line.
+            h = table.shape[1] // self.tp.size
+            table = self.tp.f(table)[:, self.tp.rank * h:
+                                     (self.tp.rank + 1) * h]
+        return table[self.buckets(t_q, t_kv)].permute(2, 0, 1)
 
 
 class T5Attention(nn.Module):
-    """Projections around the shared dense attention: ``kv`` defaults to
-    ``x`` (self-attention); ``key_mask`` (B, Tkv) masks padding keys."""
+    """Projections around the shared dense attention over the heads its
+    weights hold (all, or this rank's H/mp): ``kv`` defaults to ``x``
+    (self-attention); ``key_mask`` (B, Tkv) masks padding keys."""
+
+    tp = None
 
     def __init__(self, cfg: T5Config):
         super().__init__()
@@ -138,10 +167,16 @@ class T5Attention(nn.Module):
     def forward(self, x, kv=None, bias=None, key_mask=None,
                 causal: bool = False):
         cfg = self.cfg
+        if self.tp is not None:
+            # f at the column-parallel inputs: the cross attention's kv (the
+            # encoder's states) takes its own.
+            x = self.tp.f(x)
+            kv = None if kv is None else self.tp.f(kv)
         kv = x if kv is None else kv
         b, tq, _ = x.shape
         tk = kv.shape[1]
-        h, hd = cfg.num_heads, cfg.head_dim
+        hd = cfg.head_dim
+        h = self.q.weight.shape[0] // hd
         o = multihead_attention(
             self.q(x).reshape(b, tq, h, hd), self.k(kv).reshape(b, tk, h, hd),
             self.v(kv).reshape(b, tk, h, hd), impl="dense", causal=causal,
@@ -152,6 +187,8 @@ class T5Attention(nn.Module):
 class GatedGelu(nn.Module):
     """t5.1.1 FFN: ``wo(gelu(wi_0(x)) * wi_1(x))``, bias-free."""
 
+    tp = None
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         self.wi_0 = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, False)
@@ -159,6 +196,8 @@ class GatedGelu(nn.Module):
         self.wo = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, False)
 
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.f(x)
         return self.wo(F.gelu(self.wi_0(x), approximate="tanh")
                        * self.wi_1(x))
 
@@ -205,6 +244,8 @@ class T5(nn.Module):
     initial weights as the reference's initializers shape them.
     """
 
+    tp = sp = None
+
     def __init__(self, cfg: T5Config,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -237,10 +278,17 @@ class T5(nn.Module):
             if isinstance(m, Dense):
                 m.reset_parameters(generator)
 
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The shared embedding's rows in ``cfg.dtype`` (vocab-parallel
+        under tensor parallelism)."""
+        emb = self.embedding[tokens] if self.tp is None else \
+            self.tp.embed(self.embedding, tokens)
+        return emb.to(self.cfg.dtype)
+
     def encode(self, enc_tokens: torch.Tensor,
                enc_mask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = self.embedding[enc_tokens].to(cfg.dtype)
+        x = self.embed(enc_tokens)
         t = x.shape[1]
         bias = self.enc_rel(t, t)
         for layer in self.enc:
@@ -256,12 +304,14 @@ class T5(nn.Module):
         enc = self.encode(enc_tokens, enc_mask)
         if dec_tokens is None:
             return enc
-        y = self.embedding[dec_tokens].to(cfg.dtype)
+        y = self.embed(dec_tokens)
         t = y.shape[1]
         bias = self.dec_rel(t, t)
         for layer in self.dec:
             y = maybe_remat(cfg, layer)(y, enc, bias, enc_mask)
         y = self.dec_norm(y)
+        if self.tp is not None:
+            y = self.tp.f(y)
         # v1.1: untied LM head, fp32 logits.
         return torch.einsum("btd,vd->btv", y.float(), self.lm_head.float())
 
@@ -276,11 +326,43 @@ def seq2seq_loss(model: T5, enc_tokens: torch.Tensor, labels: torch.Tensor,
                  enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Teacher-forced cross entropy over the non-pad ``labels`` (B, T_dec),
     the target ids; the decoder input is their right shift with the
-    pad/start token."""
+    pad/start token. On a tensor-parallel model (``model.tp`` set) the
+    log-likelihoods come from this rank's vocab slice of the logits with
+    ``mp``'s vocab-parallel arithmetic: every rank returns the loss of the
+    whole vocab, and the logits are never gathered."""
     cfg = model.cfg
     logits = model(enc_tokens, shift_right(labels, cfg.pad_id),
                    enc_mask=enc_mask)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, labels[..., None].long())[..., 0]
-    w = (labels != cfg.pad_id).to(ll.dtype)
+    return _token_loss(logits, labels, cfg.pad_id, model.tp)
+
+
+def _token_loss(logits: torch.Tensor, labels: torch.Tensor, pad_id: int,
+                tp=None) -> torch.Tensor:
+    """:func:`seq2seq_loss` over given logits: the pad-weighted mean
+    negative log-likelihood of ``labels``, over the whole vocab or, with
+    ``tp``, over its vocab slices."""
+    if tp is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    else:
+        from horovod_tpu_torch.parallel.mp import _vocab_parallel_ll
+        ll = _vocab_parallel_ll(tp, logits, labels)
+    w = (labels != pad_id).to(ll.dtype)
     return -(ll * w).sum() / w.sum().clamp_min(1)
+
+
+def partition_rules() -> PartitionRules:
+    """The reference's Megatron tp rule set (``horovod_tpu/models/t5.py``
+    ``partition_rules``) over the port's parameter names, each (in, out)
+    kernel's spec transposed for the (out, in) weight: column-parallel
+    q / k / v / wi_0 / wi_1 split their output rows, row-parallel o / wo
+    their input columns, the shared embedding and the untied head their
+    vocab rows; the two bias tables and every RMSNorm stay whole."""
+    return PartitionRules([
+        (r"^embedding$", P("tp", None)),
+        (r"^lm_head$", P("tp", None)),
+        (r"\.(q|k|v|wi_0|wi_1)\.weight$", P("tp", None)),
+        (r"\.(o|wo)\.weight$", P(None, "tp")),
+        (r"\.rel_bias$", P()),
+        (r"(^|\.)(ln1|ln2|ln3|enc_norm|dec_norm)\.weight$", P()),
+    ])

@@ -18,14 +18,18 @@ two alternating buffers, so the transfer can run under the kernels.
 
 from __future__ import annotations
 
+import importlib
 from typing import Optional
 
 import torch
 
-from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops.flash_attention import _pack, _unpack
 from horovod_tpu_torch.ops.ring_attention import (Ring, check_layout,
                                                   check_shard_input)
+
+# The kernels' module (``ops.flash_attention`` is the function, as in the
+# reference's package); its wrappers are looked up at each call.
+fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 
 __all__ = ["ring_flash_attention", "mode_of", "fwd_hop", "bwd_hop",
            "safe_merge"]

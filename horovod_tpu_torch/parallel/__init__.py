@@ -3,9 +3,9 @@
 (``fsdp.py``), Megatron tensor parallelism (the weight splits, training
 and decode), ZeRO-2 and the ``zero3_*`` surface (``mp.py``) and Megatron's
 conjugate operators (``conjugate.py``), with the ``sp`` and ``ep`` axes
-beside tp (``mp.tensor_parallel(model, tp_set, sp=, ep=)``). Port of
-``horovod_tpu/parallel``; T5's rules wait for ``ROADMAP.md`` item 8b-iii,
-pipelines and their schedule tables for item 8c.
+beside tp (``mp.tensor_parallel(model, tp_set, sp=, ep=)``; GPT-2, Llama
+and T5). Port of ``horovod_tpu/parallel``; pipelines and their schedule
+tables wait for ``ROADMAP.md`` item 8c.
 """
 
 from horovod_tpu_torch.parallel.conjugate import (  # noqa: F401

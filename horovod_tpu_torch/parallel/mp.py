@@ -18,7 +18,12 @@ consumers:
   kernels run at B * H / mp heads). The model returns this rank's
   (B, T, V/mp) logits, and :func:`vocab_parallel_loss` is the exact cross
   entropy over them: one max, one sum of exponentials and one target
-  logit, reduced over the set; the logits are never gathered. At mp = 1
+  logit, reduced over the set; the logits are never gathered. A T5 splits
+  by its own rules (``models/t5.py`` ``partition_rules``, as the
+  reference's dryrun applies them, whatever ``HOROVOD_MP_RULES`` says) and
+  trains on ``t5.seq2seq_loss``, which takes the same arithmetic; the
+  rule-set, weight-split and decode functions below refuse it, as the
+  reference's do. At mp = 1
   nothing changes: the model is the dense one and the loss is
   ``loss_fn``; so it is under ``HOROVOD_MP_RULES=off``, which
   :func:`mp_partition_rules` maps to no split at all. On a dp x mp mesh
@@ -176,9 +181,29 @@ def mp_partition_rules(cfg, rules: Optional[str] = None) -> PartitionRules:
     else:
         raise NotImplementedError(
             f"no mp rule set for the {fam.name!r} family")
+    return _on_mp(base())
+
+
+def _on_mp(rules: PartitionRules) -> PartitionRules:
+    """``rules`` with their ``"tp"`` axis renamed ``"mp"``."""
     return PartitionRules([
         (pat.pattern, P(*(MP_AXIS if s == "tp" else s for s in spec)))
-        for pat, spec in base().rules])
+        for pat, spec in rules.rules])
+
+
+def _t5_rules(cfg, mp: int) -> PartitionRules:
+    """T5's Megatron rules on the ``"mp"`` axis, after checking that ``mp``
+    divides the heads, the gated-GELU width and the vocab. The reference
+    trains T5 under GSPMD with ``models/t5.py``'s rules applied directly,
+    so ``HOROVOD_MP_RULES`` does not enter."""
+    from horovod_tpu_torch.models.t5 import partition_rules
+    for what, n in (("num_heads", cfg.num_heads), ("d_ff", cfg.d_ff),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % mp:
+            raise ValueError(f"mp={mp} must divide T5's {what}={n} (the "
+                             f"split is by whole heads, columns and vocab "
+                             f"rows)")
+    return _on_mp(partition_rules())
 
 
 # ---------------------------------------------------------------------------
@@ -400,13 +425,12 @@ def _bind(model, attr: str, value) -> None:
             setattr(m, attr, value)
 
 
-def _wire(model, tp: TensorParallel):
+def _wire(model, tp: TensorParallel, rules: PartitionRules):
     """Hang ``tp`` on ``model``'s modules, whose parameters are this rank's
-    :func:`split_params` part: the attention, the MLP and the model place f
-    and the vocab-parallel lookup, each row-parallel ``Dense`` sums its
+    part under ``rules``: the attention, the MLP and the model place f and
+    the vocab-parallel lookup, each row-parallel ``Dense`` sums its
     partial product with g before its bias."""
     from horovod_tpu_torch.models.gpt2 import Dense
-    rules = mp_partition_rules(model.cfg, "megatron")
     _bind(model, "tp", tp)
     for name, m in model.named_modules():
         if isinstance(m, Dense) and _kind(rules, f"{name}.weight") == "cols":
@@ -419,11 +443,12 @@ def _rules_off() -> bool:
 
 
 def tensor_parallel(model, process_set=None, *, sp=None, ep=None):
-    """Turn a built GPT-2 or Llama into this rank's tensor-parallel part, in
-    place, and return it. Each parameter becomes its :func:`split_params`
-    slice of the model's own weights (every rank builds them alike), and
-    the modules place the collectives: f at the column-parallel inputs of
-    the attention, the MLP and the head, g at the row-parallel outputs
+    """Turn a built GPT-2, Llama or T5 into this rank's tensor-parallel
+    part, in place, and return it. Each parameter becomes its
+    :func:`split_params` slice of the model's own weights (every rank
+    builds them alike), and the modules place the collectives: f at the
+    column-parallel inputs of the attention, the MLP and the head, g at
+    the row-parallel outputs
     (the bias after the sum), the vocab-parallel embedding. The model's
     forward then returns this rank's (B, T, V/mp) fp32 logits: train it
     with :func:`vocab_parallel_loss`. Build the optimizer after this call.
@@ -446,6 +471,17 @@ def tensor_parallel(model, process_set=None, *, sp=None, ep=None):
     None)``). Under ``HOROVOD_MP_RULES=off`` every rank keeps every
     expert.
 
+    A T5 splits by ``models/t5.py``'s ``partition_rules`` whatever
+    ``HOROVOD_MP_RULES`` says (the reference's dryrun applies them
+    directly); the line must divide its heads, gated-GELU width and
+    vocab. Its modules then place f at the query input of every
+    attention, separately at the cross attention's kv (the encoder's
+    states), at the gated-GELU input and at the head, g at ``o`` and
+    ``wo``, the vocab-parallel lookup for both stacks, and f on each bias
+    table before this rank's heads' columns. Train it with
+    ``t5.seq2seq_loss``. T5 has no sequence or expert parallelism:
+    ``sp=`` and ``ep=`` are refused.
+
     The reference annotates the whole parameters with
     :func:`mp_partition_rules` and lets GSPMD place the same collectives,
     naming the ``"sp"`` and ``"ep"`` axes where the port takes their
@@ -454,16 +490,23 @@ def tensor_parallel(model, process_set=None, *, sp=None, ep=None):
     from horovod_tpu_torch.ops.ring_attention import Ring
     cfg = model.cfg
     tp = TensorParallel(process_set)
-    validate_tp(cfg, tp.size)
     if model.tp is not None or model.sp is not None:
         raise ValueError(f"the model is tensor-parallel already "
                          f"({model.tp}, sp {model.sp})")
-    rules = mp_partition_rules(cfg)
+    if _family(cfg).name == "t5":
+        if sp is not None or ep is not None:
+            raise ValueError("T5 has no sequence or expert parallelism: "
+                             "tensor_parallel refuses sp= and ep= for it")
+        rules = _t5_rules(cfg, tp.size)
+    else:
+        validate_tp(cfg, tp.size)
+        rules = mp_partition_rules(cfg)
     split_tp = tp.size > 1 and bool(rules.rules)
     if sp is not None and not cfg.use_ring_attention:
         raise ValueError("sp= binds the sequence-parallel attention: the "
                          "config needs use_ring_attention=True")
-    if cfg.use_ring_attention and sp is None and split_tp:
+    if getattr(cfg, "use_ring_attention", False) and sp is None \
+            and split_tp:
         raise ValueError(
             "a tensor-parallel model with use_ring_attention needs its sp "
             "line: tensor_parallel(model, process_set=mesh.process_set("
@@ -489,7 +532,7 @@ def tensor_parallel(model, process_set=None, *, sp=None, ep=None):
                     v = _split_one("rows", v, moe_ep.size, moe_ep.rank)
                 p.data = v.to(device=p.device, dtype=p.dtype, copy=True)
     if split_tp:
-        _wire(model, tp)
+        _wire(model, tp, rules)
     if sp is not None:
         _bind(model, "sp", Ring(sp))
     if moe_ep is not None:
@@ -568,21 +611,33 @@ def _vocab_parallel_loss(tp, logits, tokens, segment_ids=None):
 # ---------------------------------------------------------------------------
 
 def _part_model(cfg, params, tp: TensorParallel):
-    """A GPT-2 or Llama built on the meta device whose parameters are
-    ``params`` (this rank's :func:`split_params` part, any device), wired
-    as :func:`tensor_parallel` wires it (over a one-rank set: the dense
-    model)."""
+    """A GPT-2, Llama or T5 built on the meta device whose parameters are
+    ``params`` (this rank's part, any device: :func:`split_params`', or
+    for T5 :func:`_split_t5`'s), wired as :func:`tensor_parallel` wires it
+    (over a one-rank set: the dense model)."""
     from horovod_tpu_torch.models.gpt2 import GPT2
     from horovod_tpu_torch.models.llama import Llama
+    from horovod_tpu_torch.models.t5 import T5
+    fam = _family(cfg).name
     with torch.device("meta"):
-        model = (GPT2 if _family(cfg).name == "gpt2" else Llama)(cfg)
+        model = {"gpt2": GPT2, "llama": Llama, "t5": T5}[fam](cfg)
     for name, t in params.items():
         owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         setattr(model.get_submodule(owner), leaf,
                 torch.nn.Parameter(t, requires_grad=False))
     if tp.size > 1:
-        _wire(model, tp)
+        _wire(model, tp, _t5_rules(cfg, tp.size) if fam == "t5"
+              else mp_partition_rules(cfg, "megatron"))
     return model
+
+
+def _split_t5(cfg, params, mp: int, rank: int):
+    """Rank ``rank``'s 1/mp part of a T5 state dict, as
+    :func:`tensor_parallel` splits the model (:func:`split_params` refuses
+    T5, as the reference's does)."""
+    rules = _t5_rules(cfg, mp)
+    return {k: _split_one(_kind(rules, k), _as_tensor(v), mp, rank)
+            for k, v in params.items()}
 
 
 def tp_decode_step(cfg, process_set=None):

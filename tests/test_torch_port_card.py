@@ -16,6 +16,7 @@ forward, dQ and dK/dV) hold ``chip_smoke``'s bound: every element within
 """
 
 import copy
+import importlib
 import os
 import pathlib
 import subprocess
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke
-from horovod_tpu_torch.ops import flash_attention as pfa
+pfa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

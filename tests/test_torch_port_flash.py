@@ -8,6 +8,8 @@ the port takes for CPU tensors). Tolerances are the reference's own
 on the gradients, all in fp32.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ from horovod_tpu.ops.attention import multihead_attention as jax_mha
 from horovod_tpu.ops.attention import packed_positions as jax_packed
 from horovod_tpu.ops.flash_attention import flash_attention as jax_flash
 from horovod_tpu_torch.ops import attention as patt
-from horovod_tpu_torch.ops import flash_attention as pfa
+pfa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)

@@ -15,6 +15,7 @@ else, and the MoE experts' products must reach ``aten.bmm``.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +41,7 @@ from horovod_tpu_torch.models.convert import gpt2_params_from_jax
 from horovod_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
 from horovod_tpu_torch.models.llama import Llama, LlamaConfig
 from horovod_tpu_torch.models.t5 import T5, T5Config, seq2seq_loss
-from horovod_tpu_torch.ops import flash_attention as fa
+fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 from horovod_tpu_torch.utils import remat as R
 
 # fp32 on both sides; the two frameworks sum in different orders (as

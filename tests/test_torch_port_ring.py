@@ -21,6 +21,7 @@ table): rtol 1e-4 and atol 2e-5 for outputs and gradients, as the
 reference's own ring tests hold a ring to dense attention.
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -42,7 +43,7 @@ from horovod_tpu.ops.ring_flash import _ring as jring_raw
 from horovod_tpu.ops.ring_flash import ring_flash_attention as jring_flash
 from horovod_tpu.ops.sequence import ulysses_attention as julysses
 
-from horovod_tpu_torch.ops import flash_attention as pfa
+pfa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, H, D = 2, 48, 4, 16

@@ -31,6 +31,7 @@ import time
 T_START = time.time()
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -45,7 +46,8 @@ sys.path.insert(0, REPO)
 import horovod_tpu_torch as hvd  # noqa: E402
 from horovod_tpu_torch import elastic, faults, metrics  # noqa: E402
 from horovod_tpu_torch import checkpoint_sharded as cs  # noqa: E402
-from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
+fa = importlib.import_module(  # noqa: E402
+    "horovod_tpu_torch.ops.flash_attention")
 
 
 def log_line(path, record):

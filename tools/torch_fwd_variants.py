@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import re
 import shutil
@@ -120,7 +121,7 @@ def main(argv=None) -> int:
         print("torch_fwd_variants: needs a CUDA card", file=sys.stderr)
         return 1
     from horovod_tpu_torch.ops import _build
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 
     built = build_variants(args.parent, ROOT / "build" / "fwd_variants")
     libs = {n: _build.bind(ctypes.CDLL(str(p)), "flash_fwd")

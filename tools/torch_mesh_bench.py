@@ -47,6 +47,7 @@ cards' names and power limits (``nvidia-smi``) in its JSON line.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -107,7 +108,7 @@ def worker(device, spec, steps, out_dir):
     import numpy as np
     import torch
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.parallel import make_mesh, mp
 
     kind, dims = parse(spec)

@@ -37,6 +37,7 @@ Prints one JSON line; exit code 0 when every check holds.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -87,7 +88,7 @@ def hop_worker(device, t_local, reps, out_dir):
     import torch
     import torch.distributed as dist
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.ops import ring_flash as rf
     from horovod_tpu_torch.ops.ring_attention import Ring
 
@@ -182,7 +183,7 @@ def gpt2_worker(kind, device, t_global, steps, out_dir):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import get_model
     from horovod_tpu_torch.models.gpt2 import loss_fn, striped_lm_loss
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.ops.ring_attention import Ring
 
     hvd.init(device=device)

@@ -1,9 +1,21 @@
 #!/usr/bin/env python3
 """Megatron tensor parallelism across cards: ``python3
 tools/torch_tp_bench.py --np N [--mesh dpXxmpY] [--device cuda|cpu]
-[--steps 5] [--band 1e-3]``. ``--np 2`` and ``--np 4`` split the model
-over a pure mp mesh (``dp1xmpN``); ``--np 4 --mesh dp2xmp2`` runs two
-data-parallel rows of two tensor-parallel ranks.
+[--model gpt2_medium|t5_small] [--steps 5] [--band 1e-3]``. ``--np 2``
+and ``--np 4`` split the model over a pure mp mesh (``dp1xmpN``);
+``--np 4 --mesh dp2xmp2`` runs two data-parallel rows of two
+tensor-parallel ranks.
+
+``--model t5_small``: T5-small (bf16 compute, fp32 parameters, seed 0; a
+two-layer d-64 T5 with ``--device cpu``) at ``chip_smoke.py`` phase 15's
+shape, B 16, 512 source and 512 target tokens with four padded source
+tails, split by T5's own rules and trained under ``t5.seq2seq_loss``
+(vocab-parallel on a split model) with the same optimizer. A step then
+issues 4 in-step allreduces an encoder layer and 7 a decoder layer (g at
+``o`` and ``wo``; f at the attention and MLP inputs, the cross attention's
+kv taking its own) and 7 more (two embedding sums, the loss's max and
+sums, the two bias tables' f and the head's f); no flash kernel
+launches. Decode is not run: a split T5 refuses it.
 
 GPT-2 medium (``attention="flash"``, bf16 compute, fp32 parameters, seed
 0; a two-layer d-64 GPT-2 with ``--device cpu``, a gloo rehearsal), built
@@ -48,6 +60,7 @@ top kernels by device time. Prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -58,7 +71,10 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = ("gpt2_medium", "t5_small")
 B, T = 8, 1024
+# T5-small at phase 15's shape: B 16, 512 source and target tokens.
+T5_B, T5_T = 16, 512
 PROMPT, NEW = 32, 32
 CLEAR_GAP = 0.04
 
@@ -75,6 +91,27 @@ def _gpt2(device, dev, **kw):
             device=dev).manual_seed(0), **width, **kw)
 
 
+def _t5(device, dev):
+    """T5-small on the card, a tiny T5 on the CPU, seed 0, with phase 15's
+    batch: (model, source ids with four padded tails, target ids)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models import get_model
+    width = {} if device == "cuda" else dict(
+        num_encoder_layers=2, num_decoder_layers=2, d_model=64, d_ff=128,
+        num_heads=4, head_dim=16, vocab_size=512, dtype=torch.float32)
+    with torch.device(dev):
+        model = get_model("t5_small", generator=torch.Generator(
+            device=dev).manual_seed(0), **width)
+    rng = np.random.default_rng(0)
+    v = model.cfg.vocab_size
+    src = rng.integers(1, v, (T5_B, T5_T))
+    for i in range(4):
+        src[i, T5_T - 64 * (i + 1):] = model.cfg.pad_id
+    tgt = rng.integers(1, v, (T5_B, T5_T))
+    return model, torch.tensor(src), torch.tensor(tgt)
+
+
 def _traced_allreduces() -> float:
     from horovod_tpu_torch import metrics
     return sum(s["value"] for s in metrics.snapshot()["counters"].get(
@@ -82,12 +119,12 @@ def _traced_allreduces() -> float:
         if s["labels"].get("kind") == "allreduce")
 
 
-def worker(device, steps, out_dir, gold_path):
+def worker(device, steps, out_dir, gold_path, name="gpt2_medium"):
     sys.path.insert(0, REPO)
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import generate as G
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.parallel import mp
 
     hvd.init(device=device)
@@ -101,20 +138,39 @@ def worker(device, steps, out_dir, gold_path):
         if cuda:
             torch.cuda.synchronize()
 
-    model = _gpt2(device, dev, attention="flash")
+    t5 = name == "t5_small"
+    if t5:
+        from horovod_tpu_torch.models.t5 import seq2seq_loss
+        model, src, tgt = _t5(device, dev)
+        split = mp._split_t5
+        b, items = T5_B, T5_B * T5_T
+    else:
+        model = _gpt2(device, dev, attention="flash")
+        split = mp.split_params
+        tokens = torch.randint(0, model.cfg.vocab_size, (B, T),
+                               generator=torch.Generator().manual_seed(0))
+        b, items = B, B * T
     cfg = model.cfg
     whole_bytes = mp.param_bytes(model.state_dict())
-    part_bytes = mp.param_bytes(mp.split_params(
-        cfg, model.state_dict(), n_mp, hvd.mp_rank()))
+    part_bytes = mp.param_bytes(split(cfg, model.state_dict(), n_mp,
+                                      hvd.mp_rank()))
     mp.tensor_parallel(model)
     held = mp.param_bytes(model.state_dict())
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
         model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8),
         process_set=dp_set)
-    tokens = torch.randint(0, cfg.vocab_size, (B, T),
-                           generator=torch.Generator().manual_seed(0))
-    rows = B // n_dp
-    tok = tokens[hvd.dp_rank() * rows:(hvd.dp_rank() + 1) * rows].to(dev)
+    rows = slice(hvd.dp_rank() * (b // n_dp),
+                 (hvd.dp_rank() + 1) * (b // n_dp))
+    if t5:
+        src, tgt = src[rows].to(dev), tgt[rows].to(dev)
+
+        def loss_of():
+            return seq2seq_loss(model, src, tgt)
+    else:
+        tok = tokens[rows].to(dev)
+
+        def loss_of():
+            return mp.vocab_parallel_loss(model(tok), tok)
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -127,7 +183,7 @@ def worker(device, steps, out_dir, gold_path):
         if cuda:
             ev[0].record()
         opt.zero_grad()
-        loss = mp.vocab_parallel_loss(model(tok), tok)
+        loss = loss_of()
         t1 = time.perf_counter()
         if cuda:
             ev[1].record()
@@ -154,8 +210,13 @@ def worker(device, steps, out_dir, gold_path):
                                     op=hvd.Average,
                                     process_set=dp_set).item())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
-    layers = cfg.num_layers
-    want_traced = 0 if n_mp == 1 else 4 * layers + 4
+    if t5:
+        layers = 0
+        want_traced = 0 if n_mp == 1 else (4 * cfg.num_encoder_layers
+                                          + 7 * cfg.num_decoder_layers + 7)
+    else:
+        layers = cfg.num_layers
+        want_traced = 0 if n_mp == 1 else 4 * layers + 4
     step_ms = statistics.median(wall[1:]) if len(wall) > 1 else wall[0]
     split_ms = None if not split else dict(zip(
         ("forward", "backward", "optimizer", "host_forward",
@@ -168,7 +229,7 @@ def worker(device, steps, out_dir, gold_path):
         profile["step_ms"] = wall.pop()
     out = {"rank": r, "dp": n_dp, "mp": n_mp, "losses": losses,
            "wall_ms": wall, "step_ms": step_ms,
-           "tokens_per_s": B * T / step_ms * 1e3, "peak_gib": peak,
+           "tokens_per_s": items / step_ms * 1e3, "peak_gib": peak,
            "param_bytes": held, "whole_param_bytes": whole_bytes,
            "param_bytes_ratio": held / whole_bytes,
            "param_bytes_ok": held == part_bytes,
@@ -181,6 +242,11 @@ def worker(device, steps, out_dir, gold_path):
     del model, opt
     if cuda:
         torch.cuda.empty_cache()
+    if t5:
+        hvd.shutdown()
+        with open(os.path.join(out_dir, f"rank{r}.json"), "w") as fh:
+            json.dump(out, fh)
+        return
 
     # Greedy decode over this rank's part, teacher-forced on the one rank's
     # tokens once they exist.
@@ -260,14 +326,16 @@ def _world(nranks, args, timeout, **env):
                 for i in range(nranks)]
 
 
-def run(nranks, mesh, device, steps, band, timeout=900.0):
-    one = _world(1, ["--worker", device, str(steps), ""], timeout,
+def run(nranks, mesh, device, steps, band, name="gpt2_medium",
+        timeout=900.0):
+    t5 = name == "t5_small"
+    one = _world(1, ["--worker", device, str(steps), "", name], timeout,
                  HOROVOD_MESH="dp1xmp1")[0]
     with tempfile.TemporaryDirectory() as tmp:
         gold = os.path.join(tmp, "one.json")
         with open(gold, "w") as fh:
-            json.dump({"decode_tokens": one["decode_tokens"]}, fh)
-        per = _world(nranks, ["--worker", device, str(steps), gold],
+            json.dump({"decode_tokens": one.get("decode_tokens")}, fh)
+        per = _world(nranks, ["--worker", device, str(steps), gold, name],
                      timeout, HOROVOD_MESH=mesh)
     ref = one["losses"]
     diff = max(abs(a - w) for x in per for a, w in zip(x["losses"], ref))
@@ -276,8 +344,9 @@ def run(nranks, mesh, device, steps, band, timeout=900.0):
                      for i, x in enumerate(per))
     # Decode: the N-rank picks, teacher-forced on the one rank's tokens,
     # against the one rank's picks where its top two are clear of a tie.
-    clear_wrong, identical = 0, True
-    for x in per:
+    # A split T5 refuses decode: nothing to compare (identical is None).
+    clear_wrong, identical = 0, None if t5 else True
+    for x in ([] if t5 else per):
         for got, want, gap in zip(x["decode_picks"], one["decode_picks"],
                                   one["decode_gaps"]):
             for g_, w_, d_ in zip(got, want, gap):
@@ -295,8 +364,10 @@ def run(nranks, mesh, device, steps, band, timeout=900.0):
     }
     keep = ("losses", "step_ms", "tokens_per_s", "peak_gib", "param_bytes",
             "param_bytes_ratio", "traced_allreduces_per_step",
-            "decode_ms_per_step", "wall_ms", "split_ms", "profile")
-    return {"ranks": nranks, "mesh": mesh, "device": device, "steps": steps,
+            "wall_ms", "split_ms", "profile") \
+        + (() if t5 else ("decode_ms_per_step",))
+    return {"ranks": nranks, "mesh": mesh, "device": device, "model": name,
+            "steps": steps,
             "band": band, "max_loss_diff": diff,
             "decode_tokens_identical": identical,
             "decode_clear_tokens_wrong": clear_wrong, "checks": checks,
@@ -312,21 +383,22 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=None,
                     help="dp x mp spec (default dp1xmpN)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--model", default="gpt2_medium", choices=MODELS)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--band", type=float, default=1e-3)
-    ap.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
+    ap.add_argument("--worker", nargs=4, help=argparse.SUPPRESS)
     ap.add_argument("--out-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        device, steps, gold = args.worker
-        worker(device, int(steps), args.out_dir, gold)
+        device, steps, gold, name = args.worker
+        worker(device, int(steps), args.out_dir, gold, name)
         return 0
     sys.path.insert(0, REPO)
     if args.device == "cuda":
         from horovod_tpu_torch.ops import _build
         _build.build()      # once, before the ranks load the kernels
     mesh = args.mesh or f"dp1xmp{args.np}"
-    out = run(args.np, mesh, args.device, args.steps, args.band)
+    out = run(args.np, mesh, args.device, args.steps, args.band, args.model)
     print(json.dumps(out), flush=True)
     return 0 if out["ok"] else 1
 

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -147,7 +148,7 @@ def worker(device, steps, out_dir, ckpt_dir, stage=1):
     from horovod_tpu_torch.data import ShardedBatchIterator
     from horovod_tpu_torch.elastic import TensorState
     from horovod_tpu_torch.models.gpt2 import loss_fn
-    from horovod_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     from horovod_tpu_torch.parallel import mp
 
     hvd.init(device=device)
