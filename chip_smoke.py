@@ -272,23 +272,45 @@ Phases, in order; any failure exits nonzero and prints no result:
    rtol 1e-5 of it over the whole logits, and a planted fault (every rank
    adding heads [0, H/mp) of the tables) outside that bound; (c) no flash
    kernel launches on any of these paths.
+16. Pipelines (``parallel/pipeline.py``, ``models/gpt2_pipeline.py``):
+   GPT-2 medium at full width and depth (24 layers, bf16, flash) staged
+   over virtual pp ranks on the one card (``staged_gpt2``: one thread a
+   rank runs the port's step on its block, the hops through a line
+   transport between the threads, each rank's backward on its own
+   thread), one step each: (a) GPipe over 4 stages, 4 microbatches of 2 x
+   1024, against the unstaged model trained with gradient accumulation
+   over the same microbatches: the loss equal (rtol 1e-6), every gradient
+   within twice the largest relative gap between that model's full-batch
+   and accumulated bf16 gradients, and a hop that delivers the previous
+   microbatch's activation more than ``PP_FAULT_FACTOR`` times outside;
+   (b) 1F1B against GPipe over 4 stages at M 12 = 4(S - 1) microbatches
+   of 1 x 1024: the loss equal (rtol 1e-6), the gradients within the same
+   kind of bound at M 12, a lower peak memory, and stage s holding at most
+   min(2(S - 1 - s) + 1, M) microbatches; (c) 1F1B over pp 2 x tp 2 (the
+   tp f and g reduced over the threads) at (a)'s microbatches: every
+   gradient within twice the unstaged bf16 gradients' gap to fp32's, the
+   loss within twice the unstaged bf16 loss's relative gap to fp32's, and
+   a stage body without f more than ``PP_FAULT_FACTOR`` times outside. K1,
+   K2 and K3 launch 24 x M times a run, summed over the stages (per tp
+   rank in (c)); first they are held against their plain versions at the
+   shapes of (b) and (c) (``PP_SHAPES``, B*H 16 at T 1024).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
 (a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
-phase 12's, phase 13's, phase 14's and phase 15's paths, each counted
-from 0 just
+phase 12's, phase 13's, phase 14's, phase 15's and phase 16's paths, each
+counted from 0 just
 before the path and read just after) and their sum, and its numbers at
-each new path's shape (phases 5, 9, 10 (a), 13 and 14). The last line is
+each new path's shape (phases 5, 9, 10 (a), 13, 14 and 16). The last line is
 ``{"ok": true,
 "device": {...}}``. ``--phases 1,2`` stops after the kernel checks;
 ``--phases 1,9`` runs phase 9 alone (its remat losses then compare with
 its own run without remat); ``--phases 1,10`` runs phase 10 alone;
 ``--phases 1,11`` phase 11 alone; ``--phases 1,12`` phase 12 alone;
 ``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone;
-``--phases 1,15`` phase 15 alone.
+``--phases 1,15`` phase 15 alone; ``--phases 1,16`` phase 16 alone.
 """
 
 from __future__ import annotations
@@ -5297,13 +5319,427 @@ def phase_t5_tp(card):
             "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 16
+
+# Phase 16's staged runs of GPT-2 medium over virtual pp ranks: (a) GPipe,
+# 4 stages, 4 microbatches of 2 x 1024; (b) GPipe and 1F1B, 4 stages, M 12
+# = 4(S - 1) microbatches of 1 x 1024; (c) 1F1B over pp 2 x tp 2, (a)'s
+# microbatches.
+PP_RUNS = {"a": dict(pp=4, tp=1, m=4, mb=2), "b": dict(pp=4, tp=1, m=12, mb=1),
+           "c": dict(pp=2, tp=2, m=4, mb=2)}
+# A planted fault must leave its bound by more than this factor.
+PP_FAULT_FACTOR = 5.0
+# The kernels' shapes in phase 16 that no other phase checks (T 1024, d 64,
+# causal, bf16): (b)'s microbatch of 1 x 16 heads and (c)'s of 2 x 8
+# local heads at tp 2, both B*H 16. (a)'s 2 x 16 is B*H 32, as gpt2_tp4.
+PP_SHAPES = {"gpt2_medium_pp_mb1": dict(b=1, h=16, t=1024),
+             "gpt2_medium_pp2_tp2_mb2": dict(b=2, h=8, t=1024)}
+
+
+def phase_pp_kernels():
+    """K1-K3 against their plain versions at PP_SHAPES, then their times,
+    bounds, plain times and SDPA with the same mask: {path: {kernel:
+    numbers}}."""
+    import torch
+    out = {}
+    for path, c in PP_SHAPES.items():
+        b, h, t = c["b"], c["h"], c["t"]
+        log(f"path {path}: B {b} H {h} (B*H {b * h}) T {t} d 64 bf16 "
+            f"causal")
+        errs, case, outs = compare_kernels(
+            _path_inputs(b, h, t, True, h, False, seed=t + b * h + 16), b, h,
+            64, True, 0, BF16_TOL)
+        del outs
+        out[path] = shape_report(case, errs, b, h, t, True)
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+class _VirtualLines:
+    """Factory of the line transport of ``n`` virtual pp ranks on one card
+    (a ``_VirtualSet``): each tick's sends are left in a mailbox, the
+    stages meet, each takes what its neighbours sent it, and they meet
+    again; the sum over the line is the set's reduction. ``stale`` plants
+    a hop that delivers the previous microbatch's activation."""
+
+    def __init__(self, n, lock):
+        self.vset, self.box = _VirtualSet(n, lock), {}
+
+    def line(self, r, stale=False):
+        from horovod_tpu_torch.parallel.pipeline import Line
+        vset, box = self.vset, self.box
+
+        class VirtualLine(Line):
+            def __init__(self):
+                self.n, self.rank = vset.n, r
+                self.prev = r - 1 if r > 0 else None
+                self.next = r + 1 if r < vset.n - 1 else None
+                self.held = None
+
+            def exchange(self, fwd=None, bwd=None, recv_fwd=None,
+                         recv_bwd=None):
+                if fwd is not None:
+                    box[(r, r + 1)] = fwd
+                if bwd is not None:
+                    box[(r, r - 1)] = bwd
+                vset._meet()
+                got_f = box.pop((r - 1, r)) if recv_fwd is not None else None
+                got_b = box.pop((r + 1, r)) if recv_bwd is not None else None
+                vset._meet()
+                if stale and got_f is not None:
+                    got_f, self.held = (got_f if self.held is None
+                                        else self.held), got_f
+                return got_f, got_b
+
+            def psum(self, x):
+                return vset.reduce(r, x, sum)
+
+        return VirtualLine()
+
+
+def _virtual_tp_train(vset, r, with_f=True):
+    """Rank ``r`` of ``vset`` as a ``mp.TensorParallel`` for training: f
+    the identity forward and the sum over the virtual ranks backward, g
+    the sum forward and the identity backward (Megatron's pair); without
+    ``with_f`` f is the identity both ways (a planted fault)."""
+    import torch
+    from horovod_tpu_torch.parallel import mp
+
+    class F(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return vset.reduce(r, g, sum)
+
+    class G(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return vset.reduce(r, x, sum)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g
+
+    class VirtualTP(mp.TensorParallel):
+        def __init__(self):
+            self.process_set, self.size, self.rank = vset, vset.n, r
+            self.f = F.apply if with_f else (lambda x: x)
+            self.g = G.apply
+
+    return VirtualTP()
+
+
+def staged_gpt2(model, tokens, pp, tp=1, schedule="gpipe", fault=None):
+    """GPT-2 ``model`` trained one step staged over ``pp`` x ``tp`` virtual
+    ranks on one card: each rank a thread (``_run_virtual``) that runs the
+    port's ``gpt2_pipeline`` step on its block of ``make_pp_tp_params``'
+    stack under ``block_specs_tp`` (``stack_block_params``' under
+    ``P("pp")`` at tp 1), the block ``shard_pytree``'s ``_local_block``
+    gives the rank at its coordinates on a (pp, tp) ``Mesh``, the hops
+    through ``_VirtualLines`` and tp's f and g through
+    ``_virtual_tp_train``; the backward runs on each rank's thread
+    (``set_multithreading_enabled(False)``). ``tokens``: (M, mb, T).
+    Returns (loss, {name: gradient} in the model's layout, each rank's
+    peak microbatches in flight under 1F1B). ``fault``: ``"stale_hop"``
+    or ``"no_f"``."""
+    import threading
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models import gpt2_pipeline as gp
+    from horovod_tpu_torch.parallel.mesh import Mesh
+    from horovod_tpu_torch.parallel.sharding import (P, PartitionRules,
+                                                     _local_block)
+    cfg = model.cfg
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    if tp > 1:
+        blocks, rest = gp.make_pp_tp_params(state, pp, cfg.num_heads)
+    else:
+        blocks, rest = gp.stack_block_params(state, pp)
+    del state
+    mesh = Mesh(np.arange(pp * tp).reshape(pp, tp), ("pp", "tp"))
+    rules = gp.block_specs_tp() if tp > 1 else PartitionRules([(r"",
+                                                                P("pp"))])
+    lock = threading.Lock()
+    lines = [_VirtualLines(pp, lock) for _ in range(tp)]
+    tps = [_VirtualSet(tp, lock) for _ in range(pp)]
+    n = pp * tp
+    ranks = []
+    for r in range(n):
+        coords = mesh.coords(r)
+        line = lines[coords["tp"]].line(coords["pp"],
+                                        stale=fault == "stale_hop")
+        local = {k: _local_block(v, rules.spec_for(k), mesh, coords)
+                 for k, v in blocks.items()}
+        if tp > 1:
+            tpr = _virtual_tp_train(tps[coords["pp"]], coords["tp"],
+                                    with_f=fault != "no_f")
+            make = (gp.gpt2_pp_tp_loss_and_grad if schedule == "gpipe"
+                    else gp.gpt2_pp_tp_1f1b_loss_and_grad)
+            step = make(cfg, line, tpr)
+        else:
+            make = (gp.gpt2_pp_loss_and_grad if schedule == "gpipe"
+                    else gp.gpt2_pp_1f1b_loss_and_grad)
+            step = make(cfg, line)
+        ranks.append((coords, local, step))
+    # The ranks hold copies of their blocks: keep only the stack's shapes.
+    shapes = {k: v.shape for k, v in blocks.items()}
+    del blocks
+
+    def body(r):
+        coords, local, step = ranks[r]
+        with torch.autograd.set_multithreading_enabled(False):
+            loss, gb, gr = step(local, rest, tokens)
+        core = getattr(step, "core", None)
+        return coords, float(loss), gb, gr, (core.peak_in_flight if core
+                                              else None)
+
+    out = _run_virtual(n, body, lock, [ln.vset for ln in lines] + tps)
+    losses = {x[1] for x in out}
+    if len(losses) != 1:
+        fail(f"phase 16: the virtual ranks' losses differ: {losses}")
+    # The blocks' gradients back in the model's layout: each rank's block
+    # where _local_block took it from (a stack of positions, sliced alike).
+    whole = {}
+    for k, shape in shapes.items():
+        g = torch.empty(shape, dtype=out[0][2][k].dtype, device=tokens.device)
+        at = torch.arange(g.numel(), dtype=torch.int32,
+                          device=g.device).reshape(shape)
+        for coords, _, gb, _, _ in out:
+            where = _local_block(at, rules.spec_for(k), mesh, coords)
+            g.view(-1)[where.reshape(-1).long()] = gb[k].reshape(-1)
+        del at
+        g = g.reshape((pp * g.shape[1],) + tuple(g.shape[2:]))
+        if k == "attn.qkv.weight":
+            g = g.reshape(g.shape[0], -1, g.shape[-1])
+        elif k == "attn.qkv.bias":
+            g = g.reshape(g.shape[0], -1)
+        elif k == "attn.out.weight":
+            g = g.reshape(g.shape[:2] + (-1,))
+        for i in range(g.shape[0]):
+            whole[f"h.{i}.{k}"] = g[i]
+    whole.update(out[0][3])
+    for _, _, _, gr, _ in out[1:]:
+        if fault is None and any(not torch.equal(gr[k], out[0][3][k])
+                                 for k in gr):
+            fail("phase 16: the rest gradients differ between virtual "
+                 "ranks")
+    return losses.pop(), whole, [x[4] for x in out]
+
+
+def _unstaged_grads(model, tokens, full):
+    """The unstaged model's loss and gradients over the (M, mb, T) tokens:
+    the whole batch at once (``full``) or accumulated over the M
+    microbatches, each loss divided by M."""
+    from horovod_tpu_torch.models.gpt2 import loss_fn
+    model.zero_grad(set_to_none=True)
+    m = tokens.shape[0]
+    if full:
+        flat = tokens.reshape(-1, tokens.shape[-1])
+        loss = loss_fn(model(flat), flat)
+        loss.backward()
+        loss = loss.item()
+    else:
+        loss = 0.0
+        for i in range(m):
+            li = loss_fn(model(tokens[i]), tokens[i]) / m
+            li.backward()
+            loss += li.item()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss, grads
+
+
+def _grad_gap(got, want):
+    """(the largest relative error ||got - want|| / ||want|| over the
+    tensors, its tensor's name)."""
+    worst = (0.0, None)
+    for k, w in want.items():
+        w = w.float()
+        e = float((got[k].float() - w).norm() / w.norm().clamp_min(1e-30))
+        worst = max(worst, (e, k))
+    return worst
+
+
+def _pp_tokens(run, vocab, dev):
+    import numpy as np
+    import torch
+    c = PP_RUNS[run]
+    rng = np.random.default_rng(16)
+    return torch.tensor(rng.integers(0, vocab, (c["m"], c["mb"], 1024)),
+                        device=dev)
+
+
+def phase_pipeline(card):
+    """Phase 16: GPT-2 medium (24 layers, bf16, flash) staged over virtual
+    pp ranks on the one card (``staged_gpt2``). The bounds are derived on
+    the card from the unstaged model on the same weights and tokens:
+
+    (a) GPipe over 4 stages, M 4 of 2 x 1024: the loss equal to the
+    unstaged model's accumulated over the microbatches (rtol 1e-6), every
+    gradient within twice the largest relative gap between that model's
+    full-batch and accumulated gradients (the bound); a hop that delivers
+    the previous microbatch's activation must leave it by more than
+    ``PP_FAULT_FACTOR`` times. (b) GPipe and 1F1B over 4 stages at M 12 of
+    1 x 1024: 1F1B's loss equal to GPipe's (rtol 1e-6) and its gradients
+    within twice the full-batch / accumulated gap at M 12; its peak memory
+    (above the allocation at its start, ``max_memory_allocated``) below
+    GPipe's; stage s holds at most min(2(S - 1 - s) + 1, M) microbatches.
+    (c) 1F1B over pp 2 x tp 2 at (a)'s M and tokens: the gradients within
+    twice the gap between the unstaged bf16 gradients and the fp32 ones
+    (tp rounds each partial product to bf16 before its sum, as phase 13
+    (b)'s bound allows for), the loss within twice the relative gap
+    between the unstaged bf16 and fp32 accumulated losses of the bf16 one;
+    a stage body without f must leave the bound by more than
+    ``PP_FAULT_FACTOR`` times. K1, K2 and K3 launch 24 x M times a run,
+    summed over the stages, per tp rank in (c); before the runs they are
+    held against their plain versions at ``PP_SHAPES`` and timed there."""
+    import torch
+    from horovod_tpu_torch.models import get_model
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    kernels = phase_pp_kernels()
+    model = _gpt2_medium(dev)
+    cfg = model.cfg
+    L = cfg.num_layers
+    out, launches = {}, {}
+
+    def staged(tag, tokens, pp, tp=1, schedule="gpipe", fault=None):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t1 = time.perf_counter()
+        loss, grads, flight = staged_gpt2(model, tokens, pp, tp, schedule,
+                                          fault)
+        torch.cuda.synchronize()
+        run = {"loss": loss, "wall_s": time.perf_counter() - t1,
+               "peak_gib_above_start": (torch.cuda.max_memory_allocated()
+                                        - start) / 2 ** 30,
+               "launches": dict(fa.launches)}
+        if flight[0] is not None:
+            run["in_flight"] = flight
+        if fault is None:
+            want = {k: L * tokens.shape[0] * tp for k in fa.KERNELS}
+            if run["launches"] != want:
+                fail(f"phase 16 {tag}: launches {run['launches']}, want "
+                     f"{want}")
+            launches[tag] = run["launches"]
+        log(f"phase 16 {tag}: loss {loss!r}, {run['wall_s']:.2f} s wall, "
+            f"peak {run['peak_gib_above_start']:.2f} GiB above its start, "
+            f"launches {run['launches']}"
+            + (f", in flight {flight}" if flight[0] is not None else ""))
+        return run, grads
+
+    def check(tag, run, grads, want, bound, fault=False):
+        gap, name = _grad_gap(grads, want)
+        run["grad_gap"], run["grad_gap_at"], run["bound"] = gap, name, bound
+        log(f"phase 16 {tag}: largest relative gradient gap {gap:.4e} "
+            f"({name}), bound {bound:.4e}")
+        if fault and not gap > PP_FAULT_FACTOR * bound:
+            fail(f"phase 16 {tag}: the planted fault passed ({gap} <= "
+                 f"{PP_FAULT_FACTOR} x {bound})")
+        if not fault and not gap <= bound:
+            fail(f"phase 16 {tag}: gradients leave the bound ({gap} > "
+                 f"{bound}, {name})")
+
+    # (a) GPipe, 4 stages, M 4 x 2 x 1024.
+    tok_a = _pp_tokens("a", cfg.vocab_size, dev)
+    loss_full, g_full = _unstaged_grads(model, tok_a, True)
+    loss_acc, g_acc = _unstaged_grads(model, tok_a, False)
+    gap, name = _grad_gap(g_full, g_acc)
+    bound_a = 2 * gap
+    log(f"phase 16 (a): the unstaged model's full-batch and accumulated "
+        f"gradients differ by {gap:.4e} at most ({name}); bound "
+        f"{bound_a:.4e}; losses {loss_full!r} / {loss_acc!r}")
+    del g_full
+    a, g = staged("gpt2_medium_pp4_gpipe", tok_a, 4)
+    check("(a)", a, g, g_acc, bound_a)
+    a["loss_unstaged_accumulated"] = loss_acc
+    if not math.isclose(a["loss"], loss_acc, rel_tol=1e-6):
+        fail(f"phase 16 (a): the staged loss {a['loss']} is not the "
+             f"accumulated {loss_acc} (rtol 1e-6)")
+    bad, g = staged("(a) planted stale hop", tok_a, 4, fault="stale_hop")
+    check("(a) planted stale hop", bad, g, g_acc, bound_a, fault=True)
+    a["planted_stale_hop"] = bad
+    out["a"] = a
+    del g
+
+    # (c) 1F1B over pp 2 x tp 2 on (a)'s tokens, against (a)'s yardstick.
+    with torch.device(dev):
+        ref = get_model("gpt2_medium", attention="dense",
+                        dtype=torch.float32,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    ref.load_state_dict(model.state_dict())
+    loss32, g32 = _unstaged_grads(ref, tok_a, False)
+    del ref
+    gap, name = _grad_gap(g_acc, g32)
+    bound_c = 2 * gap
+    loss_bound_c = 2 * abs(loss_acc - loss32) / abs(loss_acc)
+    del g32
+    log(f"phase 16 (c): the unstaged bf16 gradients differ from fp32's by "
+        f"{gap:.4e} at most ({name}); bound {bound_c:.4e}; the bf16 loss "
+        f"{loss_acc!r}, fp32's {loss32!r}: loss bound {loss_bound_c:.4e} "
+        f"relative")
+    c, g = staged("gpt2_medium_pp2_tp2_1f1b", tok_a, 2, 2, "1f1b")
+    check("(c)", c, g, g_acc, bound_c)
+    c["gap_over_bound_a"] = c["grad_gap"] / bound_a
+    c["loss_fp32"], c["loss_unstaged_accumulated"] = loss32, loss_acc
+    c["loss_gap"] = abs(c["loss"] - loss_acc) / abs(loss_acc)
+    c["loss_bound"] = loss_bound_c
+    log(f"phase 16 (c): loss gap {c['loss_gap']:.4e} relative, bound "
+        f"{loss_bound_c:.4e}")
+    if not c["loss_gap"] <= loss_bound_c:
+        fail(f"phase 16 (c): the loss {c['loss']} is not the accumulated "
+             f"{loss_acc} (relative gap {c['loss_gap']} > {loss_bound_c})")
+    bad, g = staged("(c) planted no f", tok_a, 2, 2, "1f1b", fault="no_f")
+    check("(c) planted no f", bad, g, g_acc, bound_c, fault=True)
+    c["planted_no_f"] = bad
+    out["c"] = c
+    del g, g_acc
+
+    # (b) GPipe and 1F1B, 4 stages, M 12 x 1 x 1024.
+    tok_b = _pp_tokens("b", cfg.vocab_size, dev)
+    _, g_full = _unstaged_grads(model, tok_b, True)
+    _, g_acc = _unstaged_grads(model, tok_b, False)
+    gap, name = _grad_gap(g_full, g_acc)
+    bound_b = 2 * gap
+    del g_full, g_acc
+    log(f"phase 16 (b): at M 12 the full-batch and accumulated gradients "
+        f"differ by {gap:.4e} at most ({name}); bound {bound_b:.4e}")
+    gpipe, g_gpipe = staged("gpt2_medium_pp4_gpipe_m12", tok_b, 4)
+    f1b, g = staged("gpt2_medium_pp4_1f1b_m12", tok_b, 4, schedule="1f1b")
+    check("(b)", f1b, g, g_gpipe, bound_b)
+    del g, g_gpipe
+    if not math.isclose(f1b["loss"], gpipe["loss"], rel_tol=1e-6):
+        fail(f"phase 16 (b): 1F1B's loss {f1b['loss']} is not GPipe's "
+             f"{gpipe['loss']} (rtol 1e-6)")
+    if not f1b["peak_gib_above_start"] < gpipe["peak_gib_above_start"]:
+        fail(f"phase 16 (b): 1F1B's peak {f1b['peak_gib_above_start']} GiB "
+             f"is not below GPipe's {gpipe['peak_gib_above_start']}")
+    S, M = PP_RUNS["b"]["pp"], PP_RUNS["b"]["m"]
+    want = [min(2 * (S - 1 - s) + 1, M) for s in range(S)]
+    if f1b["in_flight"] != want:
+        fail(f"phase 16 (b): stages held {f1b['in_flight']} microbatches "
+             f"at most, want {want}")
+    out["b"] = {"gpipe": gpipe, "1f1b": f1b}
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return {"runs": out, "launches": launches, "kernels": kernels}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15; 6, 7 and 8 "
-                         "need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16; 6, 7 and "
+                         "8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -5386,6 +5822,11 @@ def main(argv=None) -> int:
         t5_tp = phase_t5_tp(card)
         launches.update(t5_tp.pop("launches"))
         print(json.dumps({"phase15": t5_tp}), flush=True)
+    if 16 in phases:
+        pp = phase_pipeline(card)
+        launches.update(pp.pop("launches"))
+        shapes.update(pp.pop("kernels"))
+        print(json.dumps({"phase16": pp}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -54,7 +54,7 @@ class Ring:
     def of(cls, process_set=None) -> "Ring":
         """``process_set`` when it is a ring already, else the ring of
         that set (default: the global set)."""
-        return process_set if isinstance(process_set, Ring) \
+        return process_set if isinstance(process_set, cls) \
             else cls(process_set)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:

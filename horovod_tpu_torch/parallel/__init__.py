@@ -4,8 +4,11 @@
 and decode), ZeRO-2 and the ``zero3_*`` surface (``mp.py``) and Megatron's
 conjugate operators (``conjugate.py``), with the ``sp`` and ``ep`` axes
 beside tp (``mp.tensor_parallel(model, tp_set, sp=, ep=)``; GPT-2, Llama
-and T5). Port of ``horovod_tpu/parallel``; pipelines and their schedule
-tables wait for ``ROADMAP.md`` item 8c.
+and T5), and pipelines, GPipe and 1F1B over a pp line of ranks
+(``pipeline.py``; GPT-2 staged over them, with tp inside the stages, in
+``models/gpt2_pipeline.py``). Port of ``horovod_tpu/parallel``; the
+interleaved schedules and their schedule tables wait for ``ROADMAP.md``
+item 8c-ii.
 """
 
 from horovod_tpu_torch.parallel.conjugate import (  # noqa: F401
@@ -26,6 +29,9 @@ from horovod_tpu_torch.parallel.mp import (  # noqa: F401
     vocab_parallel_loss, wrap_spmd, zero2_grad_shard, zero2_update,
     zero3_adamw, zero3_apply, zero3_scan_blocks, zero3_shard_params,
     zero3_stack_layer_shards,
+)
+from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_1f1b, pipeline_apply, pipeline_loss,
 )
 from horovod_tpu_torch.parallel.sharding import (  # noqa: F401
     PartitionRules, apply_rules, shard_pytree,
