@@ -292,8 +292,24 @@ Phases, in order; any failure exits nonzero and prints no result:
    loss within twice the unstaged bf16 loss's relative gap to fp32's, and
    a stage body without f more than ``PP_FAULT_FACTOR`` times outside. K1,
    K2 and K3 launch 24 x M times a run, summed over the stages (per tp
-   rank in (c)); first they are held against their plain versions at the
-   shapes of (b) and (c) (``PP_SHAPES``, B*H 16 at T 1024).
+   rank in (c) and (f)); first they are held against their plain versions
+   at the shapes of the runs (``PP_SHAPES``, B*H 16 and 32 at T 1024).
+   The interleaved schedules, R = 2 rounds a rank, the line wrapped into a
+   ring: (d) interleaved GPipe over 4 stages (3 blocks a virtual stage) at
+   (a)'s microbatches: the loss equal to the accumulated one (rtol 1e-6),
+   every gradient within (a)'s bound, and a wrap hop (stage 3 -> 0) that
+   delivers the previous microbatch's activation more than
+   ``PP_FAULT_FACTOR`` times outside; (e) interleaved 1F1B over 4 stages at
+   (b)'s M 12, against (b)'s GPipe: the loss equal (rtol 1e-6), the
+   gradients within (b)'s bound, each stage's peak in flight its row's live
+   peak in ``build_interleaved_1f1b``'s tables, and a lower peak memory
+   than interleaved GPipe's at M 12 (three chunks of 4, its gradients
+   within the same bound); (f) interleaved 1F1B over pp 2 x tp 2 (6 blocks
+   a virtual stage; at S = 2 a rank's forward and backward hops share its
+   one peer) at (a)'s microbatches, within (c)'s bounds, and stage 1
+   posting its backward hops before its forward ones more than
+   ``PP_FAULT_FACTOR`` times outside. The line transport hands a pair's
+   k-th send to its k-th receive, as NCCL matches them.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
@@ -5324,16 +5340,20 @@ def phase_t5_tp(card):
 # Phase 16's staged runs of GPT-2 medium over virtual pp ranks: (a) GPipe,
 # 4 stages, 4 microbatches of 2 x 1024; (b) GPipe and 1F1B, 4 stages, M 12
 # = 4(S - 1) microbatches of 1 x 1024; (c) 1F1B over pp 2 x tp 2, (a)'s
-# microbatches.
+# microbatches; (d) interleaved GPipe as (a); (e) interleaved 1F1B and
+# GPipe as (b); (f) interleaved 1F1B as (c); the interleaved ones at
+# PP_ROUNDS rounds a rank.
 PP_RUNS = {"a": dict(pp=4, tp=1, m=4, mb=2), "b": dict(pp=4, tp=1, m=12, mb=1),
            "c": dict(pp=2, tp=2, m=4, mb=2)}
+PP_ROUNDS = 2
 # A planted fault must leave its bound by more than this factor.
 PP_FAULT_FACTOR = 5.0
-# The kernels' shapes in phase 16 that no other phase checks (T 1024, d 64,
-# causal, bf16): (b)'s microbatch of 1 x 16 heads and (c)'s of 2 x 8
-# local heads at tp 2, both B*H 16. (a)'s 2 x 16 is B*H 32, as gpt2_tp4.
+# The kernels' shapes in phase 16 (T 1024, d 64, causal, bf16): (b)'s and
+# (e)'s microbatch of 1 x 16 heads, (c)'s and (f)'s of 2 x 8 local heads at
+# tp 2 (both B*H 16), and (a)'s and (d)'s of 2 x 16 heads (B*H 32).
 PP_SHAPES = {"gpt2_medium_pp_mb1": dict(b=1, h=16, t=1024),
-             "gpt2_medium_pp2_tp2_mb2": dict(b=2, h=8, t=1024)}
+             "gpt2_medium_pp2_tp2_mb2": dict(b=2, h=8, t=1024),
+             "gpt2_medium_pp_mb2": dict(b=2, h=16, t=1024)}
 
 
 def phase_pp_kernels():
@@ -5360,37 +5380,53 @@ class _VirtualLines:
     """Factory of the line transport of ``n`` virtual pp ranks on one card
     (a ``_VirtualSet``): each tick's sends are left in a mailbox, the
     stages meet, each takes what its neighbours sent it, and they meet
-    again; the sum over the line is the set's reduction. ``stale`` plants
-    a hop that delivers the previous microbatch's activation."""
+    again; the sum over the line is the set's reduction. The box holds a
+    queue per (sender, receiver): a pair's k-th send meets its k-th
+    receive, as NCCL matches a pair's point-to-point operations in the
+    order they are posted (at S = 2 both of a tick's hops go to one peer).
+    The line's posting order is the port's (``Line._posts``)."""
 
     def __init__(self, n, lock):
         self.vset, self.box = _VirtualSet(n, lock), {}
 
-    def line(self, r, stale=False):
+    def line(self, r, wrap=False, stale=None, swap=False):
+        """Rank ``r``'s line, wrapped into a ring when ``wrap``. Planted
+        faults: ``stale`` "every" makes each forward hop deliver the
+        previous microbatch's activation, "wrap" only the hop from the last
+        stage to stage 0; ``swap`` makes this rank post its backward hops
+        before its forward ones."""
+        import torch.distributed as dist
         from horovod_tpu_torch.parallel.pipeline import Line
-        vset, box = self.vset, self.box
+        vset, box, n = self.vset, self.box, self.vset.n
 
         class VirtualLine(Line):
             def __init__(self):
-                self.n, self.rank = vset.n, r
-                self.prev = r - 1 if r > 0 else None
-                self.next = r + 1 if r < vset.n - 1 else None
+                self.n, self.rank, self.wrap = n, r, wrap
+                self.prev = (r - 1) % n if wrap or r > 0 else None
+                self.next = (r + 1) % n if wrap or r < n - 1 else None
                 self.held = None
 
-            def exchange(self, fwd=None, bwd=None, recv_fwd=None,
-                         recv_bwd=None):
-                if fwd is not None:
-                    box[(r, r + 1)] = fwd
-                if bwd is not None:
-                    box[(r, r - 1)] = bwd
+            def _posts(self, *args):
+                posts = super()._posts(*args)
+                if swap:
+                    posts.sort(key=lambda p: (p[0] is not dist.isend,
+                                              p[3] == "fwd"))
+                return posts
+
+            def _run(self, posts):
+                for op, t, peer, _ in posts:
+                    if op is dist.isend:
+                        box.setdefault((r, peer), []).append(t)
                 vset._meet()
-                got_f = box.pop((r - 1, r)) if recv_fwd is not None else None
-                got_b = box.pop((r + 1, r)) if recv_bwd is not None else None
+                got = {way: box[(peer, r)].pop(0)
+                       for op, _, peer, way in posts if op is dist.irecv}
                 vset._meet()
-                if stale and got_f is not None:
+                got_f = got.get("fwd")
+                if got_f is not None and (stale == "every" or (
+                        stale == "wrap" and r == 0)):
                     got_f, self.held = (got_f if self.held is None
                                         else self.held), got_f
-                return got_f, got_b
+                return got_f, got.get("bwd")
 
             def psum(self, x):
                 return vset.reduce(r, x, sum)
@@ -5438,14 +5474,19 @@ def staged_gpt2(model, tokens, pp, tp=1, schedule="gpipe", fault=None):
     ranks on one card: each rank a thread (``_run_virtual``) that runs the
     port's ``gpt2_pipeline`` step on its block of ``make_pp_tp_params``'
     stack under ``block_specs_tp`` (``stack_block_params``' under
-    ``P("pp")`` at tp 1), the block ``shard_pytree``'s ``_local_block``
-    gives the rank at its coordinates on a (pp, tp) ``Mesh``, the hops
-    through ``_VirtualLines`` and tp's f and g through
+    ``P("pp")`` at tp 1; their ``_interleaved`` forms at ``PP_ROUNDS``
+    rounds and ``extra_dims=1`` for the interleaved schedules), the block
+    ``shard_pytree``'s ``_local_block`` gives the rank at its coordinates
+    on a (pp, tp) ``Mesh``, the hops through ``_VirtualLines`` (wrapped
+    for the interleaved schedules) and tp's f and g through
     ``_virtual_tp_train``; the backward runs on each rank's thread
-    (``set_multithreading_enabled(False)``). ``tokens``: (M, mb, T).
-    Returns (loss, {name: gradient} in the model's layout, each rank's
-    peak microbatches in flight under 1F1B). ``fault``: ``"stale_hop"``
-    or ``"no_f"``."""
+    (``set_multithreading_enabled(False)``). ``tokens``: (M, mb, T);
+    ``schedule``: "gpipe", "1f1b", "interleaved_gpipe" or
+    "interleaved_1f1b". Returns (loss, {name: gradient} in the model's
+    layout, each rank's peak microbatches in flight under a 1F1B).
+    ``fault``: "stale_hop" (every forward hop), "stale_wrap" (the hop from
+    the last stage to stage 0), "swap" (stage 1 posts backward before
+    forward) or "no_f"."""
     import threading
     import numpy as np
     import torch
@@ -5454,36 +5495,52 @@ def staged_gpt2(model, tokens, pp, tp=1, schedule="gpipe", fault=None):
     from horovod_tpu_torch.parallel.sharding import (P, PartitionRules,
                                                      _local_block)
     cfg = model.cfg
+    rounds = PP_ROUNDS if schedule.startswith("interleaved") else None
+    extra = 0 if rounds is None else 1
     state = {k: v.detach() for k, v in model.state_dict().items()}
     if tp > 1:
-        blocks, rest = gp.make_pp_tp_params(state, pp, cfg.num_heads)
+        blocks, rest = (gp.make_pp_tp_params(state, pp, cfg.num_heads)
+                        if rounds is None else
+                        gp.make_pp_tp_params_interleaved(state, pp, rounds,
+                                                         cfg.num_heads))
     else:
-        blocks, rest = gp.stack_block_params(state, pp)
+        blocks, rest = (gp.stack_block_params(state, pp) if rounds is None
+                        else gp.stack_block_params_interleaved(state, pp,
+                                                               rounds))
     del state
     mesh = Mesh(np.arange(pp * tp).reshape(pp, tp), ("pp", "tp"))
-    rules = gp.block_specs_tp() if tp > 1 else PartitionRules([(r"",
-                                                                P("pp"))])
+    rules = (gp.block_specs_tp(extra_dims=extra) if tp > 1
+             else PartitionRules([(r"", P("pp"))]))
     lock = threading.Lock()
     lines = [_VirtualLines(pp, lock) for _ in range(tp)]
     tps = [_VirtualSet(tp, lock) for _ in range(pp)]
     n = pp * tp
+    steps = {  # schedule: (the pp step, the pp x tp step)
+        "gpipe": (gp.gpt2_pp_loss_and_grad, gp.gpt2_pp_tp_loss_and_grad),
+        "1f1b": (gp.gpt2_pp_1f1b_loss_and_grad,
+                 gp.gpt2_pp_tp_1f1b_loss_and_grad),
+        "interleaved_gpipe": (gp.gpt2_pp_loss_and_grad_interleaved,
+                              gp.gpt2_pp_tp_loss_and_grad_interleaved),
+        "interleaved_1f1b": (
+            lambda c, line: gp.gpt2_pp_interleaved_1f1b_loss_and_grad(
+                c, rounds, line),
+            lambda c, line, t: gp.gpt2_pp_tp_interleaved_1f1b_loss_and_grad(
+                c, rounds, line, t))}[schedule]
     ranks = []
     for r in range(n):
         coords = mesh.coords(r)
-        line = lines[coords["tp"]].line(coords["pp"],
-                                        stale=fault == "stale_hop")
+        line = lines[coords["tp"]].line(
+            coords["pp"], wrap=rounds is not None,
+            stale={"stale_hop": "every", "stale_wrap": "wrap"}.get(fault),
+            swap=fault == "swap" and coords["pp"] == 1)
         local = {k: _local_block(v, rules.spec_for(k), mesh, coords)
                  for k, v in blocks.items()}
         if tp > 1:
             tpr = _virtual_tp_train(tps[coords["pp"]], coords["tp"],
                                     with_f=fault != "no_f")
-            make = (gp.gpt2_pp_tp_loss_and_grad if schedule == "gpipe"
-                    else gp.gpt2_pp_tp_1f1b_loss_and_grad)
-            step = make(cfg, line, tpr)
+            step = steps[1](cfg, line, tpr)
         else:
-            make = (gp.gpt2_pp_loss_and_grad if schedule == "gpipe"
-                    else gp.gpt2_pp_1f1b_loss_and_grad)
-            step = make(cfg, line)
+            step = steps[0](cfg, line)
         ranks.append((coords, local, step))
     # The ranks hold copies of their blocks: keep only the stack's shapes.
     shapes = {k: v.shape for k, v in blocks.items()}
@@ -5502,7 +5559,8 @@ def staged_gpt2(model, tokens, pp, tp=1, schedule="gpipe", fault=None):
     if len(losses) != 1:
         fail(f"phase 16: the virtual ranks' losses differ: {losses}")
     # The blocks' gradients back in the model's layout: each rank's block
-    # where _local_block took it from (a stack of positions, sliced alike).
+    # where _local_block took it from (a stack of positions, sliced alike),
+    # then layer (r·S + s)·K + k of an interleaved (S, R, K, ...) stack.
     whole = {}
     for k, shape in shapes.items():
         g = torch.empty(shape, dtype=out[0][2][k].dtype, device=tokens.device)
@@ -5512,7 +5570,9 @@ def staged_gpt2(model, tokens, pp, tp=1, schedule="gpipe", fault=None):
             where = _local_block(at, rules.spec_for(k), mesh, coords)
             g.view(-1)[where.reshape(-1).long()] = gb[k].reshape(-1)
         del at
-        g = g.reshape((pp * g.shape[1],) + tuple(g.shape[2:]))
+        lead = 2 + extra
+        g = (g if rounds is None else g.transpose(0, 1)).reshape(
+            (-1,) + tuple(g.shape[lead:]))
         if k == "attn.qkv.weight":
             g = g.reshape(g.shape[0], -1, g.shape[-1])
         elif k == "attn.qkv.bias":
@@ -5555,12 +5615,14 @@ def _unstaged_grads(model, tokens, full):
 
 def _grad_gap(got, want):
     """(the largest relative error ||got - want|| / ||want|| over the
-    tensors, its tensor's name)."""
-    worst = (0.0, None)
+    tensors, its tensor's name); a NaN counts as infinite."""
+    worst = (-1.0, None)
     for k, w in want.items():
         w = w.float()
         e = float((got[k].float() - w).norm() / w.norm().clamp_min(1e-30))
-        worst = max(worst, (e, k))
+        e = math.inf if math.isnan(e) else e
+        if e > worst[0]:
+            worst = (e, k)
     return worst
 
 
@@ -5594,11 +5656,20 @@ def phase_pipeline(card):
     (b)'s bound allows for), the loss within twice the relative gap
     between the unstaged bf16 and fp32 accumulated losses of the bf16 one;
     a stage body without f must leave the bound by more than
-    ``PP_FAULT_FACTOR`` times. K1, K2 and K3 launch 24 x M times a run,
-    summed over the stages, per tp rank in (c); before the runs they are
-    held against their plain versions at ``PP_SHAPES`` and timed there."""
+    ``PP_FAULT_FACTOR`` times. The interleaved schedules at ``PP_ROUNDS``
+    rounds: (d) interleaved GPipe as (a), with (a)'s bars, and a stale
+    wrap hop (stage 3 -> 0) outside by more than the factor; (e)
+    interleaved 1F1B and GPipe (three chunks of 4) as (b), with (b)'s
+    bars, 1F1B's peak memory below interleaved GPipe's and each stage's
+    peak in flight its row's live peak in the port's schedule tables; (f)
+    interleaved 1F1B as (c), with (c)'s bars and that check of the stash,
+    and stage 1 posting its backward hops first outside by more than the
+    factor. K1, K2 and K3 launch 24 x M times a run, summed over the
+    stages, per tp rank in (c) and (f); before the runs they are held
+    against their plain versions at ``PP_SHAPES`` and timed there."""
     import torch
     from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.parallel.schedule_sim import build_interleaved_1f1b
     fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -5647,6 +5718,15 @@ def phase_pipeline(card):
             fail(f"phase 16 {tag}: gradients leave the bound ({gap} > "
                  f"{bound}, {name})")
 
+    def in_flight_bound(run, tag, S, tp, M):
+        # Stage s's row of the interleaved 1F1B tables: its live peak.
+        peaks = build_interleaved_1f1b(S, PP_ROUNDS, M).live_peaks()
+        want = [peaks[r // tp] for r in range(S * tp)]
+        run["in_flight_bound"] = want
+        if run["in_flight"] != want:
+            fail(f"phase 16 ({tag}): ranks held {run['in_flight']} "
+                 f"microbatches at most, the tables' peaks are {want}")
+
     # (a) GPipe, 4 stages, M 4 x 2 x 1024.
     tok_a = _pp_tokens("a", cfg.vocab_size, dev)
     loss_full, g_full = _unstaged_grads(model, tok_a, True)
@@ -5667,6 +5747,21 @@ def phase_pipeline(card):
     check("(a) planted stale hop", bad, g, g_acc, bound_a, fault=True)
     a["planted_stale_hop"] = bad
     out["a"] = a
+    del g
+
+    # (d) Interleaved GPipe, 4 stages x 2 rounds, (a)'s tokens and bars.
+    dd, g = staged("gpt2_medium_pp4x2_interleaved_gpipe", tok_a, 4,
+                   schedule="interleaved_gpipe")
+    check("(d)", dd, g, g_acc, bound_a)
+    dd["loss_unstaged_accumulated"] = loss_acc
+    if not math.isclose(dd["loss"], loss_acc, rel_tol=1e-6):
+        fail(f"phase 16 (d): the interleaved loss {dd['loss']} is not the "
+             f"accumulated {loss_acc} (rtol 1e-6)")
+    bad, g = staged("(d) planted stale wrap hop", tok_a, 4,
+                    schedule="interleaved_gpipe", fault="stale_wrap")
+    check("(d) planted stale wrap hop", bad, g, g_acc, bound_a, fault=True)
+    dd["planted_stale_wrap_hop"] = bad
+    out["d"] = dd
     del g
 
     # (c) 1F1B over pp 2 x tp 2 on (a)'s tokens, against (a)'s yardstick.
@@ -5700,6 +5795,24 @@ def phase_pipeline(card):
     check("(c) planted no f", bad, g, g_acc, bound_c, fault=True)
     c["planted_no_f"] = bad
     out["c"] = c
+    del g
+
+    # (f) Interleaved 1F1B over pp 2 x tp 2, 2 rounds, (c)'s bars.
+    f, g = staged("gpt2_medium_pp2x2_tp2_interleaved_1f1b", tok_a, 2, 2,
+                  "interleaved_1f1b")
+    check("(f)", f, g, g_acc, bound_c)
+    f["loss_gap"] = abs(f["loss"] - loss_acc) / abs(loss_acc)
+    f["loss_bound"] = loss_bound_c
+    if not f["loss_gap"] <= loss_bound_c:
+        fail(f"phase 16 (f): the loss {f['loss']} is not the accumulated "
+             f"{loss_acc} (relative gap {f['loss_gap']} > {loss_bound_c})")
+    in_flight_bound(f, "f", 2, 2, tok_a.shape[0])
+    bad, g = staged("(f) planted swapped posting order", tok_a, 2, 2,
+                    "interleaved_1f1b", fault="swap")
+    check("(f) planted swapped posting order", bad, g, g_acc, bound_c,
+          fault=True)
+    f["planted_swapped_posting_order"] = bad
+    out["f"] = f
     del g, g_acc
 
     # (b) GPipe and 1F1B, 4 stages, M 12 x 1 x 1024.
@@ -5714,7 +5827,7 @@ def phase_pipeline(card):
     gpipe, g_gpipe = staged("gpt2_medium_pp4_gpipe_m12", tok_b, 4)
     f1b, g = staged("gpt2_medium_pp4_1f1b_m12", tok_b, 4, schedule="1f1b")
     check("(b)", f1b, g, g_gpipe, bound_b)
-    del g, g_gpipe
+    del g
     if not math.isclose(f1b["loss"], gpipe["loss"], rel_tol=1e-6):
         fail(f"phase 16 (b): 1F1B's loss {f1b['loss']} is not GPipe's "
              f"{gpipe['loss']} (rtol 1e-6)")
@@ -5727,6 +5840,27 @@ def phase_pipeline(card):
         fail(f"phase 16 (b): stages held {f1b['in_flight']} microbatches "
              f"at most, want {want}")
     out["b"] = {"gpipe": gpipe, "1f1b": f1b}
+
+    # (e) Interleaved GPipe (three chunks of 4) and 1F1B, 4 stages x 2
+    # rounds, (b)'s tokens and bars.
+    e = {}
+    for name in ("interleaved_gpipe", "interleaved_1f1b"):
+        run, g = staged(f"gpt2_medium_pp4x2_{name}_m12", tok_b, 4,
+                        schedule=name)
+        check(f"(e) {name}", run, g, g_gpipe, bound_b)
+        del g
+        if not math.isclose(run["loss"], gpipe["loss"], rel_tol=1e-6):
+            fail(f"phase 16 (e): {name}'s loss {run['loss']} is not "
+                 f"GPipe's {gpipe['loss']} (rtol 1e-6)")
+        e[name] = run
+    del g_gpipe
+    i1f1b, igpipe = e["interleaved_1f1b"], e["interleaved_gpipe"]
+    if not i1f1b["peak_gib_above_start"] < igpipe["peak_gib_above_start"]:
+        fail(f"phase 16 (e): interleaved 1F1B's peak "
+             f"{i1f1b['peak_gib_above_start']} GiB is not below interleaved "
+             f"GPipe's {igpipe['peak_gib_above_start']}")
+    in_flight_bound(i1f1b, "e", 4, 1, tok_b.shape[0])
+    out["e"] = e
     del model
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")

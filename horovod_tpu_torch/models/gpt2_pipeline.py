@@ -1,15 +1,21 @@
 """GPT-2 staged over a pipeline (``pp``) line of ranks.
 
-Port of ``horovod_tpu/models/gpt2_pipeline.py`` without the interleaved
-schedules (``ROADMAP.md`` item 8c-ii). The ``L`` blocks of a GPT-2 state
-dict (the port's names, ``nn.Linear``'s (out, in) weights; a reference
-checkpoint through ``models.convert.gpt2_params_from_jax``) are stacked
-by :func:`stack_block_params` into ``{name: (S, K, ...)}``: stage s holds
-blocks [s·K, (s+1)·K). A rank holds its stage's ``(1, K, ...)`` block, as
-``parallel.shard_pytree`` gives it (``P("pp")``), and ``rest`` = ``wte``,
-``wpe`` and ``ln_f`` whole. The stacking is a restack of the same
-tensors, so a checkpoint moves between the plain and the staged layouts
-without loss.
+Port of ``horovod_tpu/models/gpt2_pipeline.py``. The ``L`` blocks of a
+GPT-2 state dict (the port's names, ``nn.Linear``'s (out, in) weights; a
+reference checkpoint through ``models.convert.gpt2_params_from_jax``) are
+stacked by :func:`stack_block_params` into ``{name: (S, K, ...)}``: stage s
+holds blocks [s·K, (s+1)·K). A rank holds its stage's ``(1, K, ...)``
+block, as ``parallel.shard_pytree`` gives it (``P("pp")``), and ``rest``
+= ``wte``, ``wpe`` and ``ln_f`` whole. The stacking is a restack of the
+same tensors, so a checkpoint moves between the plain and the staged
+layouts without loss.
+
+The interleaved schedules (``parallel.pipeline.pipeline_loss_interleaved``
+and ``pipeline_interleaved_1f1b``) give rank d R virtual stages:
+:func:`stack_block_params_interleaved` stacks ``{name: (S, R, K, ...)}``,
+rank d's round r holding layers [(r·S + d)·K, (r·S + d + 1)·K), and a rank
+holds its ``(1, R, K, ...)`` block; each round runs its ``(K, ...)``
+slice as a stage does.
 
 Each stage runs its K blocks in order, the port's ``Block`` through
 ``torch.func.functional_call`` (``parallel/fsdp.module_block_fn``), so
@@ -42,23 +48,50 @@ they are.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from horovod_tpu_torch.models.gpt2 import Block, GPT2Config, LayerNorm, \
     loss_fn
 from horovod_tpu_torch.parallel.fsdp import module_block_fn
-from horovod_tpu_torch.parallel.pipeline import (Line, pipeline_1f1b,
-                                                 pipeline_loss)
+from horovod_tpu_torch.parallel.pipeline import (
+    Line, pipeline_1f1b, pipeline_interleaved_1f1b, pipeline_loss,
+    pipeline_loss_interleaved)
 from horovod_tpu_torch.parallel.sharding import P, PartitionRules
 
-__all__ = ["stack_block_params", "make_pp_tp_params", "block_specs_tp",
-           "gpt2_pp_loss", "gpt2_pp_loss_and_grad",
+__all__ = ["stack_block_params", "stack_block_params_interleaved",
+           "make_pp_tp_params", "make_pp_tp_params_interleaved",
+           "block_specs_tp",
+           "gpt2_pp_loss", "gpt2_pp_loss_interleaved",
+           "gpt2_pp_loss_and_grad", "gpt2_pp_loss_and_grad_interleaved",
            "gpt2_pp_1f1b_loss_and_grad", "gpt2_pp_tp_1f1b_loss_and_grad",
-           "gpt2_pp_tp_loss", "gpt2_pp_tp_loss_and_grad"]
+           "gpt2_pp_interleaved_1f1b_loss_and_grad",
+           "gpt2_pp_tp_interleaved_1f1b_loss_and_grad",
+           "gpt2_pp_tp_loss", "gpt2_pp_tp_loss_and_grad",
+           "gpt2_pp_tp_loss_interleaved",
+           "gpt2_pp_tp_loss_and_grad_interleaved"]
 
 Tree = Dict[str, torch.Tensor]
+
+
+def _layers(params) -> Tuple[Tree, list, Tree]:
+    """(the state dict as tensors, the block indices in order, rest)."""
+    params = {k: torch.as_tensor(v) for k, v in params.items()}
+    layers = sorted({int(k.split(".")[1]) for k in params
+                     if k.startswith("h.")})
+    rest = {k: v for k, v in params.items() if not k.startswith("h.")}
+    return params, layers, rest
+
+
+def _stack(params: Tree, idx: list, lead: tuple) -> Tree:
+    """``{name: the blocks idx's tensors stacked, reshaped to lead + ...}``."""
+    names = [k[len("h.0."):] for k in params if k.startswith("h.0.")]
+    out = {}
+    for n in names:
+        v = torch.stack([params[f"h.{i}.{n}"] for i in idx])
+        out[n] = v.reshape(lead + tuple(v.shape[1:]))
+    return out
 
 
 def stack_block_params(params, num_stages: int) -> Tuple[Tree, Tree]:
@@ -67,21 +100,30 @@ def stack_block_params(params, num_stages: int) -> Tuple[Tree, Tree]:
     ``blocks`` maps each block parameter's name (``"attn.qkv.weight"``)
     to ``h.0..h.{L-1}``'s tensors stacked to ``(S, K, ...)``; ``rest``
     holds ``wte``, ``wpe`` and ``ln_f``. Numpy arrays are taken too."""
-    params = {k: torch.as_tensor(v) for k, v in params.items()}
-    layers = sorted({int(k.split(".")[1]) for k in params
-                     if k.startswith("h.")})
+    params, layers, rest = _layers(params)
     L = len(layers)
     if L % num_stages:
         raise ValueError(f"num_layers {L} not divisible by {num_stages} "
                          "stages")
-    K = L // num_stages
-    names = [k[len("h.0."):] for k in params if k.startswith("h.0.")]
-    blocks = {}
-    for n in names:
-        v = torch.stack([params[f"h.{i}.{n}"] for i in layers])
-        blocks[n] = v.reshape((num_stages, K) + tuple(v.shape[1:]))
-    rest = {k: v for k, v in params.items() if not k.startswith("h.")}
-    return blocks, rest
+    return _stack(params, layers, (num_stages, L // num_stages)), rest
+
+
+def stack_block_params_interleaved(params, num_stages: int,
+                                   rounds: int) -> Tuple[Tree, Tree]:
+    """Split a GPT-2 state dict for the interleaved schedules: with L = S·R·K
+    layers, virtual stage r·S + d holds layers [(r·S + d)·K, (r·S + d +
+    1)·K), so rank d's stack is ``(S, R, K, ...)[d]``. Returns (``{name: (S,
+    R, K, ...)}``, rest)."""
+    params, layers, rest = _layers(params)
+    L = len(layers)
+    S, R = num_stages, rounds
+    if L % (S * R):
+        raise ValueError(
+            f"num_layers {L} not divisible by stages*rounds {S}*{R}")
+    K = L // (S * R)
+    idx = [layers[(r * S + d) * K + k]
+           for d in range(S) for r in range(R) for k in range(K)]
+    return _stack(params, idx, (S, R, K)), rest
 
 
 def _stage_fn(cfg: GPT2Config, tp=None) -> Callable:
@@ -152,19 +194,23 @@ def _first_stage_input(cfg: GPT2Config, rest: Tree, tokens: torch.Tensor,
 
 
 def _pp_loss(cfg: GPT2Config, blocks: Tree, rest: Tree, tokens, line: Line,
-             stage_fn: Callable) -> torch.Tensor:
-    """Embedding -> GPipe -> ``ln_f`` and the tied head's loss, over the
-    (M, mb, T) tokens; the loss replicated over the line."""
+             stage_fn: Callable,
+             pipeline_fn: Callable = pipeline_loss) -> torch.Tensor:
+    """Embedding -> the GPipe schedule ``pipeline_fn`` (plain or
+    interleaved) -> ``ln_f`` and the tied head's loss, over the (M, mb, T)
+    tokens; the loss replicated over the line."""
     M, mb, T = tokens.shape
 
     def loss_from_outputs(outs, mb_start):
+        # Two-argument form: an interleaved run of M > S microbatches goes
+        # in chunks, and the targets follow the chunk.
         mc = outs.shape[0]
         tgt = tokens[mb_start:mb_start + mc].reshape(mc * mb, T)
         return _head_loss(cfg, rest, outs.reshape(mc * mb, T, -1), tgt)
 
-    return pipeline_loss(stage_fn, _local(blocks),
-                         _first_stage_input(cfg, rest, tokens, line),
-                         loss_from_outputs, line)
+    return pipeline_fn(stage_fn, _local(blocks),
+                       _first_stage_input(cfg, rest, tokens, line),
+                       loss_from_outputs, line)
 
 
 def gpt2_pp_loss(cfg: GPT2Config, blocks: Tree, rest: Tree,
@@ -185,6 +231,19 @@ def gpt2_pp_loss(cfg: GPT2Config, blocks: Tree, rest: Tree,
     """
     return _pp_loss(cfg, blocks, rest, tokens, Line.of(process_set),
                     _stage_fn(cfg))
+
+
+def gpt2_pp_loss_interleaved(cfg: GPT2Config, blocks: Tree, rest: Tree,
+                             tokens: torch.Tensor,
+                             process_set=None) -> torch.Tensor:
+    """:func:`gpt2_pp_loss` on the interleaved (circular) GPipe schedule
+    over the ring of ``process_set``: ``blocks`` this rank's ``(1, R, K,
+    ...)`` block of :func:`stack_block_params_interleaved`' stack; M > S
+    microbatches run in chunks of S
+    (``parallel.pipeline.pipeline_loss_interleaved``)."""
+    return _pp_loss(cfg, blocks, rest, tokens,
+                    Line.of(process_set, wrap=True), _stage_fn(cfg),
+                    pipeline_loss_interleaved)
 
 
 def _make_loss_and_grad(loss_call: Callable, line: Line) -> Callable:
@@ -217,6 +276,16 @@ def gpt2_pp_loss_and_grad(cfg: GPT2Config, process_set=None) -> Callable:
         lambda b, r, t: _pp_loss(cfg, b, r, t, line, stage_fn), line)
 
 
+def gpt2_pp_loss_and_grad_interleaved(cfg: GPT2Config,
+                                      process_set=None) -> Callable:
+    """:func:`gpt2_pp_loss_and_grad` on the interleaved GPipe schedule:
+    ``g_blocks`` this rank's ``(1, R, K, ...)`` gradients."""
+    line, stage_fn = Line.of(process_set, wrap=True), _stage_fn(cfg)
+    return _make_loss_and_grad(
+        lambda b, r, t: _pp_loss(cfg, b, r, t, line, stage_fn,
+                                 pipeline_loss_interleaved), line)
+
+
 # ---------------------------------------------------------------------------
 # pipeline x tensor parallelism (Megatron inside GPipe)
 # ---------------------------------------------------------------------------
@@ -229,26 +298,42 @@ def make_pp_tp_params(params, num_stages: int,
     the out projection ``(S, K, D, H, hd)``, so a split of the head axis is
     whole heads. A reshape: the plain layout is a reshape back."""
     blocks, rest = stack_block_params(params, num_stages)
+    return _relayout_heads(blocks, num_heads), rest
+
+
+def make_pp_tp_params_interleaved(params, num_stages: int, rounds: int,
+                                  num_heads: int) -> Tuple[Tree, Tree]:
+    """:func:`stack_block_params_interleaved`, then the head-major
+    attention weights of :func:`make_pp_tp_params` (with the ``(S, R, K)``
+    lead)."""
+    blocks, rest = stack_block_params_interleaved(params, num_stages,
+                                                  rounds)
+    return _relayout_heads(blocks, num_heads), rest
+
+
+def _relayout_heads(blocks: Tree, num_heads: int) -> Tree:
     qkv = blocks["attn.qkv.weight"]
-    lead, d = tuple(qkv.shape[:2]), qkv.shape[-1]
+    lead, d = tuple(qkv.shape[:-2]), qkv.shape[-1]
     hd = d // num_heads
     blocks["attn.qkv.weight"] = qkv.reshape(lead + (3, num_heads, hd, d))
     blocks["attn.qkv.bias"] = blocks["attn.qkv.bias"].reshape(
         lead + (3, num_heads, hd))
     blocks["attn.out.weight"] = blocks["attn.out.weight"].reshape(
         lead + (d, num_heads, hd))
-    return blocks, rest
+    return blocks
 
 
-def block_specs_tp(pp_axis: str = "pp", tp_axis: str = "tp"
-                   ) -> PartitionRules:
+def block_specs_tp(pp_axis: str = "pp", tp_axis: str = "tp",
+                   extra_dims: int = 0) -> PartitionRules:
     """The specs of :func:`make_pp_tp_params`' blocks, as the rules
     ``parallel.shard_pytree`` takes (one per block parameter's name): the
     stage axis over ``pp_axis``; the head axis of qkv, its bias and the
     out projection, fc's output rows and proj's input columns over
-    ``tp_axis``; everything else whole on each stage."""
+    ``tp_axis``; everything else whole on each stage. ``extra_dims``
+    inserts that many whole axes after the stage axis (1 for the rounds
+    of :func:`make_pp_tp_params_interleaved`' ``(S, R, K, ...)``)."""
     def spec(*tail):
-        return P(pp_axis, None, *tail)
+        return P(pp_axis, *(None,) * extra_dims, None, *tail)
 
     return PartitionRules([
         (r"^attn\.qkv\.(weight|bias)$", spec(None, tp_axis)),
@@ -290,6 +375,28 @@ def gpt2_pp_tp_loss_and_grad(cfg: GPT2Config, pp_set=None,
         lambda b, r, t: _pp_loss(cfg, b, r, t, line, stage_fn), line)
 
 
+def gpt2_pp_tp_loss_interleaved(cfg: GPT2Config, blocks: Tree, rest: Tree,
+                                tokens: torch.Tensor, pp_set=None,
+                                tp_set=None) -> torch.Tensor:
+    """:func:`gpt2_pp_tp_loss` on the interleaved GPipe schedule: ``blocks``
+    this rank's block of :func:`make_pp_tp_params_interleaved`' stack
+    under ``block_specs_tp(extra_dims=1)``."""
+    return _pp_loss(cfg, blocks, rest, tokens, Line.of(pp_set, wrap=True),
+                    _stage_fn(cfg, _tensor_parallel(tp_set)),
+                    pipeline_loss_interleaved)
+
+
+def gpt2_pp_tp_loss_and_grad_interleaved(cfg: GPT2Config, pp_set=None,
+                                         tp_set=None) -> Callable:
+    """:func:`gpt2_pp_tp_loss_and_grad` on the interleaved GPipe
+    schedule."""
+    line = Line.of(pp_set, wrap=True)
+    stage_fn = _stage_fn(cfg, _tensor_parallel(tp_set))
+    return _make_loss_and_grad(
+        lambda b, r, t: _pp_loss(cfg, b, r, t, line, stage_fn,
+                                 pipeline_loss_interleaved), line)
+
+
 # ---------------------------------------------------------------------------
 # 1F1B
 # ---------------------------------------------------------------------------
@@ -318,15 +425,43 @@ def gpt2_pp_tp_1f1b_loss_and_grad(cfg: GPT2Config, pp_set=None,
                            Line.of(pp_set))
 
 
-def _make_1f1b_step(cfg: GPT2Config, stage_fn: Callable,
-                    line: Line) -> Callable:
+def gpt2_pp_interleaved_1f1b_loss_and_grad(cfg: GPT2Config, rounds: int,
+                                           process_set=None) -> Callable:
+    """GPT-2 on the interleaved 1F1B schedule
+    (``parallel.pipeline.pipeline_interleaved_1f1b``) over the ring of
+    ``process_set``: :func:`gpt2_pp_1f1b_loss_and_grad`'s contract with
+    ``blocks`` this rank's ``(1, R, K, ...)`` block of
+    :func:`stack_block_params_interleaved`' stack, the bubble shrunk about
+    R-fold and the activations held bounded by the schedule's peak in
+    flight (``step.core.peak_in_flight``, ``step.core.schedule``).
+    Requires M % S == 0."""
+    return _make_1f1b_step(cfg, _stage_fn(cfg),
+                           Line.of(process_set, wrap=True), rounds)
+
+
+def gpt2_pp_tp_interleaved_1f1b_loss_and_grad(cfg: GPT2Config, rounds: int,
+                                              pp_set=None,
+                                              tp_set=None) -> Callable:
+    """Interleaved 1F1B with Megatron tensor parallelism inside each
+    virtual stage (blocks from :func:`make_pp_tp_params_interleaved`,
+    split by ``block_specs_tp(extra_dims=1)``)."""
+    return _make_1f1b_step(cfg, _stage_fn(cfg, _tensor_parallel(tp_set)),
+                           Line.of(pp_set, wrap=True), rounds)
+
+
+def _make_1f1b_step(cfg: GPT2Config, stage_fn: Callable, line: Line,
+                    rounds: Optional[int] = None) -> Callable:
 
     def step(blocks: Tree, rest: Tree, tokens: torch.Tensor):
         r = {k: v.detach().requires_grad_() for k, v in rest.items()}
         x = _first_stage_input(cfg, r, tokens, line)
-        step.core = pipeline_1f1b(
-            stage_fn, lambda lp, y, m: _head_loss(cfg, lp, y, tokens[m]),
-            line)
+
+        def head(lp, y, m):
+            return _head_loss(cfg, lp, y, tokens[m])
+
+        step.core = (pipeline_1f1b(stage_fn, head, line) if rounds is None
+                     else pipeline_interleaved_1f1b(stage_fn, head, line,
+                                                    rounds=rounds))
         loss, (g_blocks, g_rest, g_x) = step.core(_local(blocks), rest,
                                                   x.detach())
         if line.rank == 0:

@@ -4,11 +4,11 @@
 and decode), ZeRO-2 and the ``zero3_*`` surface (``mp.py``) and Megatron's
 conjugate operators (``conjugate.py``), with the ``sp`` and ``ep`` axes
 beside tp (``mp.tensor_parallel(model, tp_set, sp=, ep=)``; GPT-2, Llama
-and T5), and pipelines, GPipe and 1F1B over a pp line of ranks
-(``pipeline.py``; GPT-2 staged over them, with tp inside the stages, in
-``models/gpt2_pipeline.py``). Port of ``horovod_tpu/parallel``; the
-interleaved schedules and their schedule tables wait for ``ROADMAP.md``
-item 8c-ii.
+and T5), and pipelines over a pp line of ranks: GPipe and 1F1B, and their
+interleaved forms on the line wrapped into a ring, 1F1B's from the tables
+of ``schedule_sim.py`` (``pipeline.py``; GPT-2 staged over them, with tp
+inside the stages, in ``models/gpt2_pipeline.py``). Port of
+``horovod_tpu/parallel``.
 """
 
 from horovod_tpu_torch.parallel.conjugate import (  # noqa: F401
@@ -31,7 +31,8 @@ from horovod_tpu_torch.parallel.mp import (  # noqa: F401
     zero3_stack_layer_shards,
 )
 from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
-    pipeline_1f1b, pipeline_apply, pipeline_loss,
+    chunkable_loss, pipeline_1f1b, pipeline_apply, pipeline_interleaved_1f1b,
+    pipeline_loss, pipeline_loss_interleaved,
 )
 from horovod_tpu_torch.parallel.sharding import (  # noqa: F401
     PartitionRules, apply_rules, shard_pytree,

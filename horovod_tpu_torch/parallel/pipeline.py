@@ -1,19 +1,19 @@
-"""Pipeline parallelism: GPipe and 1F1B over a line of ranks.
+"""Pipeline parallelism: GPipe, 1F1B and their interleaved forms over a
+line of ranks.
 
-Port of ``horovod_tpu/parallel/pipeline.py`` (the interleaved schedules,
-``pipeline_loss_interleaved``, ``pipeline_interleaved_1f1b`` and
-``chunkable_loss``, come with ``ROADMAP.md`` item 8c-ii). The reference runs
-a schedule as one ``lax.scan`` inside ``shard_map``, one device a stage, and
-hops activations with ``lax.ppermute``. Here one process is a stage: the
-ranks of a process set (``process_set=`` takes the place of the
-reference's ``axis_name``; default the global set, a mesh's
-``mesh.process_set("pp")`` for a pp line) are stages 0..S-1 in the set's
-rank order, and a tick's hops go through :class:`Line`: one grouped
-``dist.batch_isend_irecv`` of everything the tick sends and receives (the
-activation to stage s + 1, the cotangent to stage s - 1), so neighbours
-that exchange both ways in one tick do not deadlock on NCCL. A line is not
-a ring: the last stage sends nothing forward and stage 0 receives nothing,
-as the reference's ``fwd_perm`` drops that edge.
+Port of ``horovod_tpu/parallel/pipeline.py``. The reference runs a schedule
+as one ``lax.scan`` inside ``shard_map``, one device a stage, and hops
+activations with ``lax.ppermute``. Here one process is a stage: the ranks
+of a process set (``process_set=`` takes the place of the reference's
+``axis_name``; default the global set, a mesh's ``mesh.process_set("pp")``
+for a pp line) are stages 0..S-1 in the set's rank order, and a tick's
+hops go through :class:`Line`: one grouped ``dist.batch_isend_irecv`` of
+everything the tick sends and receives (the activation to stage s + 1, the
+cotangent to stage s - 1), so neighbours that exchange both ways in one
+tick do not deadlock on NCCL. For GPipe and 1F1B the line's ends are open:
+the last stage sends nothing forward and stage 0 receives nothing, as the
+reference's ``fwd_perm`` drops that edge. The interleaved schedules wrap
+it into a ring.
 
 Schedules. With S stages and M microbatches, GPipe runs M + S - 1 ticks
 forward and as many backward; at tick t stage s runs microbatch t - s.
@@ -26,6 +26,23 @@ idle in a tick computes nothing (the reference's SPMD program runs
 ``stage_fn`` on zeros there); every send it posts still meets its
 receive, because both ends of a hop derive it from the same tick.
 
+Interleaved schedules. Rank d holds R *virtual stages*, rounds r = 0..R-1
+of the depth-R·S pipeline (virtual stage r·S + d), as the leading axis of
+its ``stage_params`` leaves. The activation of virtual stage r·S + S - 1
+goes from the last rank to rank 0 at round r + 1, and its cotangent back
+the same way: the line is a ring (``Line(process_set, wrap=True)``).
+:func:`pipeline_loss_interleaved` is GPipe on that ring (at tick t rank d
+runs round (t - d) // S of microbatch (t - d) % S), M <= S microbatches at
+a time: more are run as chunks of S, one after the other.
+:func:`pipeline_interleaved_1f1b` runs Megatron's interleaved 1F1B from
+the tables of ``schedule_sim.build_interleaved_1f1b``: each rank reads
+its own row (which (round, microbatch) its forward and backward slots run
+at each tick, which hops the tick carries), and both ends of a hop read
+the same tables. At S = 2 a rank's forward and backward hops go to the
+same peer, and NCCL and gloo match a pair's sends and receives in the
+order they are posted, so every rank posts the forward hop first. At S =
+1 a hop goes from the rank to itself and is handed over without a send.
+
 Autograd. :func:`pipeline_loss` returns the loss replicated over the line
 and differentiable: run ``loss.backward()`` (or ``torch.autograd.grad``)
 on every stage, and each stage's parameters get their gradient while the
@@ -33,8 +50,8 @@ cotangents hop backward. Only the last stage's loss seeds the backward
 (the reference's ``_graft_last_stage_loss``): a differentiable allreduce
 of the loss would sum S unit cotangents and give S times the gradient.
 The backward is the GPipe schedule reversed, driven inside one autograd
-node a stage, so its hops keep the forward's order. :func:`pipeline_1f1b`
-has no outer backward: it returns the loss and the gradients.
+node a stage, so its hops keep the forward's order. The 1F1B steps have
+no outer backward: they return the loss and the gradients.
 
 The saved residuals are torch's: a stage's graph saves references to its
 weights, not copies, so the 1F1B stash holds the activations of the
@@ -45,16 +62,20 @@ ring buffer, has no counterpart).
 
 from __future__ import annotations
 
+import functools
 import inspect
-from typing import Callable, List, Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from horovod_tpu_torch.ops.ring_attention import Ring
+from horovod_tpu_torch.parallel.schedule_sim import build_interleaved_1f1b
 
-__all__ = ["Line", "pipeline_apply", "pipeline_loss", "pipeline_1f1b"]
+__all__ = ["Line", "pipeline_apply", "pipeline_loss",
+           "pipeline_loss_interleaved", "pipeline_1f1b",
+           "pipeline_interleaved_1f1b", "chunkable_loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -62,16 +83,34 @@ __all__ = ["Line", "pipeline_apply", "pipeline_loss", "pipeline_1f1b"]
 # ---------------------------------------------------------------------------
 
 class Line(Ring):
-    """A process set seen as a pipeline: a :class:`Ring` whose ends are
-    open, this rank's stage ``rank`` of ``n`` and the global ranks of the
-    previous and next stages (None at the ends)."""
+    """A process set seen as a pipeline: a :class:`Ring`, this rank's stage
+    ``rank`` of ``n`` and the global ranks of the previous and next stages.
+    Its ends are open (None) unless ``wrap``: the interleaved schedules hop
+    from the last stage to stage 0 and back."""
 
-    def __init__(self, process_set=None):
+    wrap = False
+
+    def __init__(self, process_set=None, wrap: bool = False):
         super().__init__(process_set)
-        if self.rank == 0:
-            self.prev = None
-        if self.rank == self.n - 1:
-            self.next = None
+        self.wrap = wrap
+        if not wrap:
+            if self.rank == 0:
+                self.prev = None
+            if self.rank == self.n - 1:
+                self.next = None
+
+    @classmethod
+    def of(cls, process_set=None, wrap: bool = False) -> "Line":
+        """``process_set`` when it is a line already (open, or wrapped as
+        ``wrap`` asks), else the line of that set (default: the global
+        set)."""
+        if isinstance(process_set, cls):
+            if process_set.wrap != wrap:
+                raise ValueError("the interleaved schedules hop on a wrapped "
+                                 "line (Line(process_set, wrap=True)), GPipe "
+                                 "and 1F1B on an open one")
+            return process_set
+        return cls(process_set, wrap)
 
     def exchange(self, fwd: Optional[torch.Tensor] = None,
                  bwd: Optional[torch.Tensor] = None,
@@ -82,27 +121,50 @@ class Line(Ring):
         ``recv_fwd`` from the previous stage and one like ``recv_bwd`` from
         the next. Returns (from the previous stage, from the next), None
         where nothing was asked; waits for the hops (on NCCL the current
-        stream waits, the host does not)."""
+        stream waits, the host does not). On a one-stage ring a hop is
+        handed over to this rank without a send."""
         if (fwd is not None or recv_bwd is not None) and self.next is None:
             raise ValueError("the last stage has no next stage")
         if (bwd is not None or recv_fwd is not None) and self.prev is None:
             raise ValueError("stage 0 has no previous stage")
-        ops = [dist.P2POp(dist.isend, t.contiguous(), to, self.group)
-               for t, to in ((fwd, self.next), (bwd, self.prev))
-               if t is not None]
-        got: List[Optional[torch.Tensor]] = [None, None]
-        for i, (like, frm) in enumerate(((recv_fwd, self.prev),
-                                         (recv_bwd, self.next))):
-            if like is not None:
-                got[i] = torch.empty(like.shape, dtype=like.dtype,
-                                     device=like.device)
-                ops.append(dist.P2POp(dist.irecv, got[i], frm, self.group))
-        if ops:
+        if self.n == 1:
+            if (fwd is None) != (recv_fwd is None) \
+                    or (bwd is None) != (recv_bwd is None):
+                raise ValueError("a one-stage ring sends each hop to itself:"
+                                 " it must receive what it sends in the same "
+                                 "tick")
+            return fwd, bwd
+        return self._run(self._posts(fwd, bwd, recv_fwd, recv_bwd))
+
+    def _posts(self, fwd, bwd, recv_fwd, recv_bwd) -> list:
+        """The tick's point-to-point operations in the order they are
+        posted: ``(dist.isend or dist.irecv, tensor, peer, "fwd" or
+        "bwd")``, the forward hop before the backward one each way. A pair
+        of ranks matches its sends and receives in this order (NCCL and
+        gloo alike), and at S = 2 both hops go to the same peer."""
+        posts = [(dist.isend, t.contiguous(), to, way)
+                 for t, to, way in ((fwd, self.next, "fwd"),
+                                    (bwd, self.prev, "bwd"))
+                 if t is not None]
+        posts += [(dist.irecv, torch.empty(like.shape, dtype=like.dtype,
+                                           device=like.device), frm, way)
+                  for like, frm, way in ((recv_fwd, self.prev, "fwd"),
+                                         (recv_bwd, self.next, "bwd"))
+                  if like is not None]
+        return posts
+
+    def _run(self, posts: list) -> tuple:
+        """Posts ``posts`` in one ``batch_isend_irecv`` and waits; returns
+        what arrived (from the previous stage, from the next)."""
+        if posts:
+            ops = [dist.P2POp(op, t, peer, self.group)
+                   for op, t, peer, _ in posts]
             self._collective._ensure_p2p(self.ps, ops[0].tensor)
             # The sent tensors stay referenced by ``ops`` until the wait.
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
-        return tuple(got)
+        got = {way: t for op, t, _, way in posts if op is dist.irecv}
+        return got.get("fwd"), got.get("bwd")
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the line (no gradient): an in-step
@@ -139,78 +201,127 @@ def _accumulate(acc: list, grads) -> None:
             acc[i] = g if acc[i] is None else acc[i] + g
 
 
+def _tick_slot(t: int, d: int, S: int, R: int, mc: int):
+    """The (round, microbatch) stage ``d`` runs at tick ``t`` of a GPipe run
+    of ``mc`` microbatches over ``R`` rounds of the line, or None when it
+    is idle (the reference's ``active``). R = 1 is plain GPipe (microbatch
+    t - d); R > 1 the circular schedule (mc <= S): round (t - d) // S of
+    microbatch (t - d) % S."""
+    period = max(S, mc)
+    rel = t - d
+    if 0 <= rel < R * period and rel % period < mc:
+        return divmod(rel, period)
+    return None
+
+
 class _GPipe(torch.autograd.Function):
-    """The GPipe schedule of one stage: forward over the ticks, keeping
-    each microbatch's graph; backward over the ticks reversed, the
-    cotangents hopping to the previous stage. Its output is the last
-    stage's (M, mb, ...) outputs there and a scalar zero elsewhere, whose
-    cotangent only starts the stage's backward."""
+    """The GPipe schedule of one stage, plain or circular: forward over the
+    ticks, keeping each microbatch's graph; backward over the ticks
+    reversed, the cotangents hopping to the previous stage. Its output is
+    the last stage's (M, mb, ...) outputs there and a scalar zero
+    elsewhere, whose cotangent only starts the stage's backward.
+
+    ``rounds`` None: the leaves are the stage's parameters and the line is
+    open. Else the leaves are ``(rounds, ...)``, round r's slice is virtual
+    stage r·S + d's, the line wraps, and the microbatches run in chunks of
+    at most S, one after the other (the reference's chunking)."""
 
     @staticmethod
     def forward(ctx, run, microbatches, *leaves):
-        stage_fn, spec, line = run
-        S, s, M = line.n, line.rank, microbatches.shape[0]
+        stage_fn, spec, line, rounds = run
+        S, d, M = line.n, line.rank, microbatches.shape[0]
         like = microbatches[0]
-        ctx.line, ctx.M, ctx.like = line, M, like
+        ctx.line, ctx.M, ctx.like, ctx.rounds = line, M, like, rounds
         ctx.mb_grad = ctx.needs_input_grad[1]
-        ctx.leaves = [_leaf(p, g) for p, g in
-                      zip(leaves, ctx.needs_input_grad[2:])]
-        params = pytree.tree_unflatten(ctx.leaves, spec)
-        ctx.stash, act = [], None
+        grad = ctx.needs_input_grad[2:]
+        ctx.leaves = ([[_leaf(p, g) for p, g in zip(leaves, grad)]]
+                      if rounds is None else
+                      [[_leaf(p[r], g) for p, g in zip(leaves, grad)]
+                       for r in range(rounds)])
+        params = [pytree.tree_unflatten(ls, spec) for ls in ctx.leaves]
+        R = len(params)
+        ctx.chunks = ([(0, M)] if rounds is None else
+                      [(c, min(S, M - c)) for c in range(0, M, S)])
+        ctx.stash, out = {}, [None] * M
         # Graphs are kept only for a backward (not under no_grad).
         with torch.set_grad_enabled(any(ctx.needs_input_grad)):
-            for t in range(M + S - 1):
-                m, y = t - s, None
-                if 0 <= m < M:
-                    x = _leaf(microbatches[m] if s == 0 else act,
-                              s > 0 or ctx.mb_grad)
-                    y = _apply_stage(stage_fn, params, x)
-                    ctx.stash.append((x, y))
-                act, _ = line.exchange(
-                    fwd=y.detach() if y is not None and s < S - 1 else None,
-                    recv_fwd=like if s > 0 and 0 <= t + 1 - s < M else None)
-        if s == S - 1:
-            return torch.stack([y.detach() for _, y in ctx.stash])
+            for start, mc in ctx.chunks:
+                act = None
+                for t in range(mc + R * S - 1):
+                    slot, y, final = _tick_slot(t, d, S, R, mc), None, False
+                    if slot is not None:
+                        r, m = slot
+                        feed, final = d == 0 and r == 0, \
+                            d == S - 1 and r == R - 1
+                        x = _leaf(microbatches[start + m] if feed else act,
+                                  not feed or ctx.mb_grad)
+                        y = _apply_stage(stage_fn, params[r], x)
+                        ctx.stash[(start, r, m)] = (x, y)
+                        if final:
+                            out[start + m] = y.detach()
+                    nxt = _tick_slot(t + 1, d, S, R, mc)
+                    act, _ = line.exchange(
+                        fwd=None if y is None or final else y.detach(),
+                        recv_fwd=like if nxt is not None
+                        and not (d == 0 and nxt[0] == 0) else None)
+        if d == S - 1:
+            return torch.stack(out)
         return torch.zeros((), dtype=torch.float32, device=like.device)
 
     @staticmethod
     def backward(ctx, g_out):
         line, M, like = ctx.line, ctx.M, ctx.like
-        S, s = line.n, line.rank
-        want = [p for p in ctx.leaves if p.requires_grad]
-        grads: list = [None] * len(want)
+        S, d, R = line.n, line.rank, len(ctx.leaves)
+        want = [[p for p in ls if p.requires_grad] for ls in ctx.leaves]
+        grads = [[None] * len(w) for w in want]
         g_mb = torch.zeros((M,) + tuple(like.shape), dtype=like.dtype,
                            device=like.device) if ctx.mb_grad else None
-        cot = None
         with torch.enable_grad():
-            for t in reversed(range(M + S - 1)):
-                m, gx = t - s, None
-                if 0 <= m < M:
-                    x, y = ctx.stash[m]
-                    ctx.stash[m] = None
-                    inputs = ([x] if x.requires_grad else []) + want
-                    gs = torch.autograd.grad(
-                        y, inputs, g_out[m] if s == S - 1 else cot,
-                        allow_unused=True)
-                    if x.requires_grad:
-                        gx, gs = gs[0], gs[1:]
-                        if s == 0:
-                            g_mb[m] = gx
-                    _accumulate(grads, gs)
-                _, cot = line.exchange(
-                    bwd=gx if s > 0 and gx is not None else None,
-                    recv_bwd=like if s < S - 1 and 0 <= t - 1 - s < M
-                    else None)
-        it = iter(grads)
-        out = [next(it) if p.requires_grad else None for p in ctx.leaves]
+            for start, mc in reversed(ctx.chunks):
+                cot = None
+                for t in reversed(range(mc + R * S - 1)):
+                    slot, gx, feed = _tick_slot(t, d, S, R, mc), None, False
+                    if slot is not None:
+                        r, m = slot
+                        feed = d == 0 and r == 0
+                        x, y = ctx.stash.pop((start, r, m))
+                        inputs = ([x] if x.requires_grad else []) + want[r]
+                        gs = torch.autograd.grad(
+                            y, inputs, g_out[start + m]
+                            if d == S - 1 and r == R - 1 else cot,
+                            allow_unused=True)
+                        if x.requires_grad:
+                            gx, gs = gs[0], gs[1:]
+                            if feed:
+                                g_mb[start + m] = gx
+                        _accumulate(grads[r], gs)
+                    prv = _tick_slot(t - 1, d, S, R, mc)
+                    _, cot = line.exchange(
+                        bwd=gx if gx is not None and not feed else None,
+                        recv_bwd=like if prv is not None
+                        and not (d == S - 1 and prv[0] == R - 1) else None)
+        its = [iter(g) for g in grads]
+        out = []
+        for i, p in enumerate(ctx.leaves[0]):
+            if not p.requires_grad:
+                out.append(None)
+                continue
+            gs = [next(it) for it in its]
+            if ctx.rounds is None:
+                out.append(gs[0])
+            else:
+                out.append(torch.stack([
+                    torch.zeros_like(ls[i]) if g is None else g
+                    for ls, g in zip(ctx.leaves, gs)]))
         ctx.leaves = ctx.stash = None
         return (None, g_mb, *out)
 
 
 def _gpipe(stage_fn: Callable, stage_params, microbatches: torch.Tensor,
-           line: Line) -> torch.Tensor:
+           line: Line, rounds: Optional[int] = None) -> torch.Tensor:
     leaves, spec = pytree.tree_flatten(stage_params)
-    return _GPipe.apply((stage_fn, spec, line), microbatches, *leaves)
+    return _GPipe.apply((stage_fn, spec, line, rounds), microbatches,
+                        *leaves)
 
 
 class _FromLast(torch.autograd.Function):
@@ -298,6 +409,82 @@ def pipeline_loss(stage_fn: Callable, stage_params,
     else:
         local = out
     return _graft_last_stage_loss(local, line)
+
+
+def pipeline_loss_interleaved(stage_fn: Callable, stage_params,
+                              microbatches: torch.Tensor, loss_fn: Callable,
+                              process_set=None) -> torch.Tensor:
+    """The interleaved (circular) GPipe schedule and its loss over the
+    ring of ``process_set`` (a process set, or a wrapped :class:`Line`;
+    default the global set): Megatron's interleaved layout, trained as
+    :func:`pipeline_loss` trains.
+
+    Rank d holds R virtual stages, rounds r = 0..R-1 of the depth-R·S
+    pipeline (virtual stage r·S + d), as the leading axis of its
+    ``stage_params`` leaves (``(R, ...)``; round r's slice goes to
+    ``stage_fn``). Activations hop on the ring: after virtual stage r·S +
+    S - 1 the microbatch comes back to rank 0 at round r + 1. The bubble is
+    1 - R·M / (M + R·S - 1): at M = S about 1 / (R + 1), where plain GPipe
+    needs M = 4(S - 1) microbatches for a fifth.
+
+    At most S microbatches fit on the ring at once. M > S are run in
+    chunks of S, one after the other, and the loss is the sum of the
+    chunks' losses, each weighted by its share of the M microbatches: the
+    full batch's loss when ``loss_fn`` is a mean over the microbatch axis.
+    Chunking needs the two-argument ``loss_fn(outputs, mb_start)``
+    (``mb_start`` the index of ``outputs[0]`` among the M microbatches, so
+    the loss can slice its targets): name the second positional
+    ``mb_start``, or mark the loss with :func:`chunkable_loss`.
+    ``loss_fn`` runs on the last rank only; run the returned loss's
+    backward on every rank.
+    """
+    line = Line.of(process_set, wrap=True)
+    S, M = line.n, microbatches.shape[0]
+    takes_start = _loss_takes_start(loss_fn)
+    if M > S and not takes_start:
+        raise ValueError(
+            f"interleaved schedule fits at most S={S} microbatches on "
+            f"the ring at once; chunking the given M={M} automatically "
+            f"needs a loss_fn(outputs, mb_start) so targets can follow "
+            f"their chunk. Name the second positional 'mb_start', or —"
+            f" for functools.partial / C callables whose signature "
+            f"cannot be inspected — mark the loss with "
+            f"horovod_tpu_torch.parallel.chunkable_loss")
+    rounds = pytree.tree_leaves(stage_params)[0].shape[0]
+    out = _gpipe(stage_fn, stage_params, microbatches, line, rounds)
+    if line.rank != S - 1:
+        local = out
+    elif M > S:
+        local = torch.zeros((), dtype=torch.float32, device=out.device)
+        for start in range(0, M, S):
+            chunk = out[start:start + S]
+            local = local + (chunk.shape[0] / M) * loss_fn(chunk,
+                                                           start).float()
+    else:
+        local = (loss_fn(out, 0) if takes_start else loss_fn(out)).float()
+    return _graft_last_stage_loss(local, line)
+
+
+def chunkable_loss(loss_fn: Callable) -> Callable:
+    """Mark ``loss_fn`` as taking the two-argument ``(outputs, mb_start)``
+    form that :func:`pipeline_loss_interleaved` needs to chunk M > S
+    microbatches. A ``def loss(outputs, mb_start)`` needs no mark; a
+    ``functools.partial`` or a C callable, whose signature cannot be read,
+    does::
+
+        loss = hvd.parallel.chunkable_loss(functools.partial(f, cfg))
+
+    Returns ``loss_fn`` itself, marked, or, where it takes no attribute (a
+    builtin), a marked function that calls it."""
+    try:
+        loss_fn._hvd_mb_start = True
+        return loss_fn
+    except (AttributeError, TypeError):   # builtins reject attributes
+        @functools.wraps(loss_fn, assigned=("__doc__",), updated=())
+        def wrapped(outputs, mb_start):
+            return loss_fn(outputs, mb_start)
+        wrapped._hvd_mb_start = True
+        return wrapped
 
 
 def _graft_last_stage_loss(local: torch.Tensor, line: Line) -> torch.Tensor:
@@ -425,3 +612,119 @@ def pipeline_1f1b(stage_fn: Callable, per_mb_loss: Callable,
     in its last call.
     """
     return _OneFOneB(stage_fn, per_mb_loss, Line.of(process_set))
+
+
+# ---------------------------------------------------------------------------
+# Interleaved 1F1B
+# ---------------------------------------------------------------------------
+
+class _Interleaved1F1B(_OneFOneB):
+    """The step :func:`pipeline_interleaved_1f1b` returns: a table-driven
+    executor of ``build_interleaved_1f1b(S, rounds, M)``. ``schedule``: the
+    tables of the last call; ``peak_in_flight``: the most (round,
+    microbatch) graphs this rank held at once in it, which its row of the
+    tables bounds (``schedule.live_peaks()[rank]``)."""
+
+    def __init__(self, stage_fn, per_mb_loss, line, rounds):
+        super().__init__(stage_fn, per_mb_loss, line)
+        self.rounds, self.schedule = rounds, None
+
+    def __call__(self, stage_params, loss_params, microbatches):
+        line, R = self.line, self.rounds
+        S, d, M = line.n, line.rank, microbatches.shape[0]
+        sched = self.schedule = build_interleaved_1f1b(S, R, M)
+        like = microbatches[0]
+        p_leaves, p_spec = pytree.tree_flatten(stage_params)
+        if any(p.shape[:1] != (R,) for p in p_leaves):
+            raise ValueError(f"stage_params leaves must be (rounds, ...) = "
+                             f"({R}, ...), one slice a virtual stage")
+        rounds = [[_leaf(p[r], True) for p in p_leaves] for r in range(R)]
+        params = [pytree.tree_unflatten(ls, p_spec) for ls in rounds]
+        want = [[p for p in ls if p.requires_grad] for ls in rounds]
+        g_stage = [[None] * len(w) for w in want]
+        l_leaves, l_spec = pytree.tree_flatten(loss_params)
+        l_leaves = [_leaf(p, d == S - 1) for p in l_leaves]
+        l_params = pytree.tree_unflatten(l_leaves, l_spec)
+        l_want = [p for p in l_leaves if p.requires_grad]
+        g_loss: list = [None] * len(l_want)
+        g_x = torch.zeros_like(microbatches)
+        loss_acc = torch.zeros((), dtype=torch.float32, device=like.device)
+        # Activations and cotangents wait keyed by (round, mb % S), as the
+        # reference's (R, S) buffers; the stash by (round, mb).
+        stash, act_buf, cot_buf, peak = {}, {}, {}, 0
+        row = {k: getattr(sched, k)[d].tolist() for k in (
+            "f_round", "f_mb", "b_round", "b_mb", "send_mb", "bsend_mb",
+            "recv_round", "recv_mb", "brecv_round", "brecv_mb")}
+        with torch.enable_grad():
+            for t in range(sched.T):
+                # F slot.
+                r, m, y = row["f_round"][t], row["f_mb"][t], None
+                if m >= 0:
+                    x = _leaf(microbatches[m] if d == 0 and r == 0
+                              else act_buf.pop((r, m % S)), True)
+                    y = _apply_stage(self.stage_fn, params[r], x)
+                    stash[(r, m)] = (x, y)
+                    peak = max(peak, len(stash))
+                # B slot; the loss head seeds it on the last virtual stage.
+                r, m, gx = row["b_round"][t], row["b_mb"][t], None
+                if m >= 0:
+                    x, yb = stash.pop((r, m))
+                    if d == S - 1 and r == R - 1:
+                        g_in, loss_m = self._loss_slot(l_params, l_want, yb,
+                                                       m, M, g_loss)
+                        loss_acc = loss_acc + loss_m
+                    else:
+                        g_in = cot_buf.pop((r, m % S))
+                    gs = torch.autograd.grad(yb, [x] + want[r], g_in,
+                                             allow_unused=True)
+                    gx = gs[0]
+                    _accumulate(g_stage[r], gs[1:])
+                    if d == 0 and r == 0:
+                        g_x[m] = gx
+                # Hops, as the tables say on both ends; the buffers were
+                # read above, before this tick's arrivals land.
+                act, cot = line.exchange(
+                    fwd=y.detach() if row["send_mb"][t] >= 0 else None,
+                    bwd=gx if row["bsend_mb"][t] >= 0 else None,
+                    recv_fwd=like if row["recv_mb"][t] >= 0 else None,
+                    recv_bwd=like if row["brecv_mb"][t] >= 0 else None)
+                if act is not None:
+                    act_buf[(row["recv_round"][t],
+                             row["recv_mb"][t] % S)] = act
+                if cot is not None:
+                    cot_buf[(row["brecv_round"][t],
+                             row["brecv_mb"][t] % S)] = cot
+        self.peak_in_flight = peak
+        loss = line.psum(loss_acc)
+        g_rounds = [_grads_like(ls, g, p_spec)
+                    for ls, g in zip(rounds, g_stage)]
+        g_stage = pytree.tree_map(lambda *gs: torch.stack(gs), *g_rounds)
+        return loss, (g_stage, _grads_like(l_leaves, g_loss, l_spec), g_x)
+
+
+def pipeline_interleaved_1f1b(stage_fn: Callable, per_mb_loss: Callable,
+                              process_set=None, *, rounds: int) -> Callable:
+    """Megatron's interleaved 1F1B over the ring of ``process_set`` (a
+    process set, or a wrapped :class:`Line`; default the global set): R =
+    ``rounds`` virtual stages a rank, as :func:`pipeline_loss_interleaved`
+    (the bubble shrinks about R-fold), with the forward and the backward
+    scheduled by hand, as :func:`pipeline_1f1b` (the graphs held bounded by
+    the schedule's peak in flight, not M·R).
+
+    The schedule is data: ``schedule_sim.build_interleaved_1f1b(S, R, M)``
+    simulates it on the host and verifies it, and each rank runs its row:
+    at each tick the forward slot, then the backward slot, then the tick's
+    hops. Requires M % S == 0 (Megatron's microbatch groups) and
+    ``stage_params`` leaves ``(R, ...)`` (the
+    ``stack_block_params_interleaved`` layout of a rank).
+
+    The contract is :func:`pipeline_1f1b`'s: ``fn(stage_params,
+    loss_params, microbatches) -> (loss, (g_stage, g_loss_params,
+    g_microbatches))``, ``loss`` the same on every rank, ``g_loss_params``
+    nonzero on the last rank only and ``g_microbatches`` on rank 0 only,
+    ``g_stage`` this rank's, ``(R, ...)``. ``per_mb_loss`` runs on the last
+    rank's final round only and must hold no collective. ``fn``'s
+    ``peak_in_flight`` and ``schedule`` are those of its last call.
+    """
+    return _Interleaved1F1B(stage_fn, per_mb_loss,
+                            Line.of(process_set, wrap=True), rounds)

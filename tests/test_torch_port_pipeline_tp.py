@@ -1,7 +1,8 @@
 """Pipelines with tensor and data parallelism in horovod_tpu_torch
 (``models/gpt2_pipeline.py``) == the reference's GSPMD programs
 (``tests/test_pipeline.py``'s ``TestGPT2PipelineTensorParallel`` without
-the interleaved case, ``Test1F1B.test_gpt2_1f1b_tp_matches_single_device``
+the interleaved case, which ``tests/test_torch_port_pipeline_interleaved.py``
+holds, ``Test1F1B.test_gpt2_1f1b_tp_matches_single_device``
 and the dryrun's pipeline steps, ``__graft_entry__.py:139-197``,
 ``:249-296`` and ``:368-406``).
 
