@@ -310,14 +310,41 @@ Phases, in order; any failure exits nonzero and prints no result:
    posting its backward hops before its forward ones more than
    ``PP_FAULT_FACTOR`` times outside. The line transport hands a pair's
    k-th send to its k-th receive, as NCCL matches them.
+17. The host observability plane, on a new one-rank NCCL world: (a) phase
+   3's GPT-2 medium under ``start_timeline`` (before ``init``), with
+   ``metrics_http(0)`` serving, a ``LocalSampler`` every
+   ``SAMPLE_INTERVAL_S`` and a client thread GETting ``/metrics`` and
+   ``/metrics.json`` every ``SCRAPE_PAUSE_S``: phase 3's losses within
+   ``LOSS_TOL``, 24 launches of each kernel a step, every scrape 200 and
+   parsed, no counter series lower than at the scrape before it, and once
+   the steps end ``/metrics`` is ``to_prometheus()`` byte for byte and
+   ``/metrics.json`` ``to_json()``; ``/trace``, ``/healthz`` and
+   ``/config`` give the reference's fallbacks, ``/doctor`` 501, an unknown
+   path 404 and ``POST /config`` 403 (401 where a token is configured); the
+   median step ms beside phases 3 and 6, and the scrapes' median and
+   maximum ms; (b) the store's ``delta`` of ``collective_calls_total
+   {kind=allreduce}`` over the run equal to the snapshots' growth (5),
+   ``rate`` that delta over the window, ``window_snapshot`` of the
+   reference's doctor shape; (c) ``merge_timelines`` of (a)'s shard with
+   ``feed_metrics``: valid JSON, one track ``rank 0`` holding every event,
+   ``exec_spans`` the shard's EXEC events with positive op ids, the
+   algorithms' buckets and wire bytes the ``allreduce_algorithm`` markers
+   (steps x the bucket plan) and the growth of
+   ``allreduce_wire_bytes_total``, no collective in the straggler list,
+   and ``overlap_efficiency_estimate{source="merge"}`` in the next scrape;
+   the merge's seconds and events; (d) with two cards
+   ``tools/torch_controller_bench.py --np 2 --late-rank 1 --late-ms 50``:
+   its shards merged, op ids lined up, rank 1 the planted op's last rank
+   and blamed at least 50 ms; with one card a line says it did not run.
+   Without phase 3 it runs phase 3's path itself first.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
 (a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
-phase 12's, phase 13's, phase 14's, phase 15's and phase 16's paths, each
-counted from 0 just
+phase 12's, phase 13's, phase 14's, phase 15's, phase 16's and phase 17's
+paths, each counted from 0 just
 before the path and read just after) and their sum, and its numbers at
 each new path's shape (phases 5, 9, 10 (a), 13, 14 and 16). The last line is
 ``{"ok": true,
@@ -326,7 +353,8 @@ each new path's shape (phases 5, 9, 10 (a), 13, 14 and 16). The last line is
 its own run without remat); ``--phases 1,10`` runs phase 10 alone;
 ``--phases 1,11`` phase 11 alone; ``--phases 1,12`` phase 12 alone;
 ``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone;
-``--phases 1,15`` phase 15 alone; ``--phases 1,16`` phase 16 alone.
+``--phases 1,15`` phase 15 alone; ``--phases 1,16`` phase 16 alone;
+``--phases 1,17`` phase 17 alone.
 """
 
 from __future__ import annotations
@@ -5867,13 +5895,349 @@ def phase_pipeline(card):
     return {"runs": out, "launches": launches, "kernels": kernels}
 
 
+# ---------------------------------------------------------------- phase 17
+
+SCRAPE_PAUSE_S = 0.02    # the client's pause between two rounds of scrapes
+SAMPLE_INTERVAL_S = 0.05  # LocalSampler's interval
+# Points a series keeps: the default 256 hold 12.8 s at 0.05 s, less than
+# the run with its model build, and the window's baseline must survive it.
+SAMPLE_POINTS = 4096
+LATE_MS = 50.0           # (d)'s planted delay
+_PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
+_MERGE_GAUGE = 'horovod_tpu_overlap_efficiency_estimate{source="merge"}'
+
+
+def _http(url, data=None):
+    """(status, body, ms) of one GET (or POST of ``data``); an HTTP error
+    status is an answer, not an exception."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def _prom_counters(text):
+    """{(name, labels): value} of the counter-like samples (``_total``,
+    ``_count``) of a text exposition; raises ValueError on a bad line."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#"):
+            if not re.match(r"^# (HELP|TYPE) \S+ ", line):
+                raise ValueError(f"bad comment line {line!r}")
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if m is None:
+            raise ValueError(f"unparseable line {line!r}")
+        value = float(m.group(3))
+        if m.group(1).endswith(("_total", "_count")):
+            out[(m.group(1), m.group(2) or "")] = value
+    return out
+
+
+def _json_counters(doc):
+    return {(n, json.dumps(s["labels"], sort_keys=True)): s["value"]
+            for n, series in doc["counters"].items() for s in series}
+
+
+def _check_scrapes(scrapes):
+    """Every scrape 200 and parsed, no counter series lower than in the
+    scrape of the same route before it. Returns the routes' counts."""
+    last = {"/metrics": {}, "/metrics.json": {}}
+    for i, (path, code, body, _) in enumerate(scrapes):
+        if code != 200:
+            fail(f"phase 17 (a): scrape {i} of {path} answered {code}")
+        try:
+            if path == "/metrics":
+                cur = _prom_counters(body.decode())
+            else:
+                doc = json.loads(body)
+                cur = _json_counters(doc)
+                for n, series in doc["histograms"].items():
+                    for s in series:
+                        if s["buckets"][-1][1] != s["count"]:
+                            fail(f"phase 17 (a): scrape {i}: histogram {n} "
+                                 f"count {s['count']} against its +Inf "
+                                 f"bucket {s['buckets'][-1][1]}")
+        except ValueError as e:
+            fail(f"phase 17 (a): scrape {i} of {path} does not parse: {e}")
+        back = [(k, last[path][k], v) for k, v in cur.items()
+                if v < last[path].get(k, 0)]
+        if back:
+            fail(f"phase 17 (a): counters went backwards at scrape {i} of "
+                 f"{path}: {back[:5]}")
+        last[path] = cur
+    return {p: sum(1 for s in scrapes if s[0] == p) for p in last}
+
+
+def phase_observability(card, main_path, controller):
+    """Phase 17: the host observability plane around phase 3's GPT-2
+    medium on a new one-rank NCCL world: (a) scraped training, (b) the time
+    series, (c) the merge of its shard, (d) with two cards a merged
+    two-rank world with a planted late rank."""
+    import os
+    import tempfile
+    import threading
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics, timeseries
+    from horovod_tpu_torch.config import get_config
+    from horovod_tpu_torch.trace_merge import merge_timelines
+    t_phase = time.perf_counter()
+    if main_path is None:
+        main_path = phase_main_path(card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
+    trace_path = os.path.join(tmp, "trace.json")
+    hvd.start_timeline(trace_path)
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    srv = hvd.metrics_http(0)
+    store = timeseries.TimeSeriesStore(max_points=SAMPLE_POINTS)
+    sampler = timeseries.LocalSampler(store, interval_s=SAMPLE_INTERVAL_S)
+    scrapes, errors, stop = [], [], threading.Event()
+
+    def client():
+        while not stop.is_set():
+            for path in ("/metrics", "/metrics.json"):
+                try:
+                    scrapes.append((path,) + _http(srv.url + path))
+                except Exception as e:      # reported below, then fail
+                    errors.append(f"{path}: {e!r}")
+            stop.wait(SCRAPE_PAUSE_S)
+
+    # (a) scraped training
+    before = metrics.snapshot()
+    t_start = time.time()
+    sampler.sample_once(ts=t_start)
+    sampler.start()
+    scraper = threading.Thread(target=client, name="phase17-scraper",
+                               daemon=True)
+    scraper.start()
+    try:
+        run = phase_train_path("gpt2_medium", card, hvd.device())
+    finally:
+        stop.set()
+        scraper.join(timeout=60)
+    t_end = time.time()
+    sampler.sample_once(ts=t_end)
+    after = metrics.snapshot()
+    if errors:
+        fail(f"phase 17 (a): scrapes raised: {errors[:5]}")
+    counts = _check_scrapes(scrapes)
+    if min(counts.values()) < 2:
+        fail(f"phase 17 (a): too few scrapes during the run: {counts}")
+    steps = len(run["losses"])
+    diffs = [abs(a - b) for a, b in zip(run["losses"], main_path["losses"])]
+    if len(diffs) != steps or max(diffs) > LOSS_TOL:
+        fail(f"phase 17 (a): losses {run['losses']} differ from phase 3's "
+             f"{main_path['losses']} by up to {max(diffs):.3e} (limit "
+             f"{LOSS_TOL})")
+    prom = _http(srv.url + "/metrics")
+    js = _http(srv.url + "/metrics.json")
+    if prom[:2] != (200, metrics.to_prometheus().encode("utf-8")):
+        fail("phase 17 (a): /metrics after the steps is not to_prometheus()")
+    got, want = json.loads(js[1]), json.loads(metrics.to_json())
+    got.pop("timestamp")
+    want.pop("timestamp")
+    if js[0] != 200 or got != want:
+        fail("phase 17 (a): /metrics.json after the steps is not to_json()")
+    token = bool(get_config().serve_auth_token)
+    routes = {
+        "/trace": (200, {"traceEvents": [], "displayTimeUnit": "ms"}),
+        "/healthz": (200, {"status": "ok", "ok": True, "alerts": []}),
+        "/config": (200, {"epoch": 0, "values": {}}),
+    }
+    for path, want_route in routes.items():
+        code, body, _ = _http(srv.url + path)
+        if (code, json.loads(body)) != want_route:
+            fail(f"phase 17 (a): {path} answered {code} {body[:200]!r}, "
+                 f"not the fallback {want_route}")
+    code, body, _ = _http(srv.url + "/doctor")
+    if code != 501 or "horovod_tpu_torch.profiler" not in \
+            json.loads(body).get("error", ""):
+        fail(f"phase 17 (a): /doctor answered {code} {body[:200]!r}")
+    if _http(srv.url + "/no/such/route")[0] != 404:
+        fail("phase 17 (a): an unknown path did not answer 404")
+    code, body, _ = _http(srv.url + "/config", data=b'{"name": "x"}')
+    if code != (401 if token else 403):
+        fail(f"phase 17 (a): POST /config answered {code} {body[:200]!r}")
+    ms = sorted(s[3] for s in scrapes)
+    scrape = {"scrapes": len(scrapes), "by_route": counts,
+              "median_ms": statistics.median(ms), "max_ms": ms[-1]}
+    p6 = controller["step_ms_median"] if controller else None
+    log(f"phase 17 (a): GPT-2 medium scraped every "
+        f"{SCRAPE_PAUSE_S * 1e3:.0f} ms and sampled every "
+        f"{SAMPLE_INTERVAL_S * 1e3:.0f} ms: losses within {max(diffs):.3e} "
+        f"of phase 3's; step {run['step_ms_median']:.2f} ms median against "
+        f"phase 3's {main_path['step_ms_median']:.2f} and phase 6's "
+        f"{'not run' if p6 is None else f'{p6:.2f}'}; {len(scrapes)} "
+        f"scrapes ({counts}), every one 200, parsed, no counter backwards, "
+        f"{scrape['median_ms']:.2f} ms median, {scrape['max_ms']:.2f} ms max "
+        f"(host clock); routes and fallbacks as the reference's, /doctor "
+        f"501, POST /config {401 if token else 403}; on {card}")
+
+    # (b) the time series
+    window = t_end - t_start
+    grew = (_counter(after, "collective_calls_total", kind="allreduce")
+            - _counter(before, "collective_calls_total", kind="allreduce"))
+    delta = store.delta("collective_calls_total", window,
+                        labels={"kind": "allreduce"}, now=t_end)
+    rate = store.rate("collective_calls_total", window,
+                      labels={"kind": "allreduce"}, now=t_end)
+    snap = store.window_snapshot(window, now=t_end)
+    in_window = [s["value"] for s in snap["counters"].get(
+        "collective_calls_total", []) if s["labels"].get("kind") ==
+        "allreduce"]
+    points = max(len(p) for p in store._points(
+        "counter", "collective_calls_total", {"kind": "allreduce"}))
+    if points < 3:
+        fail(f"phase 17 (b): the sampler added no point during the run "
+             f"({points} points)")
+    if not delta == grew == steps:
+        fail(f"phase 17 (b): delta {delta} of collective_calls_total "
+             f"{{kind=allreduce}} against the snapshots' growth {grew} and "
+             f"the {steps} steps")
+    if abs(rate * window - delta) > 1e-9 * max(1.0, delta):
+        fail(f"phase 17 (b): rate {rate} is not delta {delta} over "
+             f"{window} s")
+    if set(snap) != {"counters", "gauges", "histograms",
+                     "pending_collectives", "window_seconds", "timestamp"} \
+            or in_window != [float(steps)] or \
+            snap["window_seconds"] != window:
+        fail(f"phase 17 (b): window_snapshot is not the reference's doctor "
+             f"shape: keys {sorted(snap)}, allreduces {in_window}")
+    sampler.stop()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sampler.sample_once()
+    sample_ms = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"phase 17 (b): the store over the run's {window:.3f} s: delta "
+        f"{delta} allreduces (snapshots {grew}), rate {rate:.4f}/s, "
+        f"{points} points in the series, {store.series_count()} series, "
+        f"window_snapshot of the doctor's shape; a sample takes "
+        f"{sample_ms:.3f} ms (host clock, on {card})")
+
+    # (c) the merge of (a)'s shard
+    hvd.stop_timeline()
+    with open(trace_path) as f:
+        shard = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") != "M"]
+    merged_path = os.path.join(tmp, "trace.merged.json")
+    t0 = time.perf_counter()
+    doc = merge_timelines(trace_path, merged_path, feed_metrics=True)
+    merge_s = time.perf_counter() - t0
+    with open(merged_path) as f:
+        disk = json.load(f)          # valid JSON, or this raises
+    rep = disk["stragglerReport"]
+    names = [e["args"]["name"] for e in disk["traceEvents"]
+             if e.get("ph") == "M" and e["name"] == "process_name"]
+    body = [e for e in disk["traceEvents"] if e.get("ph") != "M"]
+    if names != ["rank 0"] or len(body) != len(shard) or \
+            {e["pid"] for e in body} != {0}:
+        fail(f"phase 17 (c): tracks {names}, {len(body)} events on pids "
+             f"{sorted({e['pid'] for e in body})} for the shard's "
+             f"{len(shard)}")
+
+    def positive(e):
+        op = (e.get("args") or {}).get("op_id")
+        return isinstance(op, int) and op > 0
+
+    execs = sum(1 for e in shard if e["name"] == "EXEC" and positive(e))
+    markers = [e for e in shard if e["name"] == "allreduce_algorithm"]
+    wire = (sum(s["value"] for s in after["counters"].get(
+        "allreduce_wire_bytes_total", []))
+        - sum(s["value"] for s in before["counters"].get(
+            "allreduce_wire_bytes_total", [])))
+    algs = rep["overlap"]["algorithms"]
+    buckets = sum(a["buckets"] for a in algs.values())
+    wire_merged = sum(a["wire_bytes"] for a in algs.values())
+    if rep["overlap"]["by_rank"]["0"]["exec_spans"] != execs:
+        fail(f"phase 17 (c): overlap exec_spans "
+             f"{rep['overlap']['by_rank']['0']['exec_spans']} against the "
+             f"shard's {execs} EXEC events with positive op ids")
+    if buckets != len(markers) or wire_merged != wire or \
+            wire_merged != sum(m["args"]["wire_bytes"] for m in markers):
+        fail(f"phase 17 (c): algorithms {algs} against {len(markers)} "
+             f"markers and allreduce_wire_bytes_total +{wire}")
+    if buckets != steps * run["buckets_per_step"]:
+        fail(f"phase 17 (c): {buckets} algorithm markers, not the "
+             f"{steps} x {run['buckets_per_step']} buckets the steps issued")
+    if rep["collectives"] or rep["ranks"] != [0]:
+        fail(f"phase 17 (c): one rank, yet ranks {rep['ranks']} and "
+             f"{len(rep['collectives'])} collectives in the straggler list")
+    if doc != disk:
+        fail("phase 17 (c): the returned document differs from the file")
+    if _MERGE_GAUGE not in _http(srv.url + "/metrics")[1].decode():
+        fail(f"phase 17 (c): {_MERGE_GAUGE} is not in the next scrape")
+    merge = {"seconds": merge_s, "events": len(disk["traceEvents"]),
+             "exec_spans": execs, "algorithm_markers": len(markers),
+             "algorithms": algs,
+             "overlap_efficiency": rep["overlap"]["overlap_efficiency"]}
+    log(f"phase 17 (c): merged the shard in {merge_s:.4f} s (host clock, "
+        f"on {card}), "
+        f"{len(disk['traceEvents'])} events on one track 'rank 0', "
+        f"{execs} EXEC spans, {len(markers)} allreduce_algorithm markers "
+        f"({steps} steps x {run['buckets_per_step']} buckets: the port marks "
+        f"every bucket it issues), wire bytes {wire_merged}, no collective "
+        f"in the straggler list; overlap_efficiency "
+        f"{merge['overlap_efficiency']} (an estimate from the host's issue "
+        f"spans, not device overlap), and {_MERGE_GAUGE} in the next scrape")
+    srv.stop()
+    hvd.shutdown()
+    torch.cuda.synchronize()
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("hvd-metrics-http", "hvd-ts-sampler"))]
+    if left:
+        fail(f"phase 17: threads still running after stop: {left}")
+
+    # (d) two cards: a merged two-rank world with a planted late rank
+    world = None
+    if torch.cuda.device_count() >= 2:
+        proc = subprocess.run(
+            [sys.executable, "tools/torch_controller_bench.py", "--np", "2",
+             "--late-rank", "1", "--late-ms", str(LATE_MS)],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"phase 17 (d): the two-rank world failed:\n"
+                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        world = json.loads(proc.stdout.strip().splitlines()[-1])["merge"]
+        log(f"phase 17 (d): two ranks merged, rank 1 planted {LATE_MS} ms "
+            f"late: spread {world['planted_spread_seconds']:.6f} s, blame "
+            f"{world['late_rank_blame_seconds']:.6f} s, the other ops "
+            f"every rank issues in one order "
+            f"{world['other_spreads_seconds']} s, the join scenario's "
+            f"largest {world['scenario_spreads_max_seconds']} s, merge "
+            f"{world['merge_seconds']:.4f} s of {world['events']} events "
+            f"(host clock; cards of the kind of {card})")
+    else:
+        log("phase 17 (d): the merged two-rank world with a planted late "
+            "rank did not run for want of a second card (cards: "
+            f"{torch.cuda.device_count()})")
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"step_ms_median": run["step_ms_median"],
+            "phase3_step_ms_median": main_path["step_ms_median"],
+            "phase6_step_ms_median": p6, "losses": run["losses"],
+            "max_loss_diff": max(diffs), "scrape": scrape,
+            "timeseries": {"window_s": window, "delta": delta, "rate": rate,
+                           "points": points, "sample_ms": sample_ms},
+            "merge": merge, "two_rank_world": world,
+            "launches": run["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16; 6, 7 and "
-                         "8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17; 6, 7 "
+                         "and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -5904,6 +6268,7 @@ def main(argv=None) -> int:
         for name, run in new["trained"].items():
             launches[name] = run.pop("launches")
         print(json.dumps({"phase5": new}), flush=True)
+    ctl = None
     if 6 in phases:
         ctl = phase_controller(card, main_path)
         launches["gpt2_medium_controller"] = ctl.pop("launches")
@@ -5961,6 +6326,11 @@ def main(argv=None) -> int:
         launches.update(pp.pop("launches"))
         shapes.update(pp.pop("kernels"))
         print(json.dumps({"phase16": pp}), flush=True)
+    if 17 in phases:
+        obs = phase_observability(card, main_path if 3 in phases else None,
+                                  ctl)
+        launches["gpt2_medium_observed"] = obs.pop("launches")
+        print(json.dumps({"phase17": obs}), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

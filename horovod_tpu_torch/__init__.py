@@ -24,7 +24,13 @@ every eager op: negotiation (a readable error, not a NCCL hang, when ranks
 issue collectives in another order), the timeline (``HOROVOD_TIMELINE`` or
 ``start_timeline``), the metrics registry (``metrics()``,
 ``HOROVOD_METRICS_FILE``) and the stall watchdog
-(``HOROVOD_STALL_CHECK_TIME_SECONDS``). The allreduce algorithm axis
+(``HOROVOD_STALL_CHECK_TIME_SECONDS``). Observability: ``merge_timelines``
+merges the per-rank timeline shards into one trace with a straggler
+report (``trace_merge.py``); ``metrics_http`` starts the live scrape
+endpoint (``/metrics``, ``/metrics.json``, ``/trace``, ``/healthz``,
+``/config``; ``POST /config`` gated by ``HOROVOD_SERVE_AUTH_TOKEN``);
+``timeseries`` keeps windowed series of the registry (``TimeSeriesStore``,
+``LocalSampler``). The allreduce algorithm axis
 (``overlap.py``: ``algorithm=`` ``psum``, ``rs_ag``, ``chunked_rs_ag``,
 their ``_int8`` / ``_fp8`` quantized forms, the ``_2d`` forms over
 ``topology()``, ``swing``, or ``auto``; ``wire=`` and ``overlap_chunks=``;
@@ -74,7 +80,7 @@ from horovod_tpu_torch.core import (
     shutdown, size, topology, topology_str)
 from horovod_tpu_torch import metrics
 from horovod_tpu_torch.metrics import (
-    get_stall_watchdog, reset_metrics, start_metrics_flusher,
+    get_stall_watchdog, metrics_http, reset_metrics, start_metrics_flusher,
     start_stall_watchdog, stop_metrics_flusher, stop_stall_watchdog)
 from horovod_tpu_torch.optimizer import (
     AutotunedStep, DistributedGradientTape, DistributedOptimizer,
@@ -88,7 +94,10 @@ from horovod_tpu_torch.process_set import (
     ProcessSet, add_process_set, get_process_set_ids_and_ranks,
     global_process_set, remove_process_set)
 from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
-from horovod_tpu_torch.timeline import start_timeline, stop_timeline
+from horovod_tpu_torch.timeline import (
+    merge_timelines, start_timeline, stop_timeline)
+# Windowed series over registry snapshots (hvd.timeseries).
+from horovod_tpu_torch import timeseries  # noqa: E402,F401
 # Fault tolerance: elastic states and the run decorator (hvd.elastic), async
 # sharded checkpoints (hvd.checkpoint_sharded), full-state checkpoints
 # (hvd.checkpoint) and the fault plan (hvd.faults).
@@ -133,5 +142,6 @@ __all__ = [
     "DistributedGradientTape", "accumulation_has_updated",
     "broadcast_variables", "grad", "value_and_grad", "ShardedAdamWState",
     "sharded_adamw", "parallel", "mesh2d", "mesh_spec", "dp_size",
-    "mp_size", "dp_rank", "mp_rank",
+    "mp_size", "dp_rank", "mp_rank", "merge_timelines", "metrics_http",
+    "timeseries",
 ]

@@ -57,12 +57,17 @@ not at the first collective.
   ``HOROVOD_ELASTIC_TIMEOUT`` -- seconds (600) of the elastic rendezvous;
   ``HOROVOD_PREEMPTION_NOTICE`` -- seconds (30, at least 0) of notice a
   preempted host gets, the budget a checkpoint cadence is judged against.
+* ``HOROVOD_SERVE_AUTH_TOKEN`` -- the shared secret that gates
+  ``POST /config`` on the scrape endpoint (``metrics.metrics_http``): at
+  least 8 characters, refused otherwise, and never echoed (not in an
+  error, not in the config's ``repr``). The reference's transport hello
+  reads it too (ROADMAP.md section A item 10).
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 __all__ = ["Config", "get_config", "refresh"]
@@ -127,6 +132,7 @@ class Config:
     elastic_timeout_seconds: float = 600.0
     preemption_notice_seconds: float = 30.0
     fault_plan: str = ""
+    serve_auth_token: str = field(default="", repr=False)
 
 
 def _env_algorithm() -> str:
@@ -205,6 +211,17 @@ def _env_fault_plan() -> str:
     return v
 
 
+def _env_auth_token() -> str:
+    # Shared secret of POST /config (and of the reference's transport
+    # hello). Validated for plausibility here but NEVER echoed: error
+    # messages and the config's repr must not leak the value.
+    v = os.environ.get("HOROVOD_SERVE_AUTH_TOKEN", "").strip()
+    if v and len(v) < 8:
+        raise ValueError("HOROVOD_SERVE_AUTH_TOKEN: token too short "
+                         "(need >= 8 characters; value not shown)")
+    return v
+
+
 def _read() -> Config:
     world = _env_int("WORLD_SIZE", 1)
     rank = _env_int("RANK", 0)
@@ -264,7 +281,8 @@ def _read() -> Config:
         elastic_timeout_seconds=_env_float("HOROVOD_ELASTIC_TIMEOUT", 600.0),
         preemption_notice_seconds=max(
             0.0, _env_float("HOROVOD_PREEMPTION_NOTICE", 30.0)),
-        fault_plan=_env_fault_plan())
+        fault_plan=_env_fault_plan(),
+        serve_auth_token=_env_auth_token())
 
 
 _CONFIG: Optional[Config] = None

@@ -27,8 +27,23 @@ Public surface (also ``hvd.metrics()`` / ``hvd.reset_metrics``):
   pending-collective table, the arrival records): a thread that touched
   CUDA or ``torch.distributed`` could deadlock against the NCCL stream.
 
-Not ported yet (ROADMAP.md section A item 9): the live scrape endpoint
-(``MetricsHTTPServer`` / ``metrics_http``) and the watchdog's hand-off to
+* :func:`metrics_http` / :class:`MetricsHTTPServer` -- the live scrape
+  endpoint (``hvd.metrics_http``): ``/metrics`` for Prometheus,
+  ``/metrics.json``, ``/trace``, ``/healthz``, ``/config`` and
+  ``POST /config`` (gated by ``HOROVOD_SERVE_AUTH_TOKEN``). Its threads
+  read the registry only. Nothing starts it but a call: not ``init()``.
+  Where the module behind a route is not ported yet (``serving.reqtrace``,
+  ``health``, ``confbus``) the route gives the reference's own fallback;
+  ``/doctor`` answers 501 until the profiler is ported (ROADMAP.md
+  section A item 9b, section C).
+
+A snapshot copies the series maps under the registry's lock and reads
+the values outside it, each histogram in one acquisition of its own lock,
+so a scrape taken while a step writes never shows a histogram whose count
+disagrees with its buckets (counters only grow, so no counter reads below
+an earlier scrape's either).
+
+Not ported yet (ROADMAP.md section A item 9): the watchdog's hand-off to
 the profiler and the flight recorder. Importing this module starts no
 thread: ``init()`` starts the watchdog and the flusher.
 """
@@ -59,6 +74,7 @@ __all__ = [
     "get_stall_watchdog",
     "LATENCY_BUCKETS", "SIZE_BUCKETS", "RATIO_BUCKETS",
     "SERVE_LATENCY_BUCKETS", "on_init", "on_shutdown",
+    "MetricsHTTPServer", "metrics_http",
 ]
 
 # Fixed bucket edges (upper bounds, seconds / bytes / ratio). Fixed — not
@@ -164,14 +180,21 @@ class Histogram:
             return self._sum
 
     def cumulative(self) -> List[Tuple[float, int]]:
-        """[(upper_bound, cumulative_count)] including the +Inf bucket."""
+        """[(upper_bound, cumulative_count)] including the +Inf bucket
+        (the reference's public API; the port's own readers use
+        :meth:`state`)."""
+        return self.state()[2]
+
+    def state(self) -> Tuple[int, float, List[Tuple[float, int]]]:
+        """``(count, sum, cumulative())`` read in one acquisition of the
+        lock: the +Inf bucket always equals the count."""
         with self._lock:
-            counts = list(self._counts)
+            count, total, counts = self._count, self._sum, list(self._counts)
         out, running = [], 0
         for le, c in zip(list(self.buckets) + [float("inf")], counts):
             running += c
             out.append((le, running))
-        return out
+        return count, total, out
 
 
 def _label_key(labels: Dict[str, Any]) -> Tuple[Tuple[str, str], ...]:
@@ -250,10 +273,12 @@ class Registry:
                 {"labels": dict(k), "value": m.value}
                 for k, m in sorted(series.items())]
         for n, series in hists.items():
-            out["histograms"][n] = [
-                {"labels": dict(k), "count": m.count, "sum": m.sum,
-                 "buckets": [[le, c] for le, c in m.cumulative()]}
-                for k, m in sorted(series.items())]
+            rows = []
+            for k, m in sorted(series.items()):
+                count, total, cum = m.state()
+                rows.append({"labels": dict(k), "count": count, "sum": total,
+                             "buckets": [[le, c] for le, c in cum]})
+            out["histograms"][n] = rows
         out["pending_collectives"] = pending_collectives()
         return out
 
@@ -887,6 +912,201 @@ def on_shutdown() -> None:
     stop_stall_watchdog()
     stop_metrics_flusher(final_write=True)
 
+
+# ---------------------------------------------------------------------------
+# live scrape endpoint (hvd.metrics_http)
+# ---------------------------------------------------------------------------
+
+class MetricsHTTPServer:
+    """Tiny stdlib HTTP endpoint for live scraping (the reference's,
+    ``horovod_tpu/metrics.py:935``).
+
+    ``GET /metrics`` (and ``/``) returns :func:`to_prometheus` (text
+    exposition 0.0.4) -- what Prometheus scrapes instead of tailing
+    ``HOROVOD_METRICS_FILE``. ``GET /metrics.json`` is the same snapshot as
+    :func:`to_json`. ``GET /trace`` returns the request-trace span buffer
+    as a Chrome-trace document (empty ``traceEvents`` until request
+    tracing is ported, ROADMAP.md section A item 10). ``GET /healthz``
+    answers 200/503 from the health plane's alerts (``{"status": "ok",
+    "ok": true, "alerts": []}`` until it is ported, item 9c). ``GET
+    /config`` serves the config bus's view (``{"epoch": 0, "values": {}}``
+    until then); ``POST /config`` applies one ``confbus.set_config``
+    mutation, gated on ``HOROVOD_SERVE_AUTH_TOKEN`` (403 with no token
+    configured, 401 on a mismatch, 400 on a malformed body, 500 while the
+    config bus is absent -- the token is never echoed). ``GET /doctor``
+    serves the doctor's report; until the profiler is ported (item 9b) it
+    answers 501 with a JSON error naming the missing module, where the
+    reference would drop the connection. Unknown paths 404. Requests are
+    not logged. Serves on daemon threads that read the registry only;
+    :meth:`stop` shuts it down."""
+
+    def __init__(self, port: int = 0, host: str = "127.0.0.1"):
+        import http.server
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self) -> None:           # noqa: N802 -- stdlib API
+                path = self.path.split("?", 1)[0]
+                code = 200
+                if path in ("/metrics", "/"):
+                    body = to_prometheus().encode("utf-8")
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                elif path == "/metrics.json":
+                    body = to_json().encode("utf-8")
+                    ctype = "application/json"
+                elif path == "/trace":
+                    try:
+                        from horovod_tpu_torch.serving import reqtrace
+                        evs = reqtrace.events()
+                    except Exception:
+                        evs = []
+                    body = json.dumps(
+                        {"traceEvents": evs, "displayTimeUnit": "ms"},
+                        default=str).encode("utf-8")
+                    ctype = "application/json"
+                elif path == "/doctor":
+                    try:
+                        from horovod_tpu_torch import health as _health
+                        rep = _health.last_report()
+                    except Exception:
+                        rep = None
+                    if rep is None:
+                        try:
+                            from horovod_tpu_torch import (
+                                profiler as _profiler)
+                        except ImportError as e:
+                            self._reply(501, {
+                                "ok": False,
+                                "error": "/doctor needs "
+                                         "horovod_tpu_torch.profiler, not "
+                                         "ported yet (ROADMAP.md section "
+                                         f"A item 9b): {e}"})
+                            return
+                        rep = _profiler.doctor()
+                    body = json.dumps(rep, default=str).encode("utf-8")
+                    ctype = "application/json"
+                elif path == "/healthz":
+                    try:
+                        from horovod_tpu_torch import health as _health
+                        verdict = _health.healthz()
+                    except Exception:
+                        verdict = {"status": "ok", "ok": True, "alerts": []}
+                    code = 200 if verdict.get("ok", True) else 503
+                    body = json.dumps(verdict, default=str).encode("utf-8")
+                    ctype = "application/json"
+                elif path == "/config":
+                    try:
+                        from horovod_tpu_torch import confbus
+                        view = confbus.config_view()
+                    except Exception:
+                        view = {"epoch": 0, "values": {}}
+                    body = json.dumps(view, default=str).encode("utf-8")
+                    ctype = "application/json"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_POST(self) -> None:          # noqa: N802 -- stdlib API
+                path = self.path.split("?", 1)[0]
+                if path != "/config":
+                    self.send_error(404)
+                    return
+                # Mutations over HTTP are gated on the shared secret: no
+                # token configured means the write surface is OFF (403),
+                # and a mismatched token is 401. The token value itself
+                # is never echoed in any reply.
+                import hmac as _hmac
+                from horovod_tpu_torch.config import get_config as _cfg
+                token = _cfg().serve_auth_token
+                if not token:
+                    self._reply(403, {
+                        "ok": False,
+                        "error": "POST /config disabled: no "
+                                 "HOROVOD_SERVE_AUTH_TOKEN configured"})
+                    return
+                got = self.headers.get("X-Auth-Token", "")
+                if not _hmac.compare_digest(got, token):
+                    self._reply(401, {"ok": False,
+                                      "error": "bad auth token"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                except (ValueError, OSError):
+                    self._reply(400, {"ok": False,
+                                      "error": "malformed JSON body"})
+                    return
+                try:
+                    from horovod_tpu_torch import confbus
+                    res = confbus.set_config(
+                        str(req.get("name")), req.get("value"),
+                        reason=str(req.get("reason") or ""),
+                        origin="http")
+                except Exception as e:   # noqa: BLE001 -- typed reply
+                    self._reply(500, {"ok": False,
+                                      "error": f"set_config: {e!r}"})
+                    return
+                # Refusals/rejections are 200s with the typed result --
+                # policy answers, not HTTP failures.
+                self._reply(200, res)
+
+            def _reply(self, code: int, doc) -> None:
+                body = json.dumps(doc, default=str).encode("utf-8")
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args) -> None:
+                pass                            # scrapes are not stderr news
+
+            def log_error(self, *args) -> None:
+                pass                            # 404s included: a collector
+                                                # probing a restarting
+                                                # process is routine
+
+        self._httpd = http.server.ThreadingHTTPServer((host, port),
+                                                      _Handler)
+        self._httpd.daemon_threads = True
+        self.host, self.port = self._httpd.server_address[:2]
+        self.url = f"http://{self.host}:{self.port}"
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True,
+                                        name=f"hvd-metrics-http-{self.port}")
+        self._thread.start()
+
+    def stop(self) -> None:
+        try:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        except Exception:
+            pass
+        self._thread.join(timeout=5)
+
+
+def metrics_http(port: int = 0, host: str = "127.0.0.1", *,
+                 fallback_ports: int = 0) -> MetricsHTTPServer:
+    """Start the live scrape endpoint (``hvd.metrics_http``).
+
+    ``port=0`` binds an ephemeral port (the server object's ``.port``
+    says which). ``fallback_ports=k`` retries ``port+1 .. port+k`` when
+    the requested port is taken, so co-hosted processes under one port
+    base do not collide. Raises ``OSError`` when nothing in the range
+    binds."""
+    last: Optional[OSError] = None
+    for p in range(port, port + max(0, int(fallback_ports)) + 1):
+        try:
+            return MetricsHTTPServer(p, host)
+        except OSError as e:
+            last = e
+            if port == 0:
+                break
+    raise last if last is not None else OSError("metrics_http: no port")
 
 
 # ``hvd.metrics`` must be BOTH this submodule (so ``from

@@ -11,9 +11,10 @@ The timeline records what the host does. EXEC is the host's issue of the
 ``torch.distributed`` work, which NCCL runs asynchronously on the device;
 device time is for ``torch.profiler``.
 
-Not ported yet (ROADMAP.md section A item 9): the reference's native C
-appender, ``merge_timelines`` (its ``trace_merge.py``) and the profiler
-passthroughs ``start_profiler`` / ``stop_profiler``.
+:func:`merge_timelines` merges the per-rank shards into one trace with a
+straggler report (``trace_merge.py``). Not ported yet (ROADMAP.md section
+A item 9): the reference's native C appender (9d) and the profiler
+passthroughs ``start_profiler`` / ``stop_profiler`` (9b).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Optional
 
 __all__ = ["Timeline", "init_timeline", "get_timeline", "shutdown_timeline",
            "start_timeline", "stop_timeline", "shard_path",
-           "emit_clock_anchor", "add_tap", "remove_tap"]
+           "emit_clock_anchor", "add_tap", "remove_tap",
+           "merge_timelines"]
 
 _LOCK = threading.Lock()
 _TIMELINE: Optional["Timeline"] = None
@@ -240,3 +242,11 @@ def start_timeline(path: str, mark_cycles: bool = False) -> None:
 def stop_timeline() -> None:
     """``hvd.stop_timeline``."""
     shutdown_timeline()
+
+
+def merge_timelines(inputs, output: Optional[str] = None, **kwargs):
+    """Merge per-rank timeline shards into one Chrome trace with per-rank
+    tracks and a straggler report (``hvd.merge_timelines``); see
+    :func:`horovod_tpu_torch.trace_merge.merge_timelines`."""
+    from horovod_tpu_torch.trace_merge import merge_timelines as _merge
+    return _merge(inputs, output, **kwargs)

@@ -16,7 +16,7 @@ cross-rank story. This module is that correlation layer:
   each layer emits timeline phase events (``NEGOTIATE`` / ``QUEUE`` /
   ``EXEC``) carrying ``op_id`` + ``process_set`` + ``tensor`` args, so
   a merge of the rank shards can compute per-collective arrival spread and
-  straggler blame (the reference's ``trace_merge.py``, not yet ported).
+  straggler blame (``trace_merge.py``, ``hvd.merge_timelines``).
 * :func:`active_span` / :func:`current_span` expose the in-flight span to
   layers that cannot take it as an argument (the fusion planner stamps its
   flush events with it).

@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "tools").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:
@@ -102,14 +103,18 @@ LONG_CONTEXT_MODULES = ["horovod_tpu_torch.ops.ring_attention",
                         "horovod_tpu_torch.ops.sequence",
                         "horovod_tpu_torch.ops.attention"]
 
+OBSERVABILITY_MODULES = ["horovod_tpu_torch.trace_merge",
+                         "horovod_tpu_torch.timeseries"]
+
 
 @pytest.mark.parametrize("module", COLLECTIVE_DEPTH_MODULES
-                         + LONG_CONTEXT_MODULES)
+                         + LONG_CONTEXT_MODULES + OBSERVABILITY_MODULES)
 def test_collective_depth_modules_load_no_jax_and_build_nothing(tmp_path,
                                                                 module):
-    """The algorithm axis, the quantized wire, the tuner, the topology and
-    the sequence-parallel attention (rings, Ulysses) import alone with no
-    JAX, no module of ``horovod_tpu``, no thread and no nvcc."""
+    """The algorithm axis, the quantized wire, the tuner, the topology,
+    the sequence-parallel attention (rings, Ulysses), the shard merge and
+    the time-series store import alone with no JAX, no module of
+    ``horovod_tpu``, no thread and no nvcc."""
     build = tmp_path / "kernels"
     code = textwrap.dedent(f"""
         import importlib, sys, threading
@@ -204,6 +209,34 @@ def test_import_starts_no_thread_and_init_starts_the_watchdog(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "OK" in r.stdout
+
+
+def test_init_starts_no_scrape_endpoint(tmp_path):
+    """``metrics_http`` serves only when called: ``init()`` starts the
+    watchdog, never the HTTP endpoint or a sampler."""
+    code = textwrap.dedent(f"""
+        import sys, threading
+        sys.path.insert(0, {str(REPO)!r})
+        import horovod_tpu_torch as hvd
+        hvd.init(device="cpu")
+        names = sorted(t.name for t in threading.enumerate())
+        hvd.shutdown()
+        srv = hvd.metrics_http(0)
+        started = sorted(t.name for t in threading.enumerate())
+        srv.stop()
+        print("AT_INIT", names, "CALLED", started)
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "RANK", "WORLD_SIZE", "MASTER_",
+                                "LOCAL_"))}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    at_init = r.stdout.split("AT_INIT")[1].split("CALLED")[0]
+    assert "hvd-stall-watchdog" in at_init
+    assert "hvd-metrics-http" not in at_init and "hvd-ts-sampler" not in \
+        at_init
+    assert "hvd-metrics-http-" in r.stdout.split("CALLED")[1]
 
 
 def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -26,10 +26,23 @@ every rank:
    raise, with no data-plane call (``torch.distributed`` work on a group
    other than the control group) issued in that op.
 
-Prints one JSON line: the checks, the times, and each shard's op ids. Exit
-code 0 when every check holds. ``chip_smoke.py`` phase 6 runs it with
-``--np 2`` where the machine has two cards; ``tests/test_torch_port_card.py``
-runs it on two and four cards.
+With ``--late-rank R --late-ms M``, rank R sleeps M ms before one named
+allreduce (``late/planted``, after a ``sync`` allreduce), right after the
+two named ones. The shards are then merged
+(``trace_merge.merge_timelines``) and checked: the ops every rank issues
+in one order (the named ones and, with the plant, ``sync`` and
+``late/planted``) carry the same op ids and phases on every rank's track,
+and with the plant R is that op's ``last_rank`` and is blamed at least M
+ms. The merge's seconds, its events, the planted op's spread, the
+spreads of the other ops every rank issues in one order and the largest
+spread of the join scenario's ops (ranks join at different steps there by
+design) are printed. ``chip_smoke.py``
+phase 17 (d) runs ``--np 2 --late-rank 1 --late-ms 50`` with two cards.
+
+Prints one JSON line: the checks, the times, each shard's op ids and the
+merge. Exit code 0 when every check holds. ``chip_smoke.py`` phase 6 runs
+it with ``--np 2`` where the machine has two cards;
+``tests/test_torch_port_card.py`` runs it on two and four cards.
 
 ``--model gpt2_medium|resnet50 [--steps K]`` instead trains a model on the
 N-rank NCCL world through the controller, each rank on its own batch:
@@ -69,7 +82,8 @@ def _median_us(fn, reps):
     return statistics.median(times)
 
 
-def worker(device: str, out_dir: str) -> None:
+def worker(device: str, out_dir: str, late_rank=None,
+           late_ms: float = 50.0) -> None:
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
@@ -101,6 +115,13 @@ def worker(device: str, out_dir: str) -> None:
 
     for i in range(WARM):
         hvd.allreduce(torch.full((3,), float(r), device=dev), name=f"warm{i}")
+    if late_rank is not None:
+        # Both ranks leave sync's negotiation round together; the planted
+        # rank then arrives late_ms after the others at late/planted.
+        hvd.allreduce(torch.ones(1, device=dev), name="sync")
+        if r == late_rank:
+            time.sleep(late_ms / 1e3)
+        hvd.allreduce(torch.ones(8, device=dev), name="late/planted")
 
     row = np.zeros(8, np.int32)
     res["control_allgather_us"] = _median_us(
@@ -259,15 +280,71 @@ def run_model(nranks: int, name: str, steps: int,
     return {"model": name, "ranks": nranks, "ok": ok, "per_rank": ranks}
 
 
-def run(nranks: int, device: str = "cuda", timeout: float = 300.0) -> dict:
-    """Spawn the world, check the shards, return the summary."""
+def merge_shards(base: str, nranks: int, late_rank=None,
+                 late_ms: float = 50.0) -> tuple:
+    """Merge the world's shards; returns ``(checks, summary)``."""
+    sys.path.insert(0, REPO)
+    from horovod_tpu_torch.trace_merge import merge_timelines
+    t0 = time.perf_counter()
+    doc = merge_timelines(base, feed_metrics=False)
+    merge_s = time.perf_counter() - t0
+    rep = doc["stragglerReport"]
+    # The ops every rank issues in one order (the join scenario and the
+    # mismatch that follow them differ between ranks by design).
+    common = {f"warm{i}" for i in range(WARM)} | {"sync", "late/planted"}
+    tracks: dict = {}
+    for e in doc["traceEvents"]:
+        args = e.get("args") or {}
+        if e.get("cat") == "phase" and args.get("tensor") in common:
+            tracks.setdefault(e["pid"], []).append((args["op_id"],
+                                                    e["name"]))
+    checks = {"merge_ranks": rep["ranks"] == list(range(nranks)),
+              "merge_op_ids_line_up": len(tracks) == nranks and all(
+                  sorted(t) == sorted(tracks[0]) for t in tracks.values())}
+    spreads = {c["tensor"]: c["spread_seconds"] for c in rep["collectives"]}
+    scenario = sorted(v for k, v in spreads.items() if k not in common)
+    summary = {"merge_seconds": merge_s, "events": len(doc["traceEvents"]),
+               "collectives": len(rep["collectives"]),
+               "blame_seconds_by_rank": rep["blame_seconds_by_rank"],
+               "scenario_spreads_max_seconds": scenario[-1] if scenario
+               else None,
+               "overlap_efficiency": rep["overlap"]["overlap_efficiency"],
+               "warnings": rep.get("warnings", [])}
+    if late_rank is not None:
+        planted = next((c for c in rep["collectives"]
+                        if c["tensor"] == "late/planted"), None)
+        blame = rep["blame_seconds_by_rank"].get(str(late_rank), 0.0)
+        checks["late_rank_is_last"] = planted is not None and \
+            planted["last_rank"] == late_rank
+        checks["late_rank_blamed"] = blame >= late_ms / 1e3
+        # the planted op itself, not the blame summed over every op
+        checks["planted_spread_reaches_delay"] = planted is not None and \
+            planted["spread_seconds"] >= 0.9 * late_ms / 1e3
+        others = sorted(v for k, v in spreads.items()
+                        if k in common and k != "late/planted")
+        summary.update(
+            late_rank=late_rank, late_ms=late_ms,
+            planted_spread_seconds=planted and planted["spread_seconds"],
+            planted_last_rank=planted and planted["last_rank"],
+            late_rank_blame_seconds=blame,
+            other_spreads_seconds=others,
+            other_spread_median_seconds=(statistics.median(others)
+                                         if others else None))
+    return checks, summary
+
+
+def run(nranks: int, device: str = "cuda", timeout: float = 300.0,
+        late_rank=None, late_ms: float = 50.0) -> dict:
+    """Spawn the world, check and merge the shards, return the summary."""
+    late = [] if late_rank is None else ["--late-rank", str(late_rank),
+                                         "--late-ms", str(late_ms)]
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, HOROVOD_TIMELINE=os.path.join(tmp, "t.json"),
                    OMP_NUM_THREADS="1")
         proc = subprocess.run(
             [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
              str(nranks), "--timeout", str(int(timeout)),
-             os.path.abspath(__file__), "--worker", device, tmp],
+             os.path.abspath(__file__), "--worker", device, tmp] + late,
             cwd=REPO, env=env, capture_output=True, text=True,
             timeout=timeout + 60)
         if proc.returncode != 0:
@@ -283,8 +360,11 @@ def run(nranks: int, device: str = "cuda", timeout: float = 300.0) -> dict:
                 (e["args"]["op_id"], e["name"]) for e in evs
                 if e.get("cat") == "phase"
                 and str(e["args"].get("tensor", "")).startswith("warm")))
+        merge_checks, merge = merge_shards(os.path.join(tmp, "t.json"),
+                                           nranks, late_rank, late_ms)
     checks = {f"rank{x['rank']}_{k}": v for x in ranks
               for k, v in x["checks"].items()}
+    checks.update(merge_checks)
     checks["shards_line_up"] = all(s == shards[0] for s in shards)
     checks["shard_op_ids"] = shards[0] == sorted(
         (i + 1, p) for i in range(WARM)
@@ -295,6 +375,7 @@ def run(nranks: int, device: str = "cuda", timeout: float = 300.0) -> dict:
                 "negotiation_full_us", "allreduce_all_active_ms"):
         out[key] = [x[key] for x in ranks]
     out["allreduce_serviced_ms"] = ranks[-1]["allreduce_serviced_ms"]
+    out["merge"] = merge
     return out
 
 
@@ -304,6 +385,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--model", choices=("gpt2_medium", "resnet50"))
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--late-rank", type=int, default=None,
+                    help="rank that arrives late at late/planted")
+    ap.add_argument("--late-ms", type=float, default=50.0,
+                    help="how late, in milliseconds (default 50)")
     ap.add_argument("--worker", nargs=2, metavar=("DEVICE", "OUT_DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--model-worker", nargs=3,
@@ -311,7 +396,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(*args.worker)
+        worker(*args.worker, late_rank=args.late_rank, late_ms=args.late_ms)
         return 0
     if args.model_worker:
         name, steps, out_dir = args.model_worker
@@ -321,7 +406,12 @@ def main(argv=None) -> int:
         sys.path.insert(0, REPO)
         out = run_model(args.np, args.model, args.steps)
     else:
-        out = run(args.np, args.device)
+        if args.late_rank is not None and \
+                not 0 <= args.late_rank < args.np:
+            ap.error(f"--late-rank {args.late_rank} is not a rank of "
+                     f"--np {args.np}")
+        out = run(args.np, args.device, late_rank=args.late_rank,
+                  late_ms=args.late_ms)
     print(json.dumps(out), flush=True)
     return 0 if out["ok"] else 1
 
