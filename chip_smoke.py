@@ -319,7 +319,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    parsed, no counter series lower than at the scrape before it, and once
    the steps end ``/metrics`` is ``to_prometheus()`` byte for byte and
    ``/metrics.json`` ``to_json()``; ``/trace``, ``/healthz`` and
-   ``/config`` give the reference's fallbacks, ``/doctor`` 501, an unknown
+   ``/config`` give the reference's fallbacks, ``/doctor`` 200 with
+   ``hvd.doctor()``'s findings, an unknown
    path 404 and ``POST /config`` 403 (401 where a token is configured); the
    median step ms beside phases 3 and 6, and the scrapes' median and
    maximum ms; (b) the store's ``delta`` of ``collective_calls_total
@@ -337,14 +338,45 @@ Phases, in order; any failure exits nonzero and prints no result:
    its shards merged, op ids lined up, rank 1 the planted op's last rank
    and blamed at least 50 ms; with one card a line says it did not run.
    Without phase 3 it runs phase 3's path itself first.
+18. The profiler and the doctor, on a new one-rank NCCL world, around
+   phase 3's GPT-2 medium: (a) its step through
+   ``hvd.profiler.instrument(..., model_flops=F, timed=True)`` (F the
+   model FLOPs of phase 3's share of the bound) for 5 steps: phase 3's
+   losses bit for bit, 24 launches of each kernel a step, compiles 1 and
+   recompiles 0, the first call's cost capture exactly 6 x (macs +
+   head_macs) dense FLOPs from ``FlopCounterMode`` plus 4·d, 6·d and 8·d a
+   visible pair from the kernels' tally, ``program_mfu`` the share of the
+   tensor-core bound at the same step time and ``program_hfu`` above it,
+   the captured peak between the parameters plus AdamW's state and the
+   card; then one planted call at B 4: one recompile blamed on ``tokens``
+   (``recompile_blame_total`` and one ``recompile`` marker in the
+   timeline); a packed, masked flash call at GPT-2 medium's attention
+   shape peaks no higher under a cost capture than without, which counts
+   its pairs exactly; (b) ``hvd.profile()`` around one step, its Chrome
+   trace holding each flash kernel's device events 24 times and the
+   step's NCCL allreduces (kernels with two ranks or more, host ops with
+   one); under ``HOROVOD_PROFILE_ON_STALL=1`` a stall planted as phase
+   6's while steps run fires exactly one triggered capture, which the
+   next step's poll starts on the training thread and which holds every
+   flash kernel 24 times for each step that ran wholly inside its window
+   (the forward from the training thread, the backward from autograd's);
+   a second trigger is refused while it runs; a manual capture preempts
+   a 600 s trigger; each capture's seconds and trace bytes; (c) ``check_memory_pressure`` a fraction in (0, 1) with its
+   gauges, one ``memory_pressure`` event from two checks at threshold 0,
+   the live-buffer census at least the parameters' bytes; (d)
+   ``hvd.doctor()`` ranks the planted recompile (naming ``tokens``) and the
+   memory pressure, ``format_report`` renders every finding, ``/doctor``
+   answers 200 with the same findings, ``doctor_window`` over a
+   ``LocalSampler`` store has the reference's report shape. Without phase
+   3 it runs phase 3's path itself first.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
 (a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
-phase 12's, phase 13's, phase 14's, phase 15's, phase 16's and phase 17's
-paths, each counted from 0 just
+phase 12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's
+and phase 18's paths, each counted from 0 just
 before the path and read just after) and their sum, and its numbers at
 each new path's shape (phases 5, 9, 10 (a), 13, 14 and 16). The last line is
 ``{"ok": true,
@@ -354,7 +386,7 @@ its own run without remat); ``--phases 1,10`` runs phase 10 alone;
 ``--phases 1,11`` phase 11 alone; ``--phases 1,12`` phase 12 alone;
 ``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone;
 ``--phases 1,15`` phase 15 alone; ``--phases 1,16`` phase 16 alone;
-``--phases 1,17`` phase 17 alone.
+``--phases 1,17`` phase 17 alone; ``--phases 1,18`` phase 18 alone.
 """
 
 from __future__ import annotations
@@ -6060,9 +6092,11 @@ def phase_observability(card, main_path, controller):
             fail(f"phase 17 (a): {path} answered {code} {body[:200]!r}, "
                  f"not the fallback {want_route}")
     code, body, _ = _http(srv.url + "/doctor")
-    if code != 501 or "horovod_tpu_torch.profiler" not in \
-            json.loads(body).get("error", ""):
-        fail(f"phase 17 (a): /doctor answered {code} {body[:200]!r}")
+    doctor_now = json.loads(json.dumps(hvd.doctor(), default=str))
+    if code != 200 or json.loads(body)["findings"] != \
+            doctor_now["findings"]:
+        fail(f"phase 17 (a): /doctor answered {code} {body[:200]!r}, not "
+             f"hvd.doctor()'s report")
     if _http(srv.url + "/no/such/route")[0] != 404:
         fail("phase 17 (a): an unknown path did not answer 404")
     code, body, _ = _http(srv.url + "/config", data=b'{"name": "x"}')
@@ -6081,7 +6115,8 @@ def phase_observability(card, main_path, controller):
         f"scrapes ({counts}), every one 200, parsed, no counter backwards, "
         f"{scrape['median_ms']:.2f} ms median, {scrape['max_ms']:.2f} ms max "
         f"(host clock); routes and fallbacks as the reference's, /doctor "
-        f"501, POST /config {401 if token else 403}; on {card}")
+        f"200 with hvd.doctor()'s {len(doctor_now['findings'])} findings, "
+        f"POST /config {401 if token else 403}; on {card}")
 
     # (b) the time series
     window = t_end - t_start
@@ -6231,13 +6266,425 @@ def phase_observability(card, main_path, controller):
             "launches": run["launches"]}
 
 
+# ---------------------------------------------------------------- phase 18
+
+PROFILE_SECONDS = 1.5     # (b)'s triggered capture
+STALL_TIMEOUT_S = 0.2     # (b)'s watchdog, as phase 6's
+PREEMPT_LIMIT_S = 60.0    # (b): a manual capture must stop a 600 s trigger
+_FLASH_NAMES = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
+                "flash_bwd_dkv": "flash_bwd_dkv_"}
+
+
+def _trace_kernels(logdir):
+    """Of the Chrome trace a capture wrote into ``logdir``: its device
+    kernel events, the flash kernels' by kernel, the NCCL kernels', the
+    host's NCCL allreduce ops (names holding "allreduce" or "all_reduce"
+    outside the device rows), the trace's bytes and the session's window
+    on the host's wall clock (ns since the epoch: Kineto's base time plus
+    the session span's start and its "Record Window End")."""
+    import glob
+    import os
+    paths = glob.glob(os.path.join(logdir, "trace.*.json"))
+    if len(paths) != 1:
+        fail(f"phase 18: capture {logdir} holds {paths}, not one trace")
+    with open(paths[0]) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    spans = [e["ts"] for e in evs if e.get("cat") == "Trace"]
+    ends = [e["ts"] for e in evs if e.get("name") == "Record Window End"]
+    window = None
+    if len(spans) == 1 and len(ends) == 1 and "baseTimeNanoseconds" in doc:
+        window = tuple(doc["baseTimeNanoseconds"] + int(ts * 1e3)
+                       for ts in (spans[0], ends[0]))
+    kernels = [e["name"] for e in evs if e.get("cat") == "kernel"]
+    flash = {k: sum(1 for n in kernels if pat in n)
+             for k, pat in _FLASH_NAMES.items()}
+    nccl = sum(1 for n in kernels if "nccl" in n.lower())
+    host = [e["name"] for e in evs if e.get("cat") != "kernel" and any(
+        w in str(e.get("name", "")).lower() for w in ("allreduce",
+                                                      "all_reduce"))]
+    return {"kernels": len(kernels), "flash": flash, "nccl": nccl,
+            "nccl_host_ops": len(host), "nccl_host_names": sorted(set(host)),
+            "bytes": os.path.getsize(paths[0]), "window_ns": window}
+
+
+def _packed_capture_peak(dev, profiler, fa):
+    """Phase 18 (a): GPT-2 medium's attention (B 8, T 1024, 16 heads, d 64,
+    bf16), causal, packed four sequences a row with the last 64 keys
+    padded, forward and backward, plain and then under a
+    ``CostCapture``. The capture counts the masked, packed pairs from the
+    (B, T) ids and bias on the host, so it must not raise the card's peak.
+    Returns (peak bytes above the start of each call, the capture)."""
+    import contextlib
+    import torch
+    b, t, h, d, segs, pad = 8, 1024, 16, 64, 4, 64
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(b, t, h, d, device=dev, generator=g)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    seg = (torch.arange(t, device=dev) // (t // segs)).repeat(b, 1)
+    bias = torch.zeros(b, t, device=dev)
+    bias[:, -pad:] = -1e30
+    peaks = []
+    for captured in (False, True):
+        for x in (q, k, v):
+            x.grad = None
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        m0 = torch.cuda.memory_allocated(dev)
+        cap = profiler.CostCapture() if captured else contextlib.nullcontext()
+        with cap:
+            out = fa.flash_attention(q, k, v, causal=True, key_bias=bias,
+                                     segment_ids=seg)
+            out.float().sum().backward()
+            del out
+        torch.cuda.synchronize(dev)
+        peaks.append(torch.cuda.max_memory_allocated(dev) - m0)
+    # Each segment's causal triangle; the last segment's queries see no
+    # padded key.
+    n = t // segs
+    last = sum(min(i, t - pad - 1) - (t - n) + 1 for i in range(t - n, t))
+    pairs = b * h * ((segs - 1) * n * (n + 1) // 2 + last)
+    want = {kern: fa.FLOPS_PER_PAIR[kern] * d * pairs for kern in fa.KERNELS}
+    if peaks[0] != peaks[1] or cap.kernel_flops != want:
+        fail(f"phase 18 (a): a packed, masked flash call peaked {peaks[0]} "
+             f"bytes plain and {peaks[1]} under a cost capture (must be "
+             f"equal); the capture counted {cap.kernel_flops}, not {want}")
+    return peaks, cap
+
+
+def phase_profiler(card, main_path):
+    """Phase 18: the profiler and the doctor around phase 3's GPT-2 medium on
+    a new one-rank NCCL world: (a) the instrumented step, (b) captures, (c)
+    memory accounting, (d) the doctor. Without phase 3 it runs phase 3's
+    path itself first."""
+    import os
+    import tempfile
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import config, metrics, profiler, timeseries
+    from horovod_tpu_torch.models.gpt2 import loss_fn
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
+    t_phase = time.perf_counter()
+    if main_path is None:
+        main_path = phase_main_path(card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase18_")
+    trace_path = os.path.join(tmp, "trace.json")
+    hvd.start_timeline(trace_path)
+    hvd.init()
+    if hvd.backend() != "nccl" or hvd.size() != 1:
+        fail(f"expected a one-rank NCCL world, got {hvd.backend()} "
+             f"x {hvd.size()}")
+    metrics.reset_metrics()
+    profiler.registry.reset()
+    store = timeseries.TimeSeriesStore(max_points=SAMPLE_POINTS)
+    sampler = timeseries.LocalSampler(store)
+    t_window = time.time()
+    sampler.sample_once(ts=t_window)
+    dev = hvd.device()
+    model, opt, _, info = build_path("gpt2_medium", dev)
+    cfg, tokens = model.cfg, info["inputs"]
+    b, h, t, causal = info["attention"]
+    hd = cfg.d_model // cfg.num_heads
+    macs = _conv_macs(model, tokens)
+    pairs = _visible_pairs(b * h, t, t, causal, 0, h) * cfg.num_layers
+    dense = 6 * (macs + info["head_macs"])
+    flops = 3 * (2 * (macs + info["head_macs"]) + 4 * hd * pairs)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    from horovod_tpu_torch import fusion
+    grads = [p for p in model.parameters() if p.requires_grad]
+    buckets = len(fusion.make_plan(
+        [p.numel() for p in grads], [p.dtype for p in grads],
+        config.get_config().fusion_threshold_bytes).buckets)
+
+    def train_step(tokens):
+        opt.zero_grad()
+        loss = loss_fn(model(tokens), tokens)
+        loss.backward()
+        opt.step()
+        return loss
+
+    step = profiler.instrument(train_step, name="gpt2_medium_train",
+                               model_flops=flops, timed=True)
+
+    # (a) the instrumented step
+    torch.cuda.synchronize()
+    # The phase's window over the peak: the capture reads the card's peak
+    # before and after its call and never resets it.
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, ms = [], []
+    for i in range(5):
+        before = dict(fa.launches)
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
+        if grew != info["launches"]:
+            fail(f"phase 18 (a): step {i} launched {grew}, not "
+                 f"{info['launches']}")
+    launches = dict(fa.launches)
+    rec = step.record()
+    cap = step.last_capture
+    if losses != main_path["losses"]:
+        fail(f"phase 18 (a): losses {losses} are not phase 3's "
+             f"{main_path['losses']} bit for bit")
+    if (rec.compiles, rec.recompiles, rec.steps) != (1, 0, 4):
+        fail(f"phase 18 (a): compiles {rec.compiles}, recompiles "
+             f"{rec.recompiles}, timed steps {rec.steps}; expected 1, 0, 4")
+    want_kernels = {k: fa.FLOPS_PER_PAIR[k] * hd * pairs for k in fa.KERNELS}
+    if cap.dense_flops != dense or cap.kernel_flops != want_kernels:
+        fail(f"phase 18 (a): captured {cap.dense_flops} dense FLOPs and "
+             f"{cap.kernel_flops} from the kernels; expected 6 x "
+             f"(macs + head_macs) = {dense} and {want_kernels}")
+    snap = metrics.snapshot()
+    mfu = _gauge_value(snap, "program_mfu", program="gpt2_medium_train")
+    hfu = _gauge_value(snap, "program_hfu", program="gpt2_medium_train")
+    step_s = rec.last_step_seconds
+    share = (flops / PEAK_BF16_FLOPS * 1e3) / (step_s * 1e3)
+    if mfu is None or abs(mfu - share) > 1e-12 * share or hfu < mfu:
+        fail(f"phase 18 (a): program_mfu {mfu} against the share of the "
+             f"tensor-core bound {share} at {step_s * 1e3:.3f} ms; hfu {hfu}")
+    state = sum(x.numel() * x.element_size() for st in opt.state.values()
+                for x in st.values() if torch.is_tensor(x))
+    total = torch.cuda.mem_get_info(dev)[1]
+    peak = rec.peak_hbm_bytes
+    if not (params + state < peak < total) or not cap.peak_exact:
+        fail(f"phase 18 (a): program_peak_hbm_bytes {peak} (exact "
+             f"{cap.peak_exact}) outside (parameters {params} + AdamW state "
+             f"{state}, the card's {total})")
+    steady = statistics.median(ms[1:])
+    log(f"phase 18 (a): GPT-2 medium through profiler.instrument: losses "
+        f"phase 3's bit for bit, 24 launches of each kernel a step; "
+        f"compiles 1, recompiles 0; the capture call {ms[0]:.1f} ms, steady "
+        f"{steady:.2f} ms median against phase 3's "
+        f"{main_path['step_ms_median']:.2f} (host clock behind the wrapper's "
+        f"sync); captured {cap.flops / 1e12:.6f} TFLOP = {dense} dense + "
+        f"{sum(want_kernels.values())} in the kernels, exactly; mfu "
+        f"{mfu:.6f} = the bound's share at {step_s * 1e3:.3f} ms, hfu "
+        f"{hfu:.6f}; peak {peak / 2 ** 30:.3f} GiB (parameters + AdamW "
+        f"state {(params + state) / 2 ** 30:.3f} GiB, card {total / 2 ** 30:.1f}"
+        f" GiB); on {card}")
+    blame0 = _counter(metrics.snapshot(), "recompile_blame_total",
+                      program="gpt2_medium_train", argument="tokens")
+    step(tokens[:4])                       # planted: a new batch size
+    blame = _counter(metrics.snapshot(), "recompile_blame_total",
+                     program="gpt2_medium_train", argument="tokens")
+    if rec.recompiles != 1 or rec.last_blame != ["tokens"] or \
+            blame - blame0 != 1:
+        fail(f"phase 18 (a): the B 4 call gave recompiles {rec.recompiles}, "
+             f"blame {rec.last_blame}, recompile_blame_total{{tokens}} "
+             f"+{blame - blame0}")
+    packed_peaks, packed = _packed_capture_peak(dev, profiler, fa)
+    log(f"phase 18 (a): a packed, masked flash call forward and backward "
+        f"peaked {packed_peaks[0]} bytes above its start plain and "
+        f"{packed_peaks[1]} under a cost capture; the capture counted "
+        f"{sum(packed.kernel_flops.values())} kernel FLOPs, exactly the "
+        f"packed pairs'; on {card}")
+
+    # (b) captures
+    caps = {}
+    t0 = time.perf_counter()
+    with hvd.profile(os.path.join(tmp, "manual")) as logdir:
+        step(tokens)
+    caps["manual"] = dict(_trace_kernels(logdir),
+                          seconds=time.perf_counter() - t0)
+    got = caps["manual"]
+    # One rank: NCCL launches no kernel for an allreduce over itself (an
+    # H100 run of this phase found none), so the step's buckets show as the
+    # host's NCCL ops, one a bucket at least; with two ranks or more
+    # their kernels are on the device rows too.
+    if got["flash"] != info["launches"] or \
+            got["nccl_host_ops"] < buckets or \
+            (hvd.size() > 1 and got["nccl"] < buckets):
+        fail(f"phase 18 (b): the manual capture of one step holds "
+             f"{got['flash']} flash kernel events, {got['nccl']} NCCL "
+             f"kernels and {got['nccl_host_ops']} host NCCL ops "
+             f"({got['nccl_host_names']}), not {info['launches']} and one "
+             f"a bucket ({buckets})")
+    os.environ.update(HOROVOD_PROFILE_ON_STALL="1",
+                      HOROVOD_PROFILE_SECONDS=str(PROFILE_SECONDS),
+                      HOROVOD_PROFILE_DIR=os.path.join(tmp, "triggered"))
+    config.refresh()
+    captures0 = _counter(metrics.snapshot(), "profile_capture_total")
+    fires = []
+    dog = metrics.StallWatchdog(
+        timeout_s=STALL_TIMEOUT_S, poll_s=0.05,
+        on_stall=lambda report: fires.append(report["tensor"]))
+    token = metrics.collective_begin("allreduce", name="phase18/stuck",
+                                     nbytes=4)
+    dog.start()
+    refused, t0, n, trig_ms, trig_ns = "not tried", time.perf_counter(), 0, \
+        [], []
+    try:
+        while n < 40 and (n < 3 or profiler._PROFILE_ACTIVE or not fires):
+            t1, wall = time.perf_counter(), time.time_ns()
+            step(tokens)
+            trig_ms.append((time.perf_counter() - t1) * 1e3)
+            trig_ns.append((wall, time.time_ns()))
+            n += 1
+            if fires:
+                # One plant: the capture's own stop and export hold the
+                # loop long enough for a 0.2 s watchdog to fire on a real
+                # bucket.
+                dog.stop()
+            if profiler._PROFILE_ACTIVE and refused == "not tried":
+                refused = profiler.trigger_profile("phase18_second")
+    finally:
+        metrics.collective_end(token)
+        dog.stop()
+    fired = _counter(metrics.snapshot(), "profile_capture_total") - captures0
+    dirs = os.listdir(os.path.join(tmp, "triggered"))
+    if fires != ["phase18/stuck"] or fired != 1 or len(dirs) != 1 or \
+            profiler._PROFILE_ACTIVE or refused is not None:
+        fail(f"phase 18 (b): the watchdog fired on {fires}, {fired} "
+             f"captures ({dirs}), a second trigger while active gave "
+             f"{refused!r}")
+    got = caps["triggered"] = dict(
+        _trace_kernels(os.path.join(tmp, "triggered", dirs[0])),
+        seconds=time.perf_counter() - t0, steps=n,
+        step_ms_max=max(trig_ms), step_ms_median=statistics.median(trig_ms))
+    # The steps' polls start and stop the session on the training thread;
+    # the steps that ran wholly inside its window launched every kernel 24
+    # times each, from the training thread (the forward) and from
+    # autograd's (the backward).
+    if got["window_ns"] is None:
+        fail("phase 18 (b): the triggered capture's trace has no session "
+             "window")
+    w0, w1 = got["window_ns"]
+    got["steps_inside"] = sum(1 for a, z in trig_ns if a >= w0 and z <= w1)
+    short = {k: c for k, c in got["flash"].items()
+             if c < info["launches"][k] * got["steps_inside"]}
+    if got["steps_inside"] < 1 or short:
+        fail(f"phase 18 (b): the triggered capture spans "
+             f"{got['steps_inside']} whole steps but holds flash kernel "
+             f"events {got['flash']} (short: {short}), not "
+             f"{info['launches']} a step: it lost device activity; "
+             f"{got['kernels']} kernel events in all")
+    long_dir = profiler.trigger_profile("phase18_long", seconds=600.0)
+    if long_dir is None:
+        fail("phase 18 (b): the long trigger was refused")
+    t0 = time.perf_counter()
+    with hvd.profile(os.path.join(tmp, "preempting")) as logdir:
+        step(tokens)
+    preempt_s = time.perf_counter() - t0
+    caps["preempting"] = dict(_trace_kernels(logdir), seconds=preempt_s)
+    caps["preempted"] = _trace_kernels(long_dir)
+    if preempt_s > PREEMPT_LIMIT_S or profiler._PROFILE_ACTIVE or \
+            caps["preempting"]["flash"] != info["launches"] or \
+            profiler._TRIGGER is not None:
+        fail(f"phase 18 (b): the manual capture did not preempt the long "
+             f"trigger: {preempt_s:.1f} s, {caps['preempting']}")
+    for k in ("HOROVOD_PROFILE_ON_STALL", "HOROVOD_PROFILE_SECONDS",
+              "HOROVOD_PROFILE_DIR"):
+        os.environ.pop(k)
+    config.refresh()
+    log(f"phase 18 (b): captures (host clock; Chrome traces): " + "; ".join(
+        f"{k} {v.get('seconds', 0):.2f} s, {v['bytes']} bytes, "
+        f"{v['kernels']} kernel events (flash {v['flash']}, NCCL "
+        f"{v['nccl']}), {v['nccl_host_ops']} host NCCL ops"
+        + (f", {v['steps_inside']} of {v['steps']} steps wholly inside"
+           if "steps_inside" in v else "")
+        for k, v in caps.items())
+        + f"; the stall fired once, one triggered capture (step ms median "
+        f"{caps['triggered']['step_ms_median']:.1f}, max "
+        f"{caps['triggered']['step_ms_max']:.1f}), holding every flash "
+        f"kernel of the steps inside it, a second trigger refused; the 600 s "
+        f"trigger preempted in {preempt_s:.2f} s; on {card}")
+
+    # (c) memory
+    frac = profiler.check_memory_pressure()
+    i = str(dev.index or 0)
+    snap = metrics.snapshot()
+    in_use = _gauge_value(snap, "device_hbm_bytes_in_use", device=i)
+    limit = _gauge_value(snap, "device_hbm_bytes_limit", device=i)
+    if frac is None or not 0 < frac < 1 or in_use is None or \
+            limit != total or abs(in_use / limit - frac) > 1e-12:
+        fail(f"phase 18 (c): pressure {frac}, in use {in_use}, limit {limit}")
+    for _ in range(2):
+        profiler.check_memory_pressure(threshold=0.0)
+    events = _counter(metrics.snapshot(), "memory_pressure_total")
+    census = profiler.live_buffer_census()
+    if events != 1 or census["gpu"]["bytes"] < params:
+        fail(f"phase 18 (c): {events} memory_pressure events (expected 1); "
+             f"census {census}")
+    log(f"phase 18 (c): the card {frac:.4f} in use ({in_use / 2 ** 30:.2f} "
+        f"of {limit / 2 ** 30:.2f} GiB), one memory_pressure event from two "
+        f"checks at threshold 0, live buffers {census}; on {card}")
+
+    # (d) the doctor
+    rep = hvd.doctor()
+    by_cat = {f["category"]: f for f in rep["findings"]}
+    rc = by_cat.get("recompile", {}).get("evidence", {})
+    if rc.get("program") != "gpt2_medium_train" or \
+            rc.get("blamed_arguments") != ["tokens"] or \
+            "memory_pressure" not in by_cat or rep["healthy"]:
+        fail(f"phase 18 (d): the doctor's findings {rep['findings']}")
+    text = profiler.format_report(rep)
+    if any(f["title"] not in text or f["suggestion"] not in text
+           for f in rep["findings"]):
+        fail("phase 18 (d): format_report left a finding out")
+    srv = hvd.metrics_http(0)
+    try:
+        code, body, _ = _http(srv.url + "/doctor")
+    finally:
+        srv.stop()
+    if code != 200 or json.loads(body)["findings"] != json.loads(
+            json.dumps(rep["findings"], default=str)):
+        fail(f"phase 18 (d): /doctor answered {code} {body[:300]!r}")
+    now = time.time()
+    sampler.sample_once(ts=now)
+    window = profiler.doctor_window(store, now - t_window + 1.0, now=now)
+    cats = [f["category"] for f in window["findings"]]
+    # The reference's shape; a counter born inside the window has one
+    # point there and so no delta (PromQL's increase), as in the reference.
+    if set(window) != {"findings", "healthy", "inputs"} or \
+            window["inputs"] != {"snapshot": f"window:{now - t_window + 1:g}s",
+                                 "trace": "none", "programs": []} or \
+            store.series_count() < 10:
+        fail(f"phase 18 (d): doctor_window gave {window} over "
+             f"{store.series_count()} series")
+    hvd.stop_timeline()
+    with open(trace_path) as f:
+        markers = [e for e in json.load(f)["traceEvents"]
+                   if e["name"] == "recompile"]
+    if len(markers) != 1 or markers[0]["args"]["arguments"] != ["tokens"]:
+        fail(f"phase 18 (a): recompile markers in the timeline: {markers}")
+    log(f"phase 18 (d): hvd.doctor() ranks {[(f['rank'], f['category'], f['severity']) for f in rep['findings']]}; "
+        f"the recompile blamed on 'tokens' ({rc.get('recompiles')}x), "
+        f"format_report renders all, /doctor 200 with the same findings, "
+        f"doctor_window over the sampler's store {cats}; one recompile "
+        f"marker in the timeline")
+    del model, opt, step
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"losses": losses, "step_ms": ms, "steady_ms_median": steady,
+            "phase3_step_ms_median": main_path["step_ms_median"],
+            "capture_ms": ms[0], "captured_flops": cap.flops,
+            "dense_flops": cap.dense_flops, "kernel_flops": cap.kernel_flops,
+            "model_flops": flops, "mfu": mfu, "hfu": hfu,
+            "step_seconds": step_s, "peak_bytes": peak,
+            "captures": caps, "pressure": frac,
+            "findings": [(f["rank"], f["category"], f["severity"])
+                         for f in rep["findings"]],
+            "launches": launches}
+
+
+def _gauge_value(snap, name, **labels):
+    for s in snap["gauges"].get(name, []):
+        if all(str(s["labels"].get(k)) == str(v) for k, v in labels.items()):
+            return s["value"]
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17; 6, 7 "
-                         "and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18; 6, "
+                         "7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -6331,6 +6778,10 @@ def main(argv=None) -> int:
                                   ctl)
         launches["gpt2_medium_observed"] = obs.pop("launches")
         print(json.dumps({"phase17": obs}), flush=True)
+    if 18 in phases:
+        prof = phase_profiler(card, main_path if 3 in phases else None)
+        launches["gpt2_medium_instrumented"] = prof.pop("launches")
+        print(json.dumps({"phase18": prof}, default=str), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -30,7 +30,11 @@ report (``trace_merge.py``); ``metrics_http`` starts the live scrape
 endpoint (``/metrics``, ``/metrics.json``, ``/trace``, ``/healthz``,
 ``/config``; ``POST /config`` gated by ``HOROVOD_SERVE_AUTH_TOKEN``);
 ``timeseries`` keeps windowed series of the registry (``TimeSeriesStore``,
-``LocalSampler``). The allreduce algorithm axis
+``LocalSampler``); ``profiler`` keeps the program registry (``instrument``:
+recompile blame, FLOPs from a cost capture, mfu / hfu on the card's peaks),
+memory accounting and ``torch.profiler`` captures (``profile``, and one
+bounded capture a stall under ``HOROVOD_PROFILE_ON_STALL``), and
+``doctor()`` ranks what looks sick. The allreduce algorithm axis
 (``overlap.py``: ``algorithm=`` ``psum``, ``rs_ag``, ``chunked_rs_ag``,
 their ``_int8`` / ``_fp8`` quantized forms, the ``_2d`` forms over
 ``topology()``, ``swing``, or ``auto``; ``wire=`` and ``overlap_chunks=``;
@@ -98,6 +102,10 @@ from horovod_tpu_torch.timeline import (
     merge_timelines, start_timeline, stop_timeline)
 # Windowed series over registry snapshots (hvd.timeseries).
 from horovod_tpu_torch import timeseries  # noqa: E402,F401
+# Program registry, roofline gauges, captures and the doctor (hvd.profiler,
+# hvd.doctor, hvd.profile).
+from horovod_tpu_torch import profiler  # noqa: E402,F401
+from horovod_tpu_torch.profiler import doctor, profile  # noqa: E402,F401
 # Fault tolerance: elastic states and the run decorator (hvd.elastic), async
 # sharded checkpoints (hvd.checkpoint_sharded), full-state checkpoints
 # (hvd.checkpoint) and the fault plan (hvd.faults).
@@ -143,5 +151,5 @@ __all__ = [
     "broadcast_variables", "grad", "value_and_grad", "ShardedAdamWState",
     "sharded_adamw", "parallel", "mesh2d", "mesh_spec", "dp_size",
     "mp_size", "dp_rank", "mp_rank", "merge_timelines", "metrics_http",
-    "timeseries",
+    "timeseries", "profiler", "doctor", "profile",
 ]

@@ -441,9 +441,30 @@ def _run(kind: str, ps: ProcessSet, tensors: Sequence[torch.Tensor],
         _metrics.counter("collective_bytes_total", kind=kind).inc(nbytes)
         _metrics.histogram("collective_dispatch_seconds",
                            kind=kind).observe(dt)
+        if how == "eager":
+            _note_first_dispatch(kind, tensors, ps, nbytes, dt)
         return handle
     finally:
         _metrics.collective_end(pend)
+
+
+def _note_first_dispatch(kind: str, tensors, ps: ProcessSet, nbytes: int,
+                         dt: float) -> None:
+    """The first dispatch of a new (kind, shapes, dtypes, process set): the
+    reference's compile of a new eager program, counted as it counts one
+    (``collective_compile_total``, its latency, and a program-registry
+    entry: a compile count, not a recompile blame). A repeat adds
+    nothing."""
+    from horovod_tpu_torch import profiler as _profiler
+    shapes = _shapes(tensors)
+    if not _profiler.count_trace_once(
+            f"collective:{kind}", (shapes, ps.process_set_id),
+            last_shapes=str(shapes)[:120], last_bytes=int(nbytes)):
+        return
+    _metrics.counter("collective_compile_total", kind=kind).inc()
+    _metrics.histogram("collective_compile_seconds", kind=kind).observe(dt)
+    _metrics.counter("program_compiles_total",
+                     program=f"collective:{kind}").inc()
 
 
 def _sig(tensors, *params) -> tuple:

@@ -22,6 +22,15 @@ not at the first collective.
   ``HOROVOD_METRICS_GRAD_NORM`` records the gradient-norm gauge.
 * ``HOROVOD_STALL_CHECK_DISABLE`` / ``HOROVOD_STALL_CHECK_TIME_SECONDS``
   -- the stall watchdog that ``init()`` starts, and its threshold (60 s).
+* ``HOROVOD_PROFILE_ON_STALL`` -- a stall (and, once serving is ported, a
+  deadline breach) fires one bounded ``torch.profiler`` capture
+  (``profiler.maybe_trigger``); ``HOROVOD_PROFILE_DIR`` -- where captures
+  land (default ``/tmp/horovod_profile``); ``HOROVOD_PROFILE_SECONDS`` --
+  the length of a triggered capture (5, at least 0.1);
+  ``HOROVOD_PROFILE_MAX_CAPTURES`` -- triggered captures a process (2, a
+  positive integer); ``HOROVOD_PROFILER_COST`` -- the cost capture of
+  ``profiler.instrument``: unset lets each call site choose (instrumented
+  steps on), ``1`` / ``0`` force it on or off everywhere.
 * ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``LOCAL_SIZE`` -- this
   process's place in the job (defaults 0 / 1 / ``RANK`` / ``WORLD_SIZE``),
   integers with ``0 <= rank < world_size`` and
@@ -92,6 +101,19 @@ def _env_bool(name: str, default: bool = False) -> bool:
     return v.strip().lower() in ("1", "true", "yes", "on")
 
 
+def _env_posint(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if not v:
+        return default
+    try:
+        n = int(v)
+    except ValueError:
+        raise ValueError(f"{name}={v!r}: expected a positive integer")
+    if n < 1:
+        raise ValueError(f"{name}={n}: must be >= 1")
+    return n
+
+
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     if v is None or v.strip() == "":
@@ -118,6 +140,12 @@ class Config:
     metrics_grad_norm: bool = False
     stall_check_disable: bool = False
     stall_check_time_seconds: float = 60.0
+    profile_on_stall: bool = False
+    profile_dir: str = "/tmp/horovod_profile"
+    profile_seconds: float = 5.0
+    profile_max_captures: int = 2
+    # Tri-state: None (unset) lets each call site pick its default.
+    profiler_cost: Optional[bool] = None
     allreduce_algorithm: str = "auto"
     allreduce_wire: str = "fp32"
     overlap_chunks: int = 4
@@ -266,6 +294,16 @@ def _read() -> Config:
         stall_check_disable=_env_bool("HOROVOD_STALL_CHECK_DISABLE"),
         stall_check_time_seconds=_env_float(
             "HOROVOD_STALL_CHECK_TIME_SECONDS", 60.0),
+        profile_on_stall=_env_bool("HOROVOD_PROFILE_ON_STALL"),
+        profile_dir=(os.environ.get("HOROVOD_PROFILE_DIR")
+                     or "/tmp/horovod_profile"),
+        profile_seconds=max(
+            0.1, _env_float("HOROVOD_PROFILE_SECONDS", 5.0)),
+        profile_max_captures=_env_posint(
+            "HOROVOD_PROFILE_MAX_CAPTURES", 2),
+        profiler_cost=(None if os.environ.get("HOROVOD_PROFILER_COST",
+                                              "").strip() == ""
+                       else _env_bool("HOROVOD_PROFILER_COST")),
         allreduce_algorithm=_env_algorithm(),
         allreduce_wire=_env_wire(),
         overlap_chunks=_env_chunks(),

@@ -220,6 +220,13 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         _CTX = dataclasses.replace(_CTX, mesh2d=_mesh.make_mesh2d(
             *dims, devices=list(range(world))))
         _INIT_EPOCH += 1
+        if _INIT_EPOCH > 1:
+            # A re-init (elastic reset, re-mesh) runs every step's first
+            # call again by design: not churn to blame on an argument. Each
+            # collective's and lowering's first issue counts again, as the
+            # reference's cleared caches compile again.
+            from horovod_tpu_torch import profiler as _prof
+            _prof.registry.reanchor()
         if cfg.timeline_path and _tl.get_timeline() is None:
             _tl.start_timeline(cfg.timeline_path)
         if _CTX.size > 1:
@@ -462,9 +469,11 @@ def mpi_threads_supported() -> bool:
 def build_info() -> dict:
     """The build and runtime flags in one dict: ``nccl_built()``,
     ``gloo_built()``, the CUDA version, whether a card is there, whether
-    the kernels are built, and the backend ``init`` chose (None before
-    it)."""
+    the kernels are built, the backend ``init`` chose (None before it),
+    and the profiler's knobs (``profile_on_stall``, ``profile_dir``,
+    ``profiler_cost``: None, True or False)."""
     from horovod_tpu_torch.ops import _build
+    cfg = _config.get_config()
     return {
         "nccl_built": nccl_built(),
         "gloo_built": gloo_built(),
@@ -472,4 +481,7 @@ def build_info() -> dict:
         "cuda_available": torch.cuda.is_available(),
         "kernels_built": _build.built(),
         "backend": _CTX.backend if _CTX is not None else None,
+        "profile_on_stall": cfg.profile_on_stall,
+        "profile_dir": cfg.profile_dir,
+        "profiler_cost": cfg.profiler_cost,
     }

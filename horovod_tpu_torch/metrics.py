@@ -34,8 +34,7 @@ Public surface (also ``hvd.metrics()`` / ``hvd.reset_metrics``):
   read the registry only. Nothing starts it but a call: not ``init()``.
   Where the module behind a route is not ported yet (``serving.reqtrace``,
   ``health``, ``confbus``) the route gives the reference's own fallback;
-  ``/doctor`` answers 501 until the profiler is ported (ROADMAP.md
-  section A item 9b, section C).
+  ``/doctor`` serves ``profiler.doctor()``.
 
 A snapshot copies the series maps under the registry's lock and reads
 the values outside it, each histogram in one acquisition of its own lock,
@@ -43,9 +42,11 @@ so a scrape taken while a step writes never shows a histogram whose count
 disagrees with its buckets (counters only grow, so no counter reads below
 an earlier scrape's either).
 
-Not ported yet (ROADMAP.md section A item 9): the watchdog's hand-off to
-the profiler and the flight recorder. Importing this module starts no
-thread: ``init()`` starts the watchdog and the flusher.
+A stall fire hands off to the profiler (``profiler.maybe_trigger``: one
+bounded capture under ``HOROVOD_PROFILE_ON_STALL=1``). Not ported yet
+(ROADMAP.md section A item 9c): the hand-off to the flight recorder.
+Importing this module starts no thread: ``init()`` starts the watchdog and
+the flusher.
 """
 
 from __future__ import annotations
@@ -836,9 +837,12 @@ class StallWatchdog:
                 self._on_stall(report)
             except Exception:
                 logger.exception("stall callback failed")
-        # The reference also hands the stall to its profiler (a bounded
-        # device capture) and its flight recorder here; both wait for
-        # those modules (ROADMAP.md section A item 9).
+        # HOROVOD_PROFILE_ON_STALL=1: one bounded capture of the stalled
+        # window (the profiler gates on the knob and its own budget). The
+        # reference also hands the stall to its flight recorder here
+        # (ROADMAP.md section A item 9c).
+        from horovod_tpu_torch import profiler as _profiler
+        _profiler.maybe_trigger(f"stall_{report['kind']}_{report['tensor']}")
 
     def _loop(self) -> None:
         while not self._stop.wait(self._poll_s):
@@ -934,9 +938,9 @@ class MetricsHTTPServer:
     mutation, gated on ``HOROVOD_SERVE_AUTH_TOKEN`` (403 with no token
     configured, 401 on a mismatch, 400 on a malformed body, 500 while the
     config bus is absent -- the token is never echoed). ``GET /doctor``
-    serves the doctor's report; until the profiler is ported (item 9b) it
-    answers 501 with a JSON error naming the missing module, where the
-    reference would drop the connection. Unknown paths 404. Requests are
+    serves the health plane's last windowed report, or while that plane
+    is not ported (item 9c) a one-shot ``profiler.doctor()``. Unknown
+    paths 404. Requests are
     not logged. Serves on daemon threads that read the registry only;
     :meth:`stop` shuts it down."""
 
@@ -970,17 +974,7 @@ class MetricsHTTPServer:
                     except Exception:
                         rep = None
                     if rep is None:
-                        try:
-                            from horovod_tpu_torch import (
-                                profiler as _profiler)
-                        except ImportError as e:
-                            self._reply(501, {
-                                "ok": False,
-                                "error": "/doctor needs "
-                                         "horovod_tpu_torch.profiler, not "
-                                         "ported yet (ROADMAP.md section "
-                                         f"A item 9b): {e}"})
-                            return
+                        from horovod_tpu_torch import profiler as _profiler
                         rep = _profiler.doctor()
                     body = json.dumps(rep, default=str).encode("utf-8")
                     ctype = "application/json"

@@ -18,7 +18,10 @@ function beside it:
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel on the current stream of the inputs' own
 device, or raises; there is no fallback. Each wrapper counts its kernel
-launches in :data:`launches`. For bf16 inputs all three kernels run their
+launches in :data:`launches`; while a profiler cost capture is open
+(:data:`flop_tally` set) it also reports the launch's FLOPs, 4·d, 6·d and
+8·d a visible (q, k) pair (:func:`visible_pairs`), from whatever thread
+launches it. For bf16 inputs all three kernels run their
 products on the tensor cores; fp32 inputs take FMA kernels that keep full
 fp32 products (see the sources).
 
@@ -42,7 +45,8 @@ import torch
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
-           "launches", "reset_launches", "DEFAULT_BLOCKS", "KERNELS"]
+           "launches", "reset_launches", "DEFAULT_BLOCKS", "KERNELS",
+           "FLOPS_PER_PAIR", "visible_pairs"]
 
 _NEG_INF = -1e30
 
@@ -58,6 +62,59 @@ launches: Dict[str, int] = {k: 0 for k in KERNELS}
 def reset_launches() -> None:
     for k in KERNELS:
         launches[k] = 0
+
+
+# FLOPs of each kernel per visible (q, k) pair and head dim: QK^T and PV
+# (forward); QK^T, dP and dS K (dQ); QK^T, dP, P^T dO and dS^T Q (dK/dV).
+FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+
+# ``flop_tally(kernel, flops)`` while a profiler cost capture is open
+# (``profiler.CostCapture``), else None: one branch a launch. Process-wide,
+# not thread-local: a CUDA backward launches from autograd's own thread.
+flop_tally = None
+
+
+def visible_pairs(tq, tk, bh, h, causal, offset=0, bias=None, seg_q=None,
+                  seg_k=None) -> int:
+    """Visible (q, k) pairs of one launch, summed over its ``bh`` rows:
+    the causal diagonal shifted by ``offset``, then keys whose ``bias`` is
+    above -1e29 and keys of the query's segment. A ``bias`` or segment ids
+    make the count data-dependent: their (B, T) rows are copied to the host
+    and counted there, so the count allocates nothing on the card."""
+    if bias is None and seg_q is None:
+        rows = (sum(min(max(i + offset + 1, 0), tk) for i in range(tq))
+                if causal else tq * tk)
+        return rows * bh
+    b = bh // h
+    keep = (torch.ones(b, tk, dtype=torch.bool) if bias is None
+            else bias.detach().cpu() > -1e29)
+    # the last key each query sees; below 0: none
+    last = (torch.arange(tq) + offset).clamp(max=tk - 1) if causal else \
+        torch.full((tq,), tk - 1)
+    if seg_q is None:
+        kept = torch.cat([torch.zeros(b, 1, dtype=torch.long),
+                          keep.cumsum(1)], 1)       # kept keys before j
+        return int(kept[:, (last + 1).clamp(min=0)].sum()) * h
+    sq, sk = seg_q.detach().cpu(), seg_k.detach().cpu()
+    pos = torch.arange(tk)
+    n = 0
+    for r in range(b):
+        # Each kept key coded (its segment, its position) on one sorted
+        # line: a query's visible keys are the codes from (its segment, 0)
+        # to (its segment, last).
+        _, ids = torch.unique(torch.cat([sq[r], sk[r]]), return_inverse=True)
+        code = (ids[tq:] * (tk + 1) + pos)[keep[r]].sort().values
+        lo = ids[:tq] * (tk + 1)
+        seen = (torch.searchsorted(code, lo + last, right=True)
+                - torch.searchsorted(code, lo))
+        n += int(seen[last >= 0].sum())
+    return n * h
+
+
+def _tally(kernel, q, k, bias, seg_q, seg_k, h, causal, offset) -> None:
+    bh, tq, d = q.shape
+    flop_tally(kernel, FLOPS_PER_PAIR[kernel] * d * visible_pairs(
+        tq, k.shape[1], bh, h, causal, offset, bias, seg_q, seg_k))
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +408,8 @@ def flash_fwd(q, k, v, bias, seg_q, seg_k, h, scale, causal, offset=0,
     _launch(q.device, launch_fwd, "flash_fwd", q, k, v, bias, seg_q, seg_k, o,
             lse, h, scale, causal, offset)
     launches["flash_fwd"] += 1
+    if flop_tally is not None:
+        _tally("flash_fwd", q, k, bias, seg_q, seg_k, h, causal, offset)
     return o, lse
 
 
@@ -368,6 +427,8 @@ def flash_bwd_dq(q, k, v, bias, seg_q, seg_k, do, lse, delta, h, scale,
     _launch(q.device, launch_bwd_dq, "flash_bwd", q, k, v, bias, seg_q, seg_k,
             do, lse, delta, dq, h, scale, causal, offset)
     launches["flash_bwd_dq"] += 1
+    if flop_tally is not None:
+        _tally("flash_bwd_dq", q, k, bias, seg_q, seg_k, h, causal, offset)
     return dq
 
 
@@ -388,6 +449,8 @@ def flash_bwd_dkv(q, k, v, bias, seg_q, seg_k, do, lse, delta, h, scale,
     _launch(q.device, launch_bwd_dkv, "flash_bwd", q, k, v, bias, seg_q,
             seg_k, do, lse, delta, dk, dv, db, h, scale, causal, offset)
     launches["flash_bwd_dkv"] += 1
+    if flop_tally is not None:
+        _tally("flash_bwd_dkv", q, k, bias, seg_q, seg_k, h, causal, offset)
     return dk, dv, db
 
 

@@ -95,6 +95,7 @@ from horovod_tpu_torch import collective as C
 from horovod_tpu_torch import fusion as _fusion
 from horovod_tpu_torch import metrics as _metrics
 from horovod_tpu_torch import overlap as _overlap
+from horovod_tpu_torch import profiler as _profiler
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.config import get_config
 from horovod_tpu_torch.ops import quantized as _quantized
@@ -521,6 +522,7 @@ class DistributedOptimizer:
         ``backward_passes_per_step > 1`` the k-th call's mask applies to
         the accumulated gradients and earlier calls' are not used. Without
         ``alive`` the value of :meth:`set_alive` applies, if any."""
+        _profiler.poll()
         if alive is None:
             alive = self._alive
         if self._k > 1:
@@ -986,7 +988,9 @@ class AutotunedStep:
     agreed by ``broadcast_object`` (world size above 1) and the step is
     rebuilt; after convergence the agreed best runs untimed. Timed calls
     set the ``optimizer_step_seconds`` gauge and the
-    ``optimizer_step_latency_seconds`` histogram."""
+    ``optimizer_step_latency_seconds`` histogram and feed
+    ``profiler.observe_step("autotuned_step")``; each (re)build is a
+    ``note_trace`` of the tuner's point with ``expected=True``."""
 
     def __init__(self, make_step, tuner=None):
         import inspect
@@ -1021,15 +1025,22 @@ class AutotunedStep:
         return self._tuner.current_threshold()
 
     def _build(self, threshold: int):
+        # Each rebuild is churn by design (one a probe): expected=True keeps
+        # it in recompiles_total without the doctor flagging it.
+        sig = {"fusion_threshold": str(int(threshold))}
+        args = (threshold,)
         if self._make_arity >= 3:
             t = self._tuner
             alg = getattr(t, "current_algorithm", lambda: "auto")()
             chunks = getattr(t, "current_chunks", lambda: None)()
+            sig.update(algorithm=str(alg), chunks=str(chunks))
+            args += (alg, chunks)
             if self._make_arity >= 4:
                 wire = getattr(t, "current_wire", lambda: "fp32")()
-                return self._make(threshold, alg, chunks, wire)
-            return self._make(threshold, alg, chunks)
-        return self._make(threshold)
+                sig["wire"] = str(wire)
+                args += (wire,)
+        _profiler.note_trace("autotuned_step", sig, expected=True)
+        return self._make(*args)
 
     def _agree_and_rebuild(self) -> None:
         from horovod_tpu_torch import core
@@ -1080,6 +1091,7 @@ class AutotunedStep:
         self._tuner.record(dt)
         _metrics.gauge("optimizer_step_seconds").set(dt)
         _metrics.histogram("optimizer_step_latency_seconds").observe(dt)
+        _profiler.observe_step("autotuned_step", dt)
         if (getattr(self._tuner, "pending_sync", False)
                 or self._tuner.converged
                 or self._tuner.current_threshold() != before):

@@ -264,6 +264,14 @@ def _pad_to(x: torch.Tensor, total: int) -> torch.Tensor:
     return x if total == m else torch.cat([x, x.new_zeros(total - m)])
 
 
+def _note_lowering(program: str, key: tuple, **meta) -> None:
+    """The program-registry entry of a lowering's first issue of a bucket
+    geometry in this init epoch (the reference counts one a compiled
+    bucket, at trace time): the doctor reads chunk geometry from it."""
+    from horovod_tpu_torch import profiler as _profiler
+    _profiler.count_trace_once(program, key, **meta)
+
+
 def _observe_chunks(nbytes: int, chunks: int) -> None:
     h = _metrics.histogram("allreduce_chunk_bytes",
                            buckets=_metrics.SIZE_BUCKETS)
@@ -281,7 +289,11 @@ def chunked_rs_ag(x: torch.Tensor, group, n: int,
         return [], lambda: x
     per, chunks = _split_sizes(m, n, chunks)
     x = _pad_to(x, per * chunks)
-    _observe_chunks(per * x.element_size(), chunks)
+    elem = x.element_size()
+    _observe_chunks(per * elem, chunks)
+    _note_lowering("overlap:chunked_rs_ag", (m, x.dtype, n, chunks),
+                   chunks=chunks, chunk_bytes=per * elem,
+                   buffer_bytes=m * elem)
     scattered, rs_works = [], []
     for i in range(chunks):
         out = x.new_empty(per // n)
@@ -326,7 +338,11 @@ def chunked_rs_ag_quantized(x: torch.Tensor, group, n: int, chunks: int,
         return [], lambda: (_q.true_div(x, mean_k)
                             if mean_k is not None and m else x)
     per, chunks = _split_sizes(m, n * _q.BLOCK, chunks)
-    _observe_chunks(wire_bytes(per, wire), chunks)
+    wbytes = wire_bytes(per, wire)
+    _observe_chunks(wbytes, chunks)
+    _note_lowering(f"overlap:chunked_rs_ag_{wire}", (m, n, chunks),
+                   chunks=chunks, chunk_wire_bytes=wbytes,
+                   buffer_bytes=m * 4)
     return _q.issue_quantized_allreduce(x, group, n, wire, mean_k, per,
                                         chunks)
 
@@ -342,7 +358,13 @@ def chunked_rs_ag_2d(x: torch.Tensor, phases: Sequence[Tuple[object, int]],
         return [], lambda: x
     per, chunks = _split_sizes(m, n, chunks)
     x = _pad_to(x, per * chunks)
-    _observe_chunks(per * x.element_size(), chunks)
+    elem = x.element_size()
+    _observe_chunks(per * elem, chunks)
+    dims = tuple(d for _, d in phases)
+    _note_lowering("overlap:chunked_rs_ag_2d", (m, x.dtype, dims, chunks),
+                   chunks=chunks, chunk_bytes=per * elem,
+                   buffer_bytes=m * elem,
+                   topology="x".join(map(str, dims)))
     gathered, works = [], []
     for i in range(chunks):
         cur = x[i * per:(i + 1) * per]
@@ -384,10 +406,13 @@ def chunked_rs_ag_2d_quantized(x: torch.Tensor,
                             if mean_k is not None and m else x)
     per, chunks = _split_sizes(m, n * _q.BLOCK, chunks)
     x = _pad_to(x, per * chunks)
+    dims = tuple(d for _, d in phases)
     wbytes = sum(wire_bytes_by_phase("rs_ag_2d", per, wire, n,
-                                     dims=tuple(d for _, d in phases))
-                 .values())
+                                     dims=dims).values())
     _observe_chunks(wbytes, chunks)
+    _note_lowering(f"overlap:chunked_rs_ag_2d_{wire}", (m, dims, chunks),
+                   chunks=chunks, chunk_wire_bytes=wbytes,
+                   buffer_bytes=m * 4, topology="x".join(map(str, dims)))
     gathered, works = [], []
     for i in range(chunks):
         cur = x[i * per:(i + 1) * per]
@@ -479,7 +504,10 @@ def swing(x: torch.Tensor, group, ranks: Sequence[int], me: int
     c = -(-m // n)
     total = c * n
     blocks = _pad_to(x, total).reshape(n, c).clone()
-    _observe_chunks(total * x.element_size(), 1)
+    elem = x.element_size()
+    _observe_chunks(total * elem, 1)
+    _note_lowering("overlap:swing", (m, x.dtype, n), steps=2 * k,
+                   block_bytes=c * elem, buffer_bytes=m * elem)
     idx = [(torch.as_tensor(keep[s][me], device=x.device, dtype=torch.long),
             torch.as_tensor(send[s][me], device=x.device, dtype=torch.long))
            for s in range(k)]

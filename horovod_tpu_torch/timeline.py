@@ -12,9 +12,10 @@ The timeline records what the host does. EXEC is the host's issue of the
 device time is for ``torch.profiler``.
 
 :func:`merge_timelines` merges the per-rank shards into one trace with a
-straggler report (``trace_merge.py``). Not ported yet (ROADMAP.md section
-A item 9): the reference's native C appender (9d) and the profiler
-passthroughs ``start_profiler`` / ``stop_profiler`` (9b).
+straggler report (``trace_merge.py``). :func:`start_profiler` /
+:func:`stop_profiler` open and close a ``torch.profiler`` capture through
+the profiler's one session (``profiler.profile``). Not ported yet
+(ROADMAP.md section A item 9d): the reference's native C appender.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Optional
 __all__ = ["Timeline", "init_timeline", "get_timeline", "shutdown_timeline",
            "start_timeline", "stop_timeline", "shard_path",
            "emit_clock_anchor", "add_tap", "remove_tap",
-           "merge_timelines"]
+           "merge_timelines", "start_profiler", "stop_profiler"]
 
 _LOCK = threading.Lock()
 _TIMELINE: Optional["Timeline"] = None
@@ -250,3 +251,19 @@ def merge_timelines(inputs, output: Optional[str] = None, **kwargs):
     :func:`horovod_tpu_torch.trace_merge.merge_timelines`."""
     from horovod_tpu_torch.trace_merge import merge_timelines as _merge
     return _merge(inputs, output, **kwargs)
+
+
+def start_profiler(logdir: str) -> None:
+    """Open a ``torch.profiler`` capture into ``logdir`` (the reference's
+    ``jax.profiler.start_trace`` passthrough), through the profiler's one
+    session: a second capture is refused. Call :func:`stop_profiler` from
+    the same thread."""
+    from horovod_tpu_torch import profiler as _profiler
+    _profiler._begin_manual(logdir)
+
+
+def stop_profiler() -> None:
+    """Close the capture :func:`start_profiler` opened and write its Chrome
+    trace."""
+    from horovod_tpu_torch import profiler as _profiler
+    _profiler._end_manual()

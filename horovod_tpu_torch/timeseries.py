@@ -20,8 +20,7 @@ answers windowed queries --
 * :meth:`TimeSeriesStore.window_snapshot` -- a registry-snapshot-shaped
   dict whose counters/histograms are window *deltas* and whose gauges
   are the latest values, so a doctor's checks run unchanged on windowed
-  data (the reference's ``profiler.doctor_window``; the port's profiler
-  is ROADMAP.md section A item 9b).
+  data (``profiler.doctor_window``).
 
 Peers land in the same store under extra labels (``{replica, attempt}``,
 the reference's ``health.FleetCollector``, item 9c), so a restarted

@@ -104,7 +104,8 @@ LONG_CONTEXT_MODULES = ["horovod_tpu_torch.ops.ring_attention",
                         "horovod_tpu_torch.ops.attention"]
 
 OBSERVABILITY_MODULES = ["horovod_tpu_torch.trace_merge",
-                         "horovod_tpu_torch.timeseries"]
+                         "horovod_tpu_torch.timeseries",
+                         "horovod_tpu_torch.profiler"]
 
 
 @pytest.mark.parametrize("module", COLLECTIVE_DEPTH_MODULES
@@ -186,6 +187,42 @@ def test_elastic_modules_load_no_jax_build_nothing_and_touch_no_gpu(
     assert elastic_imports[module] == {
         "module": module, "forbidden": [], "threads": 0, "cuda": False,
         "built": False}
+
+
+def test_import_starts_no_profiler_session_and_the_doctor_tool_stands_alone(
+        tmp_path):
+    """``import horovod_tpu_torch`` opens no ``torch.profiler`` session and
+    builds nothing; ``tools/torch_perf_doctor.py`` diagnoses a snapshot
+    file with no JAX and no module of ``horovod_tpu`` loaded."""
+    build = tmp_path / "kernels"
+    snap = tmp_path / "snap.json"
+    snap.write_text(json.dumps({"counters": {}, "gauges": {},
+                                "histograms": {}}))
+    tool = REPO / "tools" / "torch_perf_doctor.py"
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.path.insert(0, {str(REPO)!r})
+        import torch
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import profiler
+        assert not torch.autograd.profiler._is_profiler_enabled
+        assert not profiler._PROFILE_ACTIVE and profiler._TRIGGER is None
+        sys.argv = [{str(tool)!r}, "--metrics", {str(snap)!r}]
+        try:
+            runpy.run_path(sys.argv[0], run_name="__main__")
+        except SystemExit as e:
+            print("EXIT", e.code)
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in {FORBIDDEN!r})
+        print("FORBIDDEN:", bad)
+    """)
+    env = dict(os.environ, HOROVOD_TORCH_BUILD_DIR=str(build))
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "nothing looks sick" in r.stdout and "EXIT 0" in r.stdout
+    assert "FORBIDDEN: []" in r.stdout, r.stdout
+    assert not build.exists(), "import must not run nvcc"
 
 
 def test_import_starts_no_thread_and_init_starts_the_watchdog(tmp_path):

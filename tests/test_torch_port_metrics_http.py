@@ -8,10 +8,9 @@ series: the same status, Content-Type and body for ``/metrics`` and ``/``,
 ``/config``, an unknown path, and each ``POST /config`` case. Where the
 module behind a route (``serving.reqtrace``, ``health``, ``confbus``) is
 not ported, the reference is made to miss it too, so both take their
-fallback branches. ``/doctor`` answers 501 with a JSON error naming the
-missing profiler (the reference would drop the connection: ROADMAP.md
-section C), the one answer not held against the reference; unknown paths
-404 without a log line. ``POST /config`` is gated by
+fallback branches. ``/doctor`` serves ``hvd.doctor()``, the reference's
+report but the suggestion texts the port rewrites (ROADMAP.md section C);
+unknown paths 404 without a log line. ``POST /config`` is gated by
 ``HOROVOD_SERVE_AUTH_TOKEN`` (403 with none configured, 401 on a
 mismatch, 400 on a malformed body, 500 while the config bus is absent)
 and never echoes the token. ``fallback_ports`` retries the next ports.
@@ -223,13 +222,34 @@ def test_unported_modules_give_the_references_fallback(server, path):
     assert ctype == "application/json"
 
 
-def test_doctor_is_501_until_the_profiler_is_ported(server):
-    code, ctype, body = _get(server.url + "/doctor")
-    assert (code, ctype) == (501, "application/json")
-    doc = json.loads(body)
-    assert doc["ok"] is False
-    assert "horovod_tpu_torch.profiler" in doc["error"]
-    assert "9b" in doc["error"]
+def test_doctor_serves_the_profilers_report(server, ref_server, unported,
+                                            same_series):
+    """``/doctor`` serves ``hvd.doctor()`` (the health plane is not ported,
+    so the one-shot report), as the reference's route serves its own: with
+    the same series and the same planted recompile, the same findings but
+    the recompile suggestion the port rewrites (ROADMAP.md section C)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu import profiler as RP
+    from horovod_tpu_torch import profiler as PP
+    for prof in (PP, RP):
+        prof.registry.reset()
+        prof.note_trace("train_step", {"tokens": "int64[8, 1024]"})
+        prof.note_trace("train_step", {"tokens": "int64[4, 1024]"})
+    try:
+        code, ctype, body = _get(server.url + "/doctor")
+        ref = _get(ref_server.url + "/doctor")
+        assert (code, ctype) == ref[:2] == (200, "application/json")
+        got, want = json.loads(body), json.loads(ref[2])
+        assert got == json.loads(json.dumps(hvd.doctor(), default=str))
+        assert [f["category"] for f in got["findings"]] == ["recompile"]
+        assert got["findings"][0]["evidence"]["blamed_arguments"] == \
+            ["tokens"]
+        for f in (got, want):
+            f["findings"][0].pop("suggestion")
+        assert got == want
+    finally:
+        for prof in (PP, RP):
+            prof.registry.reset()
 
 
 @pytest.mark.parametrize("method,path", [("GET", "/nope"),

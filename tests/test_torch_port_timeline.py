@@ -7,9 +7,9 @@ as such: the reference's eager payload is the stacked (8, ...) array of its
 ``tensor[r]`` convention, so its ``bytes`` on the collective and QUEUE
 events is 8 times the port's per-rank payload; and ``epoch`` is each
 package's own init count. The reference's ``allreduce_algorithm`` marker
-belongs to its algorithm axis (``ROADMAP.md`` section A item 4), and its
-profiler's ``recompile`` marker to its profiler (item 9); neither is
-ported, so both are left out of the comparison.
+belongs to its algorithm axis (``ROADMAP.md`` section A item 4) and is left
+out of that comparison. The profiler's ``recompile`` marker is held
+against the reference's on the same call sequence.
 
 The port's timeline always leaves valid JSON: after a flush that raised,
 after an argument that cannot be written, and per rank in a world larger
@@ -34,7 +34,7 @@ from horovod_tpu_torch import timeline as PT
 from horovod_tpu_torch import tracing as PTR
 
 N = 8                                  # devices of the reference's mesh
-NOT_PORTED = {"allreduce_algorithm", "recompile"}
+NOT_PORTED = {"allreduce_algorithm"}
 
 
 def _events(path):
@@ -99,6 +99,42 @@ def test_one_allreduce_gives_the_reference_events(tmp_path, shape,
     n_buckets = 1 if threshold is None else 4
     assert names == sorted(["allreduce", "QUEUE", "EXEC"]
                            + ["fusion_flush"] * n_buckets)
+
+
+_CALLS = [({"x": "float32[8]", "n": "8"}, False),
+          ({"x": "float32[8]", "n": "8"}, False),
+          ({"x": "float32[8]", "n": "4"}, False),
+          ({"x": "float32[4]", "n": "4"}, False),
+          ({"x": "float32[8]", "n": "8"}, False),
+          ({"t": "1"}, True), ({"t": "2"}, True)]
+
+
+def test_recompile_markers_match_reference(tmp_path):
+    """The same note_trace sequence under each package's timeline leaves
+    the same ``recompile`` markers: program, blamed arguments and the old
+    -> new detail."""
+    from horovod_tpu import profiler as JP
+    from horovod_tpu_torch import profiler as PP
+    got = {}
+    for side, prof, tl in (("port", PP, PT), ("ref", JP, JT)):
+        prof.registry.reset()
+        path = tmp_path / f"{side}.json"
+        tl.start_timeline(str(path))
+        try:
+            for sig, expected in _CALLS:
+                prof.note_trace("tuned" if expected else "step", sig,
+                                expected=expected)
+        finally:
+            tl.stop_timeline()
+            prof.registry.reset()
+        got[side] = [e for e in _events(path) if e["name"] == "recompile"]
+    assert got["port"] == got["ref"]
+    # the return to (8, 8) revisits a seen signature: no marker
+    assert [e["args"]["arguments"] for e in got["port"]] == [
+        ["n"], ["x"], ["t"]]
+    assert got["port"][0]["cat"] == "profiler"
+    assert got["port"][0]["args"] == {"program": "step", "arguments": ["n"],
+                                      "detail": "n: 8 -> 4"}
 
 
 def test_spans_match_reference():
