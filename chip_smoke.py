@@ -369,14 +369,40 @@ Phases, in order; any failure exits nonzero and prints no result:
    answers 200 with the same findings, ``doctor_window`` over a
    ``LocalSampler`` store has the reference's report shape. Without phase
    3 it runs phase 3's path itself first.
+19. The flight recorder (``blackbox.py``): (a) on a new one-rank NCCL
+   world under ``HOROVOD_BLACKBOX=1``, ``HOROVOD_PROFILE_ON_STALL=1`` and
+   a timeline, ``init`` arms the recorder and its SIGTERM handler; phase
+   3's GPT-2 medium for 5 steps: phase 3's losses bit for bit, 24
+   launches of each kernel a step, the step time beside phase 3's and, on
+   the same model, 5 steps with the recorder's feeds stopped and 5 armed
+   again; then a
+   stall planted as phase 6's while steps run, a 1 s watchdog scanning
+   every 0.05 s through the triggered capture and its stop's hold: exactly
+   one stall report, one capture and one ``stall`` bundle, whose manifest
+   lists every file, whose trace tail merges with ``trace_merge`` (the
+   stall marker and EXEC phases in it), whose ``metrics.window.json``
+   feeds ``profiler.doctor`` and which ``postmortem_report`` ranks
+   ``stall`` first; a ``dump_postmortem()`` while another thread holds
+   ``metrics.registry._lock`` completes with ``sampled_final`` false, and
+   ``blackbox_dumps_total`` counts stall 1 and manual 1; the bundle's
+   bytes and the dump's ms; (b) ``tools/torch_elastic_worker.py`` at
+   GPT-2 medium's width and ``BLACKBOX_WORKER_LAYERS`` layers, one rank,
+   under ``kill@rank=0,step=3``: exit -9 after steps 0-2, one ``fault``
+   bundle published before the SIGKILL, and ``tools/torch_postmortem.py
+   --json`` exits 2 with cause ``fault_kill`` naming rank 0 and step 3;
+   (c) the same worker sent SIGTERM after two steps: exit -15 (the
+   handler re-delivers it), one ``signal`` bundle whose ``stacks.txt``
+   holds the training frame on the main thread, and how long the handler
+   ran after the signal was sent. Without phase 3 it runs phase 3's path
+   itself first.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
 BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
 (a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
-phase 12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's
-and phase 18's paths, each counted from 0 just
+phase 12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's,
+phase 18's and phase 19's paths, each counted from 0 just
 before the path and read just after) and their sum, and its numbers at
 each new path's shape (phases 5, 9, 10 (a), 13, 14 and 16). The last line is
 ``{"ok": true,
@@ -386,7 +412,8 @@ its own run without remat); ``--phases 1,10`` runs phase 10 alone;
 ``--phases 1,11`` phase 11 alone; ``--phases 1,12`` phase 12 alone;
 ``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone;
 ``--phases 1,15`` phase 15 alone; ``--phases 1,16`` phase 16 alone;
-``--phases 1,17`` phase 17 alone; ``--phases 1,18`` phase 18 alone.
+``--phases 1,17`` phase 17 alone; ``--phases 1,18`` phase 18 alone;
+``--phases 1,19`` phase 19 alone.
 """
 
 from __future__ import annotations
@@ -1561,9 +1588,16 @@ def packed_batch(b, t, vocab, seed=0):
 
 
 def _gpt2_medium(dev, **cfg_extra):
-    """GPT-2 medium with flash attention and the main path's weights."""
+    """GPT-2 medium with flash attention and the main path's weights; at
+    another depth (``num_layers``, phase 19 (b) and (c)'s workers) with
+    weights of its own from seed 0."""
     import torch
     from horovod_tpu_torch.models import get_model
+    if "num_layers" in cfg_extra:
+        with torch.device(dev):
+            return get_model("gpt2", num_heads=16, d_model=1024,
+                             attention="flash", generator=torch.Generator(
+                                 device=dev).manual_seed(0), **cfg_extra)
     if not _GPT2_MEDIUM_CPU:
         cpu = get_model("gpt2_medium", attention="flash",
                         generator=torch.Generator().manual_seed(0))
@@ -6671,6 +6705,414 @@ def phase_profiler(card, main_path):
             "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 19
+
+BLACKBOX_WORKER_LAYERS = 4   # (b) and (c): GPT-2 medium's width, 4 layers
+BLACKBOX_WAIT_S = 120.0      # (b) and (c): a worker's whole life
+# (a)'s watchdog: well under the triggered capture's ~3 s stop, whose hold
+# it must not read as a second stall. At phase 6's 0.2 s a real bucket's
+# dispatch, delayed while the stall's bundle was written on the watchdog's
+# thread, read as a second stall on the H100 (PERF.md section 6).
+BLACKBOX_STALL_TIMEOUT_S = 1.0
+
+
+def _bundle_bytes(bundle):
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(bundle) for f in files)
+
+
+def _blackbox_worker(root, name, plan=None, steps=5):
+    """Phase 19 (b) / (c): ``tools/torch_elastic_worker.py`` at GPT-2
+    medium's width, ``BLACKBOX_WORKER_LAYERS`` deep, one rank, under
+    ``HOROVOD_BLACKBOX=1`` and a timeline, in a directory of its own;
+    returns (its directory, the process)."""
+    import os
+    d = os.path.join(root, name)
+    os.makedirs(os.path.join(d, "state"))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "HVD_TPU_"))
+           and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_SIZE",
+                         "MASTER_ADDR", "MASTER_PORT")}
+    env.update(HOROVOD_BLACKBOX="1",
+               HOROVOD_BLACKBOX_DIR=os.path.join(d, "blackbox"),
+               HOROVOD_TIMELINE=os.path.join(d, "timeline.json"),
+               HVD_TPU_ELASTIC_STATE_DIR=os.path.join(d, "state"))
+    if plan:
+        env["HOROVOD_FAULT_PLAN"] = plan
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_elastic_worker.py")
+    log = open(os.path.join(d, "worker.log"), "w")
+    p = subprocess.Popen(
+        [sys.executable, tool, "--model", "gpt2_medium", "--layers",
+         str(BLACKBOX_WORKER_LAYERS), "--steps", str(steps)],
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log, stderr=subprocess.STDOUT)
+    return d, p
+
+
+def _unlisted(bundle, manifest):
+    """The files a bundle holds that its manifest does not list, and those
+    it lists that the bundle does not hold."""
+    import os
+    held = {os.path.relpath(os.path.join(d, f), bundle)
+            for d, _, files in os.walk(bundle) for f in files}
+    listed = set(manifest["files"])
+    return sorted(held - listed), sorted(listed - held)
+
+
+def _worker_steps(d):
+    import os
+    path = os.path.join(d, "state", "steps.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip() and '"step"' in x]
+
+
+def _one_bundle(d, trigger, tag):
+    import os
+    from horovod_tpu_torch import blackbox
+    found = blackbox.find_bundles(os.path.join(d, "blackbox"))
+    if len(found) != 1:
+        with open(os.path.join(d, "worker.log")) as f:
+            tail = f.read()[-3000:]
+        fail(f"phase 19 {tag}: {len(found)} bundles ({found}), not one; the "
+             f"worker's log ends: {tail}")
+    with open(os.path.join(found[0], "manifest.json")) as f:
+        manifest = json.load(f)
+    extra, missing = _unlisted(found[0], manifest)
+    if extra or missing:
+        fail(f"phase 19 {tag}: the bundle holds {extra} beyond its "
+             f"manifest, which lists {missing} not in it")
+    if manifest["trigger"] != trigger:
+        fail(f"phase 19 {tag}: the bundle's trigger is "
+             f"{manifest['trigger']!r}, not {trigger!r}")
+    return found[0], manifest
+
+
+def phase_blackbox(card, main_path):
+    """Phase 19: the flight recorder on the card. (a) phase 3's GPT-2
+    medium under ``HOROVOD_BLACKBOX=1`` and a timeline on a new one-rank
+    NCCL world, a stall planted while it trains; (b) a fault-plan kill and
+    (c) SIGTERM of the elastic worker. Without phase 3 it runs phase 3's
+    path itself first."""
+    import faulthandler
+    import os
+    import tempfile
+    import threading
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import blackbox, config, metrics, profiler
+    from horovod_tpu_torch import trace_merge
+    from horovod_tpu_torch.models.gpt2 import loss_fn
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
+    t_phase = time.perf_counter()
+    if main_path is None:
+        main_path = phase_main_path(card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase19_")
+    bb = os.path.join(tmp, "blackbox")
+    # One triggered capture more than the process has taken (phase 18's
+    # count against the same budget).
+    env = dict(HOROVOD_BLACKBOX="1", HOROVOD_BLACKBOX_DIR=bb,
+               HOROVOD_PROFILE_ON_STALL="1",
+               HOROVOD_PROFILE_SECONDS=str(PROFILE_SECONDS),
+               HOROVOD_PROFILE_DIR=os.path.join(tmp, "profile"),
+               HOROVOD_PROFILE_MAX_CAPTURES=str(
+                   profiler.profile_capture_count() + 1))
+    os.environ.update(env)
+    hooks = (signal.getsignal(signal.SIGTERM),
+             signal.getsignal(signal.SIGABRT), sys.excepthook)
+    blackbox.reset()
+    hvd.start_timeline(os.path.join(tmp, "trace.json"))
+    hvd.init()
+    rec = blackbox.get()
+    if hvd.backend() != "nccl" or hvd.size() != 1 or rec is None or \
+            (rec.rank, rec.world) != (0, 1) or \
+            signal.getsignal(signal.SIGTERM) != rec._on_fatal_signal or \
+            not faulthandler.is_enabled():
+        fail(f"phase 19 (a): init under HOROVOD_BLACKBOX=1 gave "
+             f"{hvd.backend()} x {hvd.size()}, recorder {rec}, SIGTERM "
+             f"handler {signal.getsignal(signal.SIGTERM)}")
+    dev = hvd.device()
+    model, opt, _, info = build_path("gpt2_medium", dev)
+    tokens = info["inputs"]
+
+    def step():
+        opt.zero_grad()
+        loss = loss_fn(model(tokens), tokens)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss
+
+    # (a) phase 3's path with the recorder armed: its rings fill from the
+    # timeline's tap and the sampler thread while the steps run
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    losses, ms = [], []
+    for i in range(5):
+        before = dict(fa.launches)
+        t0 = time.perf_counter()
+        loss = step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
+        if grew != info["launches"]:
+            fail(f"phase 19 (a): step {i} launched {grew}, not "
+                 f"{info['launches']}")
+    launches = dict(fa.launches)
+    if losses != main_path["losses"]:
+        fail(f"phase 19 (a): losses {losses} are not phase 3's "
+             f"{main_path['losses']} bit for bit")
+    armed_ms = statistics.median(ms[1:])
+    rings = (len(rec.timeline_ring), rec.timeline_ring.nbytes,
+             len(rec.snapshots))
+    # The recorder's cost in this process's state: its feeds (the timeline
+    # tap and the sampler thread) stopped for 5 steps, then armed again.
+    ab = {}
+    for tag in ("feeds_off", "armed_again"):
+        (rec.stop if tag == "feeds_off" else rec.start)()
+        ab[tag] = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            ab[tag].append((time.perf_counter() - t0) * 1e3)
+    ab = {k: statistics.median(v[1:]) for k, v in ab.items()}
+    log(f"phase 19 (a): GPT-2 medium under HOROVOD_BLACKBOX=1 and a "
+        f"timeline: losses phase 3's bit for bit, launches a step "
+        f"{info['launches']}; step {armed_ms:.2f} ms median (host clock after "
+        f"synchronize) against phase 3's {main_path['step_ms_median']:.2f}; "
+        f"then, on the same model, {ab['feeds_off']:.2f} ms with the "
+        f"recorder's feeds stopped and {ab['armed_again']:.2f} armed again; "
+        f"rings after the first 5 steps: {rings[0]} timeline events "
+        f"({rings[1]} bytes), {rings[2]} snapshots; on {card}")
+
+    # The planted stall (phase 6's pattern) while steps run, under
+    # HOROVOD_PROFILE_ON_STALL=1: one report, one capture whose stop holds
+    # the training loop while the watchdog keeps scanning, one bundle.
+    def counts():
+        snap = metrics.snapshot()
+        return {t: _counter(snap, "blackbox_dumps_total", trigger=t)
+                for t in ("stall", "manual")}, \
+            _counter(snap, "profile_capture_total"), \
+            _counter(snap, "stall_events_total")
+
+    dumps0, captures0, stalls0 = counts()
+    fires, dumped = [], []
+    dump = rec.dump
+
+    def timed_dump(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return dump(*a, **kw)
+        finally:
+            dumped.append((kw.get("trigger"), time.perf_counter() - t0))
+
+    rec.dump = timed_dump
+    dog = metrics.StallWatchdog(
+        timeout_s=BLACKBOX_STALL_TIMEOUT_S, poll_s=0.05,
+        on_stall=lambda report: fires.append(
+            (report["tensor"], round(report["pending_s"], 3))))
+    token = metrics.collective_begin("allreduce", name="phase19/stuck",
+                                     nbytes=4)
+    dog.start()
+    n, after, step_ms = 0, None, []
+    try:
+        while n < 60:
+            t0 = time.perf_counter()
+            step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            n += 1
+            if after is None and fires and not profiler._PROFILE_ACTIVE \
+                    and rec.last_bundle is not None:
+                after = n
+            if after is not None and n >= after + 3:
+                break
+    finally:
+        metrics.collective_end(token)
+        dog.stop()
+    dumps1, captures1, stalls1 = counts()
+    bundles = blackbox.find_bundles(bb)
+    if [f[0] for f in fires] != ["phase19/stuck"] or \
+            stalls1 - stalls0 != 1 or \
+            captures1 - captures0 != 1 or dumps1["stall"] - \
+            dumps0["stall"] != 1 or len(bundles) != 1 or after is None:
+        fail(f"phase 19 (a): the planted stall gave reports {fires}, "
+             f"+{stalls1 - stalls0} stall events, +{captures1 - captures0} "
+             f"captures, +{dumps1['stall'] - dumps0['stall']} stall dumps, "
+             f"bundles {bundles}, in {n} steps (dumps and their seconds "
+             f"{dumped}); want one of each")
+    bundle = bundles[0]
+    with open(os.path.join(bundle, "manifest.json")) as f:
+        manifest = json.load(f)
+    extra, missing = _unlisted(bundle, manifest)
+    if manifest["trigger"] != "stall" or extra or missing or \
+            manifest["timeline_events"] < 1:
+        fail(f"phase 19 (a): stall bundle manifest {manifest}; files not "
+             f"listed {extra}, listed and missing {missing}")
+    merged = trace_merge.merge_timelines(os.path.join(bundle, "trace"),
+                                         feed_metrics=False)
+    names = {e.get("name") for e in merged["traceEvents"]}
+    if "collective_stall" not in names or "EXEC" not in names:
+        fail(f"phase 19 (a): the trace tail merged to {len(names)} names "
+             f"without the stall marker or an EXEC phase: "
+             f"{sorted(map(str, names))[:40]}")
+    with open(os.path.join(bundle, "metrics.window.json")) as f:
+        window = json.load(f)
+    doc = profiler.doctor(snapshot=window, trace=None, programs={})
+    report = blackbox.postmortem_report(bundle)
+    if "findings" not in doc or not report["findings"] or \
+            report["findings"][0]["category"] != "stall" or \
+            report["cause"] is None:
+        fail(f"phase 19 (a): the postmortem of the stall bundle ranks "
+             f"{[(f['category'], f['severity']) for f in report['findings']]}"
+             f", not stall first")
+    stall_bytes = _bundle_bytes(bundle)
+    log(f"phase 19 (a): the planted stall: one report, one triggered "
+        f"capture, one stall bundle in {n} steps (step ms median "
+        f"{statistics.median(step_ms):.1f}, max {max(step_ms):.1f}: the "
+        f"capture's stop held the loop while a {BLACKBOX_STALL_TIMEOUT_S} s "
+        f"watchdog scanned); the stall's dump took {dumped[0][1]:.3f} s on "
+        f"the watchdog's thread; the bundle {stall_bytes} bytes, "
+        f"{len(manifest['files'])}"
+        f" files, {manifest['snapshots']} snapshots, "
+        f"{manifest['timeline_events']} timeline events; its trace tail "
+        f"merged ({len(merged['traceEvents'])} events); "
+        f"postmortem_report ranks "
+        f"{[(f['rank'], f['category']) for f in report['findings']]}; "
+        f"on {card}")
+
+    # A dump while another thread holds the registry lock: it completes,
+    # skips the final sample and defers its count.
+    held, release = threading.Event(), threading.Event()
+
+    def hog():
+        with metrics.registry._lock:
+            held.set()
+            release.wait(30.0)
+
+    t = threading.Thread(target=hog, daemon=True)
+    t.start()
+    held.wait(10.0)
+    t0 = time.perf_counter()
+    try:
+        manual = blackbox.dump_postmortem(note="phase 19 (a)")
+    finally:
+        dump_s = time.perf_counter() - t0
+        release.set()
+        t.join(10.0)
+    rec.dump = dump
+    if manual is None:
+        fail("phase 19 (a): the dump with the registry lock held was "
+             "refused")
+    with open(os.path.join(manual, "manifest.json")) as f:
+        sampled = json.load(f)["sampled_final"]
+    deadline = time.monotonic() + 10.0
+    while counts()[0]["manual"] - dumps0["manual"] < 1 and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+    dumps2 = counts()[0]
+    if sampled is not False or {k: dumps2[k] - dumps0[k] for k in dumps2} \
+            != {"stall": 1, "manual": 1}:
+        fail(f"phase 19 (a): the locked dump's sampled_final {sampled}; "
+             f"blackbox_dumps_total grew {dumps0} -> {dumps2}")
+    log(f"phase 19 (a): a dump_postmortem() with the registry lock held by "
+        f"another thread completed in {dump_s * 1e3:.1f} ms "
+        f"(sampled_final false, {_bundle_bytes(manual)} bytes); "
+        f"blackbox_dumps_total counts stall 1 and manual 1; on {card}")
+    del model, opt
+    hvd.stop_timeline()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    blackbox.reset()
+    signal.signal(signal.SIGTERM, hooks[0])
+    signal.signal(signal.SIGABRT, hooks[1])
+    sys.excepthook = hooks[2]
+    faulthandler.disable()
+    for k in env:
+        os.environ.pop(k)
+    config.refresh()
+
+    # (b) a fault-plan kill and (c) SIGTERM, two workers side by side
+    kill_dir, killed = _blackbox_worker(tmp, "kill", "kill@rank=0,step=3")
+    term_dir, termed = _blackbox_worker(tmp, "sigterm", steps=1000)
+    deadline = time.monotonic() + BLACKBOX_WAIT_S
+    while len(_worker_steps(term_dir)) < 2 and termed.poll() is None and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    sent = time.time()
+    termed.send_signal(signal.SIGTERM)
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in (killed, termed)]
+    except subprocess.TimeoutExpired:
+        for p in (killed, termed):
+            p.kill()
+            p.wait()
+        fail("phase 19 (b)-(c): a worker outlived "
+             f"{BLACKBOX_WAIT_S:.0f} s")
+    kill_steps = [r["step"] for r in _worker_steps(kill_dir)]
+    if rcs[0] != -signal.SIGKILL or kill_steps != [0, 1, 2]:
+        fail(f"phase 19 (b): the planted kill exited {rcs[0]} after steps "
+             f"{kill_steps}; want -9 after 0, 1, 2")
+    kill_bundle, kill_manifest = _one_bundle(kill_dir, "fault", "(b)")
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_postmortem.py")
+    r = subprocess.run([sys.executable, tool, "--json", "--dir",
+                        os.path.join(kill_dir, "blackbox")],
+                       capture_output=True, text=True, timeout=120)
+    cause = json.loads(r.stdout)["cause"] if r.stdout.strip() else None
+    if r.returncode != 2 or cause is None or \
+            cause["category"] != "fault_kill" or \
+            not cause["title"].startswith("rank 0 kill") or \
+            "kill@rank=0,step=3" not in cause["detail"]:
+        fail(f"phase 19 (b): tools/torch_postmortem.py exited "
+             f"{r.returncode} with cause {cause}; {r.stderr[-2000:]}")
+    log(f"phase 19 (b): the elastic worker (GPT-2 medium width, "
+        f"{BLACKBOX_WORKER_LAYERS} layers) under kill@rank=0,step=3 exited "
+        f"-9 after steps 0-2 and published a fault bundle first "
+        f"({_bundle_bytes(kill_bundle)} bytes, "
+        f"{kill_manifest['timeline_events']} timeline events); "
+        f"tools/torch_postmortem.py --json exits 2: {cause['title']} "
+        f"({cause['detail']}); on {card}")
+    term_steps = _worker_steps(term_dir)
+    if rcs[1] != -signal.SIGTERM or len(term_steps) < 2:
+        fail(f"phase 19 (c): SIGTERM after {len(term_steps)} steps gave exit "
+             f"{rcs[1]}, not -{int(signal.SIGTERM)}")
+    term_bundle, term_manifest = _one_bundle(term_dir, "signal", "(c)")
+    with open(os.path.join(term_bundle, "stacks.txt")) as f:
+        stacks = f.read()
+    main_stack = stacks.split("(MainThread):\n", 1)[-1].split("\n\n", 1)[0]
+    if "torch_elastic_worker.py" not in main_stack or \
+            "in train" not in main_stack:
+        fail(f"phase 19 (c): stacks.txt holds no training frame on the main "
+             f"thread: {main_stack[-2000:]}")
+    waited = term_manifest["ts"] - sent
+    # The frame the handler interrupted: the one just above the handler's.
+    frames = main_stack.split("  File ")
+    handler = next(i for i, f in enumerate(frames)
+                   if "in _on_fatal_signal" in f)
+    interrupted = " ".join(frames[handler - 1].split())
+    log(f"phase 19 (c): SIGTERM to the worker after {len(term_steps)} "
+        f"steps: exit -{int(signal.SIGTERM)} kept (the handler re-delivers "
+        f"it), a signal bundle ({_bundle_bytes(term_bundle)} bytes) whose "
+        f"stacks hold the training frame; the handler ran {waited:.3f} s "
+        f"after the signal was sent, behind {interrupted}; on {card}")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"losses": losses, "step_ms": ms, "armed_ms_median": armed_ms,
+            "feeds_off_ms_median": ab["feeds_off"],
+            "armed_again_ms_median": ab["armed_again"],
+            "phase3_step_ms_median": main_path["step_ms_median"],
+            "stall_steps": n, "stall_step_ms_max": max(step_ms),
+            "stall_dump_s": dumped[0][1],
+            "stall_bundle_bytes": stall_bytes, "locked_dump_s": dump_s,
+            "kill_bundle_bytes": _bundle_bytes(kill_bundle),
+            "signal_bundle_bytes": _bundle_bytes(term_bundle),
+            "signal_wait_s": waited, "signal_interrupted": interrupted,
+            "launches": launches}
+
+
 def _gauge_value(snap, name, **labels):
     for s in snap["gauges"].get(name, []):
         if all(str(s["labels"].get(k)) == str(v) for k, v in labels.items()):
@@ -6681,10 +7123,11 @@ def _gauge_value(snap, name, **labels):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                            "19",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18; 6, "
-                         "7 and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19; "
+                         "6, 7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -6782,6 +7225,10 @@ def main(argv=None) -> int:
         prof = phase_profiler(card, main_path if 3 in phases else None)
         launches["gpt2_medium_instrumented"] = prof.pop("launches")
         print(json.dumps({"phase18": prof}, default=str), flush=True)
+    if 19 in phases:
+        box = phase_blackbox(card, main_path if 3 in phases else None)
+        launches["gpt2_medium_blackbox"] = box.pop("launches")
+        print(json.dumps({"phase19": box}, default=str), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

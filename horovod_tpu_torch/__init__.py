@@ -34,7 +34,10 @@ endpoint (``/metrics``, ``/metrics.json``, ``/trace``, ``/healthz``,
 recompile blame, FLOPs from a cost capture, mfu / hfu on the card's peaks),
 memory accounting and ``torch.profiler`` captures (``profile``, and one
 bounded capture a stall under ``HOROVOD_PROFILE_ON_STALL``), and
-``doctor()`` ranks what looks sick. The allreduce algorithm axis
+``doctor()`` ranks what looks sick; ``blackbox`` is the flight recorder
+(``HOROVOD_BLACKBOX``): a stall, a fault-plan kill, SIGTERM or
+``dump_postmortem()`` publishes a bundle that ``postmortem_report``
+(``tools/torch_postmortem.py``) ranks the root cause of. The allreduce algorithm axis
 (``overlap.py``: ``algorithm=`` ``psum``, ``rs_ag``, ``chunked_rs_ag``,
 their ``_int8`` / ``_fp8`` quantized forms, the ``_2d`` forms over
 ``topology()``, ``swing``, or ``auto``; ``wire=`` and ``overlap_chunks=``;
@@ -106,6 +109,13 @@ from horovod_tpu_torch import timeseries  # noqa: E402,F401
 # hvd.doctor, hvd.profile).
 from horovod_tpu_torch import profiler  # noqa: E402,F401
 from horovod_tpu_torch.profiler import doctor, profile  # noqa: E402,F401
+# The flight recorder and postmortem plane (hvd.blackbox): bounded rings
+# under HOROVOD_BLACKBOX, crash-time bundles (hvd.dump_postmortem) and the
+# offline root-cause report (hvd.postmortem_report; CLI:
+# tools/torch_postmortem.py).
+from horovod_tpu_torch import blackbox  # noqa: E402,F401
+from horovod_tpu_torch.blackbox import (  # noqa: E402,F401
+    dump_postmortem, postmortem_report)
 # Fault tolerance: elastic states and the run decorator (hvd.elastic), async
 # sharded checkpoints (hvd.checkpoint_sharded), full-state checkpoints
 # (hvd.checkpoint) and the fault plan (hvd.faults).
@@ -151,5 +161,6 @@ __all__ = [
     "broadcast_variables", "grad", "value_and_grad", "ShardedAdamWState",
     "sharded_adamw", "parallel", "mesh2d", "mesh_spec", "dp_size",
     "mp_size", "dp_rank", "mp_rank", "merge_timelines", "metrics_http",
-    "timeseries", "profiler", "doctor", "profile",
+    "timeseries", "profiler", "doctor", "profile", "blackbox",
+    "dump_postmortem", "postmortem_report",
 ]

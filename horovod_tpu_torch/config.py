@@ -69,8 +69,22 @@ not at the first collective.
 * ``HOROVOD_SERVE_AUTH_TOKEN`` -- the shared secret that gates
   ``POST /config`` on the scrape endpoint (``metrics.metrics_http``): at
   least 8 characters, refused otherwise, and never echoed (not in an
-  error, not in the config's ``repr``). The reference's transport hello
-  reads it too (ROADMAP.md section A item 10).
+  error, not in the config's ``repr``, not in a postmortem bundle's
+  ``config.json``). The reference's transport hello reads it too
+  (ROADMAP.md section A item 10).
+* ``HOROVOD_BLACKBOX`` -- arms the flight recorder (``blackbox.py``):
+  bounded rings of the last ``HOROVOD_BLACKBOX_SECONDS`` (120, > 0) of
+  timeline events, registry snapshots, alerts and fault injections.
+  Bundles publish into ``HOROVOD_BLACKBOX_DIR`` (default
+  ``<tmpdir>/horovod_blackbox``) as ``postmortem-<label>-<ts>/``
+  directories, at most ``HOROVOD_BLACKBOX_MAX_BUNDLES`` (8) kept, oldest
+  evicted first. ``HOROVOD_BLACKBOX_DUMP_ON`` picks the automatic
+  triggers that publish (a comma list of ``signal``, ``stall``,
+  ``alert``, ``engine``, ``fault``; ``none`` or ``off`` leaves only
+  explicit ``dump_postmortem()``); an unknown trigger raises.
+  ``HOROVOD_FAULTHANDLER=0`` keeps ``init()`` from pointing the stdlib
+  ``faulthandler`` at the blackbox directory. ``HOROVOD_HEALTH_ALERTS_FILE``
+  -- the alerts log whose rotation-aware tail a bundle carries.
 """
 
 from __future__ import annotations
@@ -112,6 +126,13 @@ def _env_posint(name: str, default: int) -> int:
     if n < 1:
         raise ValueError(f"{name}={n}: must be >= 1")
     return n
+
+
+def _env_posfloat(name: str, default: float) -> float:
+    x = _env_float(name, default)
+    if x <= 0:
+        raise ValueError(f"{name}={x:g}: must be > 0")
+    return x
 
 
 def _env_int(name: str, default: int) -> int:
@@ -161,6 +182,13 @@ class Config:
     preemption_notice_seconds: float = 30.0
     fault_plan: str = ""
     serve_auth_token: str = field(default="", repr=False)
+    health_alerts_file: Optional[str] = None
+    blackbox: bool = False
+    blackbox_seconds: float = 120.0
+    blackbox_dir: Optional[str] = None
+    blackbox_max_bundles: int = 8
+    blackbox_dump_on: str = "signal,stall,alert,engine,fault"
+    faulthandler_enable: bool = True
 
 
 def _env_algorithm() -> str:
@@ -237,6 +265,24 @@ def _env_fault_plan() -> str:
         from horovod_tpu_torch.faults import parse_plan
         parse_plan(v)   # grammar check: a bad plan fails here, at init
     return v
+
+
+_DUMP_ON_TOKENS = ("signal", "stall", "alert", "engine", "fault")
+
+
+def _env_dump_on() -> str:
+    v = os.environ.get("HOROVOD_BLACKBOX_DUMP_ON")
+    if v is None or not v.strip():
+        return ",".join(_DUMP_ON_TOKENS)
+    if v.strip().lower() in ("none", "off"):
+        return ""
+    toks = [t.strip().lower() for t in v.split(",") if t.strip()]
+    bad = sorted(set(toks) - set(_DUMP_ON_TOKENS))
+    if bad:
+        raise ValueError(
+            f"HOROVOD_BLACKBOX_DUMP_ON: unknown trigger(s) {bad}; "
+            f"choose from {', '.join(_DUMP_ON_TOKENS)} (or 'none')")
+    return ",".join(dict.fromkeys(toks))
 
 
 def _env_auth_token() -> str:
@@ -320,7 +366,16 @@ def _read() -> Config:
         preemption_notice_seconds=max(
             0.0, _env_float("HOROVOD_PREEMPTION_NOTICE", 30.0)),
         fault_plan=_env_fault_plan(),
-        serve_auth_token=_env_auth_token())
+        serve_auth_token=_env_auth_token(),
+        health_alerts_file=os.environ.get("HOROVOD_HEALTH_ALERTS_FILE")
+        or None,
+        blackbox=_env_bool("HOROVOD_BLACKBOX"),
+        blackbox_seconds=_env_posfloat("HOROVOD_BLACKBOX_SECONDS", 120.0),
+        blackbox_dir=os.environ.get("HOROVOD_BLACKBOX_DIR") or None,
+        blackbox_max_bundles=_env_posint(
+            "HOROVOD_BLACKBOX_MAX_BUNDLES", 8),
+        blackbox_dump_on=_env_dump_on(),
+        faulthandler_enable=_env_bool("HOROVOD_FAULTHANDLER", True))
 
 
 _CONFIG: Optional[Config] = None

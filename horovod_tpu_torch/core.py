@@ -23,8 +23,9 @@ controller runs over MPI or Gloo beside its NCCL data plane). On a gloo
 world the world group serves. ``init`` also resets the negotiation history
 and the span ids, starts the timeline when ``HOROVOD_TIMELINE`` is set, runs
 the clock-anchor barrier in a world larger than one, and starts the metrics
-flusher and the stall watchdog (``metrics.on_init``); ``shutdown`` writes
-the timeline and stops them.
+flusher and the stall watchdog (``metrics.on_init``) and arms the flight
+recorder under ``HOROVOD_BLACKBOX`` (``blackbox.on_init``); ``shutdown``
+writes the timeline and stops them.
 
 ``init`` detects the world's topology (``parallel/mesh.py``:
 ``HOROVOD_TOPOLOGY``, else hosts x GPUs a host, else a ring; ``topology()``)
@@ -246,6 +247,11 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         _set_config_gauges(cfg, topo)
         _metrics.on_init(cfg, init_seconds=time.perf_counter() - t0,
                          world=_CTX.size)
+        # The flight recorder (HOROVOD_BLACKBOX): arm its rings, install
+        # the fatal-signal / excepthook dump triggers and point the stdlib
+        # faulthandler (HOROVOD_FAULTHANDLER=0 opts out) at its directory.
+        from horovod_tpu_torch import blackbox as _blackbox
+        _blackbox.on_init(cfg)
 
 
 def _make_phases(topo: tuple, rank: int) -> tuple:
@@ -309,6 +315,10 @@ def shutdown() -> None:
         # Stops the watchdog and the flusher (one last write); metric
         # values survive shutdown.
         _metrics.on_shutdown()
+        # Stops the recorder's feeds; its rings survive like metric values
+        # do, so a dump_postmortem() after shutdown still publishes.
+        from horovod_tpu_torch import blackbox as _blackbox
+        _blackbox.on_shutdown()
 
 
 def is_initialized() -> bool:

@@ -49,9 +49,11 @@ Each action is ``kind@key=value,key=value`` with:
 The network kinds are pure host logic, kept for the serving transport
 (``ROADMAP.md`` §A item 10), which has no port yet.
 
-Every fired action is timeline-marked (``FAULT``, category ``fault``) and
-counted in ``fault_injected_total{kind}``. Before a ``kill`` the timeline
-is flushed, best effort: SIGKILL runs no ``atexit`` and no handler.
+Every fired action is timeline-marked (``FAULT``, category ``fault``),
+counted in ``fault_injected_total{kind}`` and noted in the flight
+recorder's events ring. Before a ``kill`` the timeline is flushed and a
+``fault`` postmortem bundle published (``blackbox.py``), best effort:
+SIGKILL runs no ``atexit`` and no handler.
 """
 
 from __future__ import annotations
@@ -333,13 +335,20 @@ def partitioned(rank: int) -> bool:
 
 
 def _flush_evidence(action: FaultAction) -> None:
-    """Best-effort forensics before a SIGKILL: flush the timeline shard,
-    so that the survivors' merge shows where the victim went dark."""
+    """Best-effort forensics before a SIGKILL: flush the timeline shard
+    (the survivors' merge shows where the victim went dark) and publish a
+    flight-recorder bundle -- SIGKILL runs no atexit and no signal
+    handler, so this is the black box's only chance."""
     try:
         from horovod_tpu_torch import timeline as _tl
         t = _tl.get_timeline()
         if t is not None:
             t.flush()
+    except Exception:
+        pass
+    try:
+        from horovod_tpu_torch import blackbox
+        blackbox.dump_postmortem(trigger="fault", note=action.describe())
     except Exception:
         pass
 
@@ -351,6 +360,12 @@ def _fire(action: FaultAction) -> None:
                               kind=action.kind, rank=action.rank,
                               step=action.step,
                               seconds=action.seconds)
+    try:
+        from horovod_tpu_torch import blackbox
+        blackbox.note_fault(action.kind, rank=action.rank,
+                            step=action.step, detail=action.describe())
+    except Exception:
+        pass
     logger.warning("horovod_tpu_torch.faults: injecting %s",
                    action.describe())
     if action.kind == "crash_loop":

@@ -43,8 +43,9 @@ disagrees with its buckets (counters only grow, so no counter reads below
 an earlier scrape's either).
 
 A stall fire hands off to the profiler (``profiler.maybe_trigger``: one
-bounded capture under ``HOROVOD_PROFILE_ON_STALL=1``). Not ported yet
-(ROADMAP.md section A item 9c): the hand-off to the flight recorder.
+bounded capture under ``HOROVOD_PROFILE_ON_STALL=1``) and to the flight
+recorder (``blackbox.on_stall``: a ``stall`` bundle under
+``HOROVOD_BLACKBOX=1``, debounced).
 Importing this module starts no thread: ``init()`` starts the watchdog and
 the flusher.
 """
@@ -838,11 +839,20 @@ class StallWatchdog:
             except Exception:
                 logger.exception("stall callback failed")
         # HOROVOD_PROFILE_ON_STALL=1: one bounded capture of the stalled
-        # window (the profiler gates on the knob and its own budget). The
-        # reference also hands the stall to its flight recorder here
-        # (ROADMAP.md section A item 9c).
-        from horovod_tpu_torch import profiler as _profiler
-        _profiler.maybe_trigger(f"stall_{report['kind']}_{report['tensor']}")
+        # window (the profiler gates on the knob and its own budget).
+        try:
+            from horovod_tpu_torch import profiler as _profiler
+            _profiler.maybe_trigger(
+                f"stall_{report['kind']}_{report['tensor']}")
+        except Exception:
+            pass
+        # The flight recorder: ring the stall and publish a postmortem
+        # bundle (HOROVOD_BLACKBOX_DUMP_ON gates it, debounced).
+        try:
+            from horovod_tpu_torch import blackbox as _blackbox
+            _blackbox.on_stall(report)
+        except Exception:
+            pass
 
     def _loop(self) -> None:
         while not self._stop.wait(self._poll_s):
@@ -932,14 +942,14 @@ class MetricsHTTPServer:
     as a Chrome-trace document (empty ``traceEvents`` until request
     tracing is ported, ROADMAP.md section A item 10). ``GET /healthz``
     answers 200/503 from the health plane's alerts (``{"status": "ok",
-    "ok": true, "alerts": []}`` until it is ported, item 9c). ``GET
+    "ok": true, "alerts": []}`` until it is ported, item 9c-ii). ``GET
     /config`` serves the config bus's view (``{"epoch": 0, "values": {}}``
     until then); ``POST /config`` applies one ``confbus.set_config``
     mutation, gated on ``HOROVOD_SERVE_AUTH_TOKEN`` (403 with no token
     configured, 401 on a mismatch, 400 on a malformed body, 500 while the
     config bus is absent -- the token is never echoed). ``GET /doctor``
     serves the health plane's last windowed report, or while that plane
-    is not ported (item 9c) a one-shot ``profiler.doctor()``. Unknown
+    is not ported (item 9c-ii) a one-shot ``profiler.doctor()``. Unknown
     paths 404. Requests are
     not logged. Serves on daemon threads that read the registry only;
     :meth:`stop` shuts it down."""

@@ -522,7 +522,7 @@ class DistributedOptimizer:
         ``backward_passes_per_step > 1`` the k-th call's mask applies to
         the accumulated gradients and earlier calls' are not used. Without
         ``alive`` the value of :meth:`set_alive` applies, if any."""
-        _profiler.poll()
+        _profiler.poll(step=True)
         if alive is None:
             alive = self._alive
         if self._k > 1:

@@ -38,8 +38,9 @@ of metrics (aggregates) and the timeline (host spans):
   :func:`trigger_profile` -- a bounded capture fired by the StallWatchdog
   under ``HOROVOD_PROFILE_ON_STALL=1`` (at most
   ``HOROVOD_PROFILE_MAX_CAPTURES`` captures of ``HOROVOD_PROFILE_SECONDS``
-  each). Its session runs on the training (main) thread, started and
-  stopped by :func:`poll`, which each instrumented step and each
+  each). Its session runs on the training thread -- the thread that ran
+  the last step, the main thread until one has -- started and stopped by
+  :func:`poll`, which each instrumented step and each
   ``DistributedOptimizer.step`` call.
 * **Doctor** (:func:`doctor` / ``tools/torch_perf_doctor.py``): fuses the
   metrics snapshot, the merged cross-rank trace (straggler + overlap
@@ -704,7 +705,7 @@ class ProfiledStep:
         return sig
 
     def __call__(self, *args, **kwargs):
-        poll()
+        poll(step=True)
         sig = self._signature(args, kwargs)
         status, _ = registry.note_trace(self.name, sig, kind=self.kind)
         if status != "steady" and self._capture:
@@ -896,18 +897,34 @@ class _Session:
 @dataclass
 class _Triggered:
     """A triggered capture: pending until the training thread's next
-    :func:`poll` starts its session, then running until a poll after its
-    deadline (or a manual capture) stops it."""
+    :func:`poll` starts its session, then running until a poll of the
+    thread that started it, after its deadline (or a manual capture),
+    stops it."""
     reason: str
     seconds: float
     logdir: str
     gen: int
     session: Optional[_Session] = None
     deadline: float = 0.0
+    #: the thread that started the session: only it can stop it
+    thread: Optional[threading.Thread] = None
+
+
+#: the thread that ran the last step (``poll(step=True)``)
+_TRAINING_THREAD: Optional[threading.Thread] = None
 
 
 def _on_training_thread() -> bool:
-    return threading.current_thread() is threading.main_thread()
+    """Whether this thread trains: the one that ran the last step while
+    it lives, else the main thread (a loop that polls without steps)."""
+    t = _TRAINING_THREAD
+    if t is None or not t.is_alive():
+        t = threading.main_thread()
+    return threading.current_thread() is t
+
+
+def _owns_session(trig: "_Triggered") -> bool:
+    return threading.current_thread() is trig.thread
 
 
 def _start_trigger(trig: _Triggered) -> bool:
@@ -932,6 +949,7 @@ def _start_trigger(trig: _Triggered) -> bool:
                      trig.reason, e)
         return False
     trig.session, trig.deadline = session, time.monotonic() + trig.seconds
+    trig.thread = threading.current_thread()
     _metrics.event("profile_capture", reason=trig.reason, logdir=trig.logdir,
                    seconds=trig.seconds)
     logger.warning("horovod_tpu_torch: triggered profile capture (%s) -> %s "
@@ -956,34 +974,43 @@ def _stop_trigger(trig: _Triggered) -> None:
     _timeline_marker("profile_stop", logdir=trig.logdir)
 
 
-def poll() -> None:
-    """Start a pending triggered capture, or stop one whose seconds are up,
-    when called on the training (main) thread; elsewhere, and with no
-    triggered capture active, it does nothing (one read).
+def poll(step: bool = False) -> None:
+    """Start a pending triggered capture when called on the training
+    thread, or stop a running one whose seconds are up when called on the
+    thread that started it; elsewhere, and with no triggered capture
+    active, it does nothing (a read or two).
 
-    Each instrumented step (:class:`ProfiledStep`) and each
-    ``DistributedOptimizer.step`` calls it; a training loop of its own
-    calls it once a step. A triggered capture's session lives on the
-    training thread because on the H100 a session run on a thread of its
-    own crashed the process inside CUPTI's own thread in about one
-    capture of twelve, and at times recorded none of the kernels the
-    training thread launched (tools/torch_profiler_probe.py); the
-    training thread's own sessions did neither. So a stall's capture
-    starts at the training thread's next step, and a thread that never
-    gets there captures nothing."""
+    ``step=True`` says the caller runs a training step, which makes this
+    thread the training thread: each instrumented step
+    (:class:`ProfiledStep`) and each ``DistributedOptimizer.step`` poll so,
+    on whatever thread trains (Ray actors and Lightning train off the main
+    thread). Until a step has run, and once the thread that ran the last
+    one has ended, the main thread is the training thread; a training
+    loop of its own calls ``poll(step=True)`` once a step. A triggered
+    capture's session lives on the training thread because on the H100 a
+    session run on a thread of its own crashed the process inside CUPTI's
+    own thread in about one capture of twelve, and at times recorded none
+    of the kernels the training thread launched
+    (tools/torch_profiler_probe.py); the training thread's own sessions
+    did neither. So a stall's capture starts at the training thread's
+    next step, and a thread that never gets there captures nothing."""
+    global _TRAINING_THREAD
+    if step:
+        _TRAINING_THREAD = threading.current_thread()
     trig = _TRIGGER
-    if trig is None or not _on_training_thread():
+    if trig is None:
         return
     if trig.session is None:
-        _start_trigger(trig)
-    elif time.monotonic() >= trig.deadline:
+        if _on_training_thread():
+            _start_trigger(trig)
+    elif _owns_session(trig) and time.monotonic() >= trig.deadline:
         _stop_trigger(trig)
 
 
 def _stop_trigger_at_exit() -> None:
     trig = _TRIGGER
     if trig is not None and trig.session is not None and \
-            _on_training_thread():
+            _owns_session(trig):
         _stop_trigger(trig)
 
 
@@ -1000,7 +1027,7 @@ def _begin_manual(logdir: Optional[str] = None) -> str:
             raise RuntimeError("a profile capture is already active")
         trig = _TRIGGER if _PROFILE_ACTIVE else None
         if trig is not None and trig.session is not None and \
-                not _on_training_thread():
+                not _owns_session(trig):
             raise RuntimeError("a triggered capture runs on the training "
                                "thread; only that thread can stop it")
         _TRIGGER = None
@@ -1079,9 +1106,9 @@ def trigger_profile(reason: str, seconds: Optional[float] = None,
     ``HOROVOD_PROFILE_SECONDS``). At most ``HOROVOD_PROFILE_MAX_CAPTURES``
     captures per process, never two at once -- a stall storm must not turn
     into a disk-filling profile storm; a start that fails is not charged.
-    Called on the training (main) thread it starts the session now; from
-    another thread (the watchdog's) it leaves it to the training thread's
-    next :func:`poll`. Returns the capture directory, or None when
+    Called on the training thread it starts the session now; from another
+    thread (the watchdog's) it leaves it to the training thread's next
+    :func:`poll`. Returns the capture directory, or None when
     refused."""
     from horovod_tpu_torch.config import get_config
     global _PROFILE_ACTIVE, _PROFILE_SOURCE, _PROFILE_GEN, _PROFILE_CAPTURES

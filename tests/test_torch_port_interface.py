@@ -117,3 +117,22 @@ def test_models_reexports_as_the_reference(name):
     assert name in jmodels.__all__ and name in models.__all__
     home = mnist if name == "MnistCNN" else resnet
     assert getattr(models, name) is getattr(home, name)
+
+
+@pytest.mark.parametrize("name", ["blackbox", "dump_postmortem",
+                                  "postmortem_report"])
+def test_flight_recorder_names_as_the_reference(name):
+    """``hvd.blackbox``, ``hvd.dump_postmortem`` and
+    ``hvd.postmortem_report`` exist as in the reference
+    (``horovod_tpu/__init__.py:66-73``), the functions from the port's own
+    ``blackbox`` module."""
+    from horovod_tpu_torch import blackbox
+    assert hasattr(jhvd, name)
+    assert name in hvd.__all__
+    got = getattr(hvd, name)
+    if name == "blackbox":
+        assert got is blackbox
+        assert got.__all__ == jhvd.blackbox.__all__
+    else:
+        assert got is getattr(blackbox, name)
+        assert got.__name__ == getattr(jhvd, name).__name__

@@ -417,3 +417,37 @@ def test_get_model_builds_ported_names_and_points_to_roadmap():
     for name in ("gpt2_pipeline", "alexnet"):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             get_model(name)
+
+
+def test_the_postmortem_tool_stands_alone(tmp_path):
+    """``tools/torch_postmortem.py`` ranks a bundle the port published with
+    no JAX and no module of ``horovod_tpu`` loaded, and exits 2 on its
+    cause; 1 where there is no bundle."""
+    tool = REPO / "tools" / "torch_postmortem.py"
+    bb = tmp_path / "bb"
+    code = textwrap.dedent(f"""
+        import os, runpy, sys
+        sys.path.insert(0, {str(REPO)!r})
+        os.environ.update(HOROVOD_BLACKBOX="1",
+                          HOROVOD_BLACKBOX_DIR={str(bb)!r})
+        from horovod_tpu_torch import blackbox
+        blackbox.note_fault("kill", rank=0, step=3, detail="kill@rank=0")
+        assert blackbox.dump_postmortem(trigger="fault") is not None
+        blackbox.reset()
+        for argv in (["--dir", {str(bb)!r}],
+                     ["--dir", {str(tmp_path / "none")!r}]):
+            sys.argv = [{str(tool)!r}] + argv
+            try:
+                runpy.run_path(sys.argv[0], run_name="__main__")
+            except SystemExit as e:
+                print("EXIT", e.code)
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in {FORBIDDEN!r})
+        print("FORBIDDEN:", bad)
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "EXIT 2" in r.stdout and "EXIT 1" in r.stdout, r.stdout
+    assert "root cause: rank 0 kill" in r.stdout, r.stdout
+    assert "FORBIDDEN: []" in r.stdout, r.stdout

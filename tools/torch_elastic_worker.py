@@ -12,7 +12,8 @@ phase 8, ``tests/test_torch_port_launcher.py``,
 A spare waits in ``standby_if_spare()`` without touching a GPU. A rank
 builds the model (``--model gpt2_medium``: ``chip_smoke.build_path``,
 phase 3's GPT-2 medium, flash attention, bf16, seed 0, its slice of the
-batch; ``--model tiny``: a two-layer fp32 GPT-2 at B 4, T 32), wraps it
+batch, ``--layers N`` deep with weights of its own; ``--model tiny``: a
+two-layer fp32 GPT-2 at B 4, T 32), wraps it
 in a ``TorchState`` and a ``ShardedCheckpointManager`` under the elastic
 state dir, and when a manifest is published (a relaunch), rank 0 adopts
 the newest one and ``sync()`` sends it to every rank. Then, under
@@ -80,6 +81,9 @@ def main():
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--max-pending", type=int, default=2,
                     help="saves in flight before save() waits")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="gpt2_medium at this depth (default: 24, the "
+                         "main path's weights)")
     ap.add_argument("--wait-spares", type=int, default=0,
                     help="first attempt: wait until this many spares have "
                          "registered before the first step")
@@ -106,7 +110,9 @@ def main():
         import chip_smoke
         per = 8 // world
         model, opt, loss_of, _ = chip_smoke.build_path(
-            "gpt2_medium", dev, rows=slice(rank * per, (rank + 1) * per))
+            "gpt2_medium", dev, rows=slice(rank * per, (rank + 1) * per),
+            cfg_extra=None if args.layers is None
+            else {"num_layers": args.layers})
     else:
         model, opt, loss_of = build_tiny(dev, rank, world)
     t_built = time.time()

@@ -24,10 +24,19 @@ Cases, each in fresh processes:
   ``DistributedOptimizer.step``) start and stop the session;
 * ``main``: sessions the training thread starts and stops itself.
 
-Prints one JSON line per capture (``complete``: every flash kernel at
-least 24 times each step inside the window), one per case (captures,
-complete ones, each process's exit code: -11 is a segfault) and a failed
-process's stderr. Traces go to a temporary directory and are deleted once
+Prints one JSON line per process first (the torch version, and whether
+torch's own stop synchronizes the device before it disables the
+profiler), one per capture (``complete``: every flash kernel at least 24
+times each step inside the window; ``per_step_flash``: each step's flash
+kernels, found by their launch calls' times, and ``short_steps``: the
+places among the steps inside the window of those short of 24, so a
+short capture says whether its first or last steps lost kernels, and
+``lost``: for each short step, its launch calls that left no device
+activity and whether they are a tail cut or a drop inside the stream; in
+the
+``main`` case ``stop_s`` / ``export_s``: how long the training thread's
+own stop and export took), one per case (captures, complete ones, each
+process's exit code: -11 is a segfault) and a failed process's stderr. Traces go to a temporary directory and are deleted once
 counted. Needs a CUDA card and nvcc (the flash kernels are built at first
 use).
 """
@@ -54,6 +63,11 @@ from horovod_tpu_torch import profiler
 from horovod_tpu_torch.models.gpt2 import loss_fn
 fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
 ACTS = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+import inspect
+print(json.dumps(dict(case=case, torch=torch.__version__,
+                      sync_in_exit="synchronize" in inspect.getsource(
+                          torch.autograd.profiler.profile.__exit__))),
+      flush=True)
 tmp = tempfile.mkdtemp(prefix="torch_profiler_probe_")
 hvd.init()
 model, opt, _, info = chip_smoke.build_path("gpt2_medium", hvd.device())
@@ -91,28 +105,62 @@ def count(path, steps):
     w1 = doc["baseTimeNanoseconds"] + int(
         [e["ts"] for e in evs if e.get("name") == "Record Window End"][0]
         * 1e3)
-    inside = sum(1 for a, z in steps if a >= w0 and z <= w1)
-    launcher = {}
+    inside_idx = [i for i, (a, z) in enumerate(steps)
+                  if a >= w0 and z <= w1]
+    inside = len(inside_idx)
+    launcher, launched_at, launch_name = {}, {}, {}
     launches = collections.Counter()
     for e in evs:
         if e.get("cat") in ("cuda_runtime", "cuda_driver"):
             c = (e.get("args") or {}).get("correlation")
             if c is not None:
                 launcher[c] = str(e.get("tid"))
+                launched_at[c] = doc["baseTimeNanoseconds"] + e["ts"] * 1e3
+                launch_name[c] = e.get("name", "")
                 launches[str(e.get("tid"))] += 1
+    # device activity of each launch call (kernel, copy or set)
+    landed = {(e.get("args") or {}).get("correlation") for e in evs
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
     kernels = collections.Counter()
     flash = collections.Counter()
     by_thread = collections.Counter()
+    per_step = {i: collections.Counter() for i in inside_idx}
     for e in evs:
         if e.get("cat") != "kernel":
             continue
-        tid = launcher.get((e.get("args") or {}).get("correlation"), "?")
+        corr = (e.get("args") or {}).get("correlation")
+        tid = launcher.get(corr, "?")
         kernels[tid] += 1
         for k in fa.KERNELS:
             if k + "_" in e["name"]:
                 flash[k] += 1
                 by_thread[f"{k}@{tid}"] += 1
+                t = launched_at.get(corr)
+                for i in inside_idx:
+                    if t is not None and steps[i][0] <= t <= steps[i][1]:
+                        per_step[i][k] += 1
     flash = {k: flash[k] for k in fa.KERNELS}
+    rows = [[per_step[i][k] for k in fa.KERNELS] for i in inside_idx]
+    short = [pos for pos, row in enumerate(rows) if any(
+        n < info["launches"][k] for n, k in zip(row, fa.KERNELS))]
+    # For each short step: its kernel launch calls in launch order, which
+    # of them left no device activity, and whether every launch after the
+    # first such one left none too (a tail cut) or later ones landed (a
+    # drop inside the stream); times in ms from the window's start.
+    lost = []
+    for pos in short:
+        a, z = steps[inside_idx[pos]]
+        calls = sorted((t, c) for c, t in launched_at.items()
+                       if a <= t <= z and "aunch" in launch_name[c])
+        gone = [j for j, (_, c) in enumerate(calls) if c not in landed]
+        lost.append(dict(
+            step=pos, launch_calls=len(calls), without_activity=len(gone),
+            first_lost_ms=(calls[gone[0]][0] - w0) / 1e6 if gone else None,
+            last_call_ms=(calls[-1][0] - w0) / 1e6 if calls else None,
+            tail_cut=bool(gone) and gone == list(range(gone[0],
+                                                       len(calls))),
+            landed_after=sum(1 for _, c in calls[gone[0] + 1:]
+                             if c in landed) if gone else 0))
     # where the kernels lie in the window (ms from its start): a hole
     # shows as the widest gap between two kernels' starts
     ts = sorted(e["ts"] * 1e3 + doc["baseTimeNanoseconds"] for e in evs
@@ -123,6 +171,7 @@ def count(path, steps):
                 last_ms=(ts[-1] - w0) / 1e6 if ts else None,
                 widest_gap_ms=gap[0] / 1e6, gap_at_ms=(gap[1] - w0) / 1e6)
     return dict(steps_inside=inside, flash=flash, kernel_span=span,
+                per_step_flash=rows, short_steps=short, lost=lost,
                 flash_by_thread=dict(by_thread),
                 kernels_by_thread=dict(kernels),
                 launch_calls_by_thread=dict(launches),
@@ -155,7 +204,7 @@ for i in range(captures):
         else:
             threading.Thread(target=side_session, args=(path, done)).start()
 
-    steps, n = [], 0
+    steps, n, timed = [], 0, {}
     if case == "main":
         # the training thread's own session over 1.5 s of steps
         p = profile(activities=ACTS)
@@ -166,8 +215,11 @@ for i in range(captures):
             step()
             steps.append((a, time.time_ns()))
             n += 1
+        t0 = time.perf_counter()
         p.stop()
+        t1 = time.perf_counter()
         p.export_chrome_trace(path)
+        timed = dict(stop_s=t1 - t0, export_s=time.perf_counter() - t1)
         done.set()
     else:
         threading.Thread(target=fire).start()
@@ -179,8 +231,8 @@ for i in range(captures):
         n += 1
     if case == "port":
         path = glob.glob(os.path.join(box["dir"], "trace.*.json"))[0]
-    print(json.dumps(dict(case=case, capture=i, steps=n, **count(path, steps))),
-          flush=True)
+    print(json.dumps(dict(case=case, capture=i, steps=n, **timed,
+                          **count(path, steps))), flush=True)
     os.remove(path)
 shutil.rmtree(tmp)
 '''
@@ -255,8 +307,9 @@ def main() -> int:
                 if line.startswith("{"):
                     print(line, flush=True)
                     row = json.loads(line)
-                    caps += 1
-                    complete += row["complete"]
+                    if "capture" in row:
+                        caps += 1
+                        complete += row["complete"]
             if r.returncode != 0:
                 rc = 1
                 print(f"{case}: exit {r.returncode} after "
