@@ -318,8 +318,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``LOSS_TOL``, 24 launches of each kernel a step, every scrape 200 and
    parsed, no counter series lower than at the scrape before it, and once
    the steps end ``/metrics`` is ``to_prometheus()`` byte for byte and
-   ``/metrics.json`` ``to_json()``; ``/trace``, ``/healthz`` and
-   ``/config`` give the reference's fallbacks, ``/doctor`` 200 with
+   ``/metrics.json`` ``to_json()``; ``/trace`` and ``/healthz`` give the
+   reference's fallbacks, ``/config`` ``confbus.config_view()``,
+   ``/doctor`` 200 with
    ``hvd.doctor()``'s findings, an unknown
    path 404 and ``POST /config`` 403 (401 where a token is configured); the
    median step ms beside phases 3 and 6, and the scrapes' median and
@@ -395,6 +396,28 @@ Phases, in order; any failure exits nonzero and prints no result:
    holds the training frame on the main thread, and how long the handler
    ran after the signal was sent. Without phase 3 it runs phase 3's path
    itself first.
+20. The config bus (``confbus.py``), on a new one-rank NCCL world with
+   ``metrics_http(0)`` up, ``HOROVOD_SERVE_AUTH_TOKEN``,
+   ``HOROVOD_CONFIG_LEDGER``, ``HOROVOD_BLACKBOX=1`` and a timeline; phase
+   3's GPT-2 medium, with the bus driven between its 5 steps: (a) ``POST
+   /config`` without the token and with a wrong one is refused 401; with
+   it, ``HOROVOD_STALL_CHECK_TIME_SECONDS`` 60 -> 1 s is applied to the
+   running watchdog, and a held step (a ``collective_begin`` with no end,
+   phase 6's pattern) is then reported once within ``CONFBUS_HOLD_S``,
+   which the old timeout could not do; ``HOROVOD_FUSION_THRESHOLD`` is
+   refused ``shape_affecting`` and the next step issues phase 3's bucket
+   plan; an invalid value is ``rejected`` and the environment keeps the
+   applied one; (b) phase 3's losses bit for bit and 24 launches of each
+   kernel a step, counted into the kernels line as
+   ``gpt2_medium_confbus``; (c) one env change and ``hvd.init()`` (which
+   re-reads the environment) and a second re-read: one WARN line, the
+   ``config_epoch`` gauge equal to the two applied mutations, and the same
+   four records in the ledger file, ``GET /config``'s ledger tail, the
+   timeline's ``CONFIG`` markers and a ``dump_postmortem()`` bundle's
+   "config" records; the token in none of them, nor in the log or the
+   HTTP replies; (d) the phase's seconds and its step median with the bus
+   live beside phase 3's. Without phase 3 it runs phase 3's path itself
+   first.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``: each
 kernel's numbers at GPT-2's shapes, its launches on each path (GPT-2,
@@ -402,7 +425,7 @@ BERT, ViT, Llama, GPT-2 under the controller, GPT-2 under overlap and
 under the int8 wire, GPT-2 under elastic training over both attempts of
 (a) and under the reset of (b), phase 9's, phase 10 (c)'s, phase 11's,
 phase 12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's,
-phase 18's and phase 19's paths, each counted from 0 just
+phase 18's, phase 19's and phase 20's paths, each counted from 0 just
 before the path and read just after) and their sum, and its numbers at
 each new path's shape (phases 5, 9, 10 (a), 13, 14 and 16). The last line is
 ``{"ok": true,
@@ -413,7 +436,8 @@ its own run without remat); ``--phases 1,10`` runs phase 10 alone;
 ``--phases 1,13`` phase 13 alone; ``--phases 1,14`` phase 14 alone;
 ``--phases 1,15`` phase 15 alone; ``--phases 1,16`` phase 16 alone;
 ``--phases 1,17`` phase 17 alone; ``--phases 1,18`` phase 18 alone;
-``--phases 1,19`` phase 19 alone.
+``--phases 1,19`` phase 19 alone; ``--phases 1,3,20`` phase 20 beside
+phase 3.
 """
 
 from __future__ import annotations
@@ -5973,12 +5997,12 @@ _PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
 _MERGE_GAUGE = 'horovod_tpu_overlap_efficiency_estimate{source="merge"}'
 
 
-def _http(url, data=None):
+def _http(url, data=None, headers=None):
     """(status, body, ms) of one GET (or POST of ``data``); an HTTP error
     status is an answer, not an exception."""
     import urllib.error
     import urllib.request
-    req = urllib.request.Request(url, data=data)
+    req = urllib.request.Request(url, data=data, headers=headers or {})
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=30) as r:
@@ -6115,16 +6139,18 @@ def phase_observability(card, main_path, controller):
     if js[0] != 200 or got != want:
         fail("phase 17 (a): /metrics.json after the steps is not to_json()")
     token = bool(get_config().serve_auth_token)
+    from horovod_tpu_torch import confbus
     routes = {
         "/trace": (200, {"traceEvents": [], "displayTimeUnit": "ms"}),
         "/healthz": (200, {"status": "ok", "ok": True, "alerts": []}),
-        "/config": (200, {"epoch": 0, "values": {}}),
+        "/config": (200, json.loads(json.dumps(confbus.config_view(),
+                                               default=str))),
     }
     for path, want_route in routes.items():
         code, body, _ = _http(srv.url + path)
         if (code, json.loads(body)) != want_route:
             fail(f"phase 17 (a): {path} answered {code} {body[:200]!r}, "
-                 f"not the fallback {want_route}")
+                 f"not {str(want_route)[:200]}")
     code, body, _ = _http(srv.url + "/doctor")
     doctor_now = json.loads(json.dumps(hvd.doctor(), default=str))
     if code != 200 or json.loads(body)["findings"] != \
@@ -6148,7 +6174,8 @@ def phase_observability(card, main_path, controller):
         f"{'not run' if p6 is None else f'{p6:.2f}'}; {len(scrapes)} "
         f"scrapes ({counts}), every one 200, parsed, no counter backwards, "
         f"{scrape['median_ms']:.2f} ms median, {scrape['max_ms']:.2f} ms max "
-        f"(host clock); routes and fallbacks as the reference's, /doctor "
+        f"(host clock); /trace and /healthz the reference's fallbacks, "
+        f"/config the config bus's view, /doctor "
         f"200 with hvd.doctor()'s {len(doctor_now['findings'])} findings, "
         f"POST /config {401 if token else 403}; on {card}")
 
@@ -7113,6 +7140,291 @@ def phase_blackbox(card, main_path):
             "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 20
+
+CONFBUS_STALL_TIMEOUT_S = 1.0   # (a)'s retargeted watchdog (phase 19's)
+CONFBUS_HOLD_S = 30.0           # (a)'s bound on a held stall's wait: under
+                                # the old 60 s timeout it would not fire
+
+
+def phase_confbus(card, main_path):
+    """Phase 20: the config bus (``confbus.py``) on phase 3's path, on a
+    new one-rank NCCL world with ``metrics_http`` up, an auth token, a
+    ledger file, ``HOROVOD_BLACKBOX=1`` and a timeline: (a) live retarget
+    and refusals between steps, (b) the math untouched, (c) one audit
+    trail, (d) time. Without phase 3 it runs phase 3's path first."""
+    import logging
+    import os
+    import secrets
+    import tempfile
+    import faulthandler
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import blackbox, confbus, config, metrics
+    from horovod_tpu_torch.models.gpt2 import loss_fn
+    fa = importlib.import_module("horovod_tpu_torch.ops.flash_attention")
+    t_phase = time.perf_counter()
+    if main_path is None:
+        main_path = phase_main_path(card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase20_")
+    ledger = os.path.join(tmp, "config_ledger.jsonl")
+    trace_path = os.path.join(tmp, "trace.json")
+    token = secrets.token_hex(16)
+    env = dict(HOROVOD_SERVE_AUTH_TOKEN=token, HOROVOD_CONFIG_LEDGER=ledger,
+               HOROVOD_BLACKBOX="1",
+               HOROVOD_BLACKBOX_DIR=os.path.join(tmp, "blackbox"))
+    before_env = {k: os.environ.get(k) for k in env}
+    hooks = (signal.getsignal(signal.SIGTERM),
+             signal.getsignal(signal.SIGABRT), sys.excepthook)
+    # The knobs this phase sets come in by env before the world forms; the
+    # bus audits that refresh, then starts from epoch 0 and an empty ledger.
+    os.environ.update(env)
+    config.refresh()
+    confbus.reset()
+    blackbox.reset()
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    logged = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            logged.append(record)
+
+    keep = _Keep(level=logging.WARNING)
+    logging.getLogger("horovod_tpu_torch").addHandler(keep)
+    hvd.start_timeline(trace_path)
+    hvd.init()
+    srv = hvd.metrics_http(0)
+    dog = metrics.get_stall_watchdog()
+    if hvd.backend() != "nccl" or hvd.size() != 1 or blackbox.get() is None \
+            or dog is None or confbus.epoch() != 0:
+        fail(f"phase 20: init gave {hvd.backend()} x {hvd.size()}, "
+             f"recorder {blackbox.get()}, watchdog {dog}, config epoch "
+             f"{confbus.epoch()}")
+    old_timeout = dog.timeout_s
+    dev = hvd.device()
+    model, opt, _, info = build_path("gpt2_medium", dev)
+    tokens = info["inputs"]
+    bodies = []      # every HTTP reply body, for the token check
+
+    def step():
+        opt.zero_grad()
+        loss = loss_fn(model(tokens), tokens)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss
+
+    def checked_step(i):
+        before = dict(fa.launches)
+        buckets0 = _counter(metrics.snapshot(), "fusion_buckets_total")
+        t0 = time.perf_counter()
+        loss = step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        grew = {k: fa.launches[k] - before[k] for k in fa.KERNELS}
+        if grew != info["launches"]:
+            fail(f"phase 20: step {i} launched {grew}, not "
+                 f"{info['launches']}")
+        buckets.append(_counter(metrics.snapshot(), "fusion_buckets_total")
+                       - buckets0)
+        return loss.item()
+
+    def post(doc, tok=token):
+        code, raw, _ = _http(srv.url + "/config", json.dumps(doc).encode(),
+                             {"X-Auth-Token": tok} if tok else None)
+        bodies.append(raw)
+        return code, json.loads(raw or b"{}")
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    losses, ms, buckets = [], [], []
+    # (a) the retarget, and the refusals, between steps
+    losses.append(checked_step(0))
+    want = {"name": "HOROVOD_STALL_CHECK_TIME_SECONDS",
+            "value": CONFBUS_STALL_TIMEOUT_S, "reason": "phase 20"}
+    refused = [post(want, None), post(want, "not-the-token-" + "0" * 8)]
+    if [c for c, _ in refused] != [401, 401] or confbus.epoch() != 0:
+        fail(f"phase 20 (a): POST /config without the token answered "
+             f"{refused}, epoch {confbus.epoch()}; want 401 twice, epoch 0")
+    code, res = post(want)
+    if code != 200 or res.get("outcome") != "applied" or \
+            dog.timeout_s != CONFBUS_STALL_TIMEOUT_S or \
+            metrics.get_stall_watchdog() is not dog or \
+            os.environ.get("HOROVOD_STALL_CHECK_TIME_SECONDS") != \
+            str(CONFBUS_STALL_TIMEOUT_S):
+        fail(f"phase 20 (a): the retarget answered {code} {res}; the "
+             f"watchdog's timeout is {dog.timeout_s} s")
+    losses.append(checked_step(1))
+    fusion_env = os.environ.get("HOROVOD_FUSION_THRESHOLD")
+    code, shape = post({"name": "HOROVOD_FUSION_THRESHOLD",
+                        "value": 1 << 20})
+    losses.append(checked_step(2))
+    if code != 200 or (shape.get("outcome"), shape.get("code")) != \
+            ("refused", "shape_affecting") or \
+            os.environ.get("HOROVOD_FUSION_THRESHOLD") != fusion_env or \
+            len(set(buckets)) != 1 or \
+            buckets[0] != main_path["buckets_per_step"]:
+        fail(f"phase 20 (a): HOROVOD_FUSION_THRESHOLD answered {code} "
+             f"{shape}; buckets a step {buckets}, phase 3's plan "
+             f"{main_path['buckets_per_step']}")
+    code, bad = post({"name": "HOROVOD_STALL_CHECK_TIME_SECONDS",
+                      "value": "soon"})
+    if code != 200 or (bad.get("outcome"), bad.get("code")) != \
+            ("rejected", "invalid") or \
+            os.environ.get("HOROVOD_STALL_CHECK_TIME_SECONDS") != \
+            str(CONFBUS_STALL_TIMEOUT_S) or \
+            dog.timeout_s != CONFBUS_STALL_TIMEOUT_S:
+        fail(f"phase 20 (a): an invalid value answered {code} {bad}; env "
+             f"{os.environ.get('HOROVOD_STALL_CHECK_TIME_SECONDS')!r}, "
+             f"timeout {dog.timeout_s}")
+    losses.append(checked_step(3))
+    # (c) an env change and a re-resolve after init (hvd.init() again:
+    # re-entrant, it re-reads the environment), then a second re-resolve
+    n_logged = len(logged)
+    os.environ["HOROVOD_METRICS_INTERVAL"] = "5"
+    hvd.init()
+    config.refresh()
+    refresh_warns = [r.getMessage() for r in logged[n_logged:]
+                     if "refresh() changed" in r.getMessage()]
+    losses.append(checked_step(4))
+    # (b) the math: phase 3's losses bit for bit
+    if losses != main_path["losses"]:
+        fail(f"phase 20 (b): losses {losses} are not phase 3's "
+             f"{main_path['losses']} bit for bit")
+    bus_ms = statistics.median(ms[1:])
+    # (a) the held step under the retargeted watchdog
+    stalls0 = _counter(metrics.snapshot(), "stall_events_total")
+    held = metrics.collective_begin("allreduce", name="phase20/held",
+                                    nbytes=4)
+    t_held = time.perf_counter()
+    n = 0
+    try:
+        while time.perf_counter() - t_held < CONFBUS_HOLD_S and _counter(
+                metrics.snapshot(), "stall_events_total") == stalls0:
+            checked_step(5 + n)
+            n += 1
+    finally:
+        metrics.collective_end(held)
+    held_s = time.perf_counter() - t_held
+    stalls = _counter(metrics.snapshot(), "stall_events_total") - stalls0
+    launches = dict(fa.launches)
+    if stalls != 1 or held_s >= old_timeout:
+        fail(f"phase 20 (a): the held step gave {stalls} stall reports in "
+             f"{held_s:.2f} s ({n} steps); want one under the "
+             f"{CONFBUS_STALL_TIMEOUT_S} s timeout, not the old "
+             f"{old_timeout} s")
+    # (c) one audit trail: ledger file, GET /config, the timeline's
+    # CONFIG markers and a bundle's "config" records (dumped once the
+    # stall's own bundle is out)
+    deadline = time.monotonic() + 60.0
+    while blackbox.get().last_bundle is None and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    bundle = blackbox.dump_postmortem(note="phase 20")
+    code, body, _ = _http(srv.url + "/config")
+    bodies.append(body)
+    view = json.loads(body)
+    srv.stop()
+    hvd.stop_timeline()
+    with open(ledger) as f:
+        ledger_text = f.read()
+    lines = [json.loads(x) for x in ledger_text.splitlines() if x.strip()]
+    with open(trace_path) as f:
+        trace_text = f.read()
+    marks = [e["args"] for e in json.loads(trace_text)["traceEvents"]
+             if e.get("name") == "CONFIG"]
+    stall_marks = [e["args"] for e in json.loads(trace_text)["traceEvents"]
+                   if e.get("name") == "collective_stall"]
+    with open(os.path.join(bundle, "events.jsonl")) as f:
+        recs = [json.loads(x) for x in f if x.strip()]
+    recs = [r for r in recs if r["type"] == "config"]
+    applied = [r for r in lines if r["outcome"] == "applied"]
+
+    def trail(items):
+        return [(r["knob"], r.get("outcome", "applied"), r.get("origin"))
+                for r in items]
+
+    want_trail = [("HOROVOD_STALL_CHECK_TIME_SECONDS", "applied", "http"),
+                  ("HOROVOD_FUSION_THRESHOLD", "refused", "http"),
+                  ("HOROVOD_STALL_CHECK_TIME_SECONDS", "rejected", "http"),
+                  ("HOROVOD_METRICS_INTERVAL", "applied", "env-refresh")]
+    if len(refresh_warns) != 1 or \
+            "HOROVOD_METRICS_INTERVAL" not in refresh_warns[0] or \
+            confbus.epoch() != len(applied) or len(applied) != 2 or \
+            view["epoch"] != confbus.epoch() or \
+            _gauge_value(metrics.snapshot(), "config_epoch") != \
+            float(len(applied)) or \
+            trail(lines) != want_trail or \
+            trail(view["ledger_tail"]) != want_trail or \
+            trail(marks) != want_trail or trail(recs) != want_trail:
+        fail(f"phase 20 (c): the audit trail disagrees: WARN lines "
+             f"{refresh_warns}, epoch {confbus.epoch()} for {len(applied)} "
+             f"applied; ledger {trail(lines)}, GET /config "
+             f"{trail(view['ledger_tail'])}, CONFIG markers {trail(marks)},"
+             f" bundle {trail(recs)}; want {want_trail}")
+    if not stall_marks or stall_marks[0]["tensor"] != "phase20/held" or \
+            not CONFBUS_STALL_TIMEOUT_S <= stall_marks[0]["pending_s"] \
+            < old_timeout:
+        fail(f"phase 20 (a): the stall markers {stall_marks}")
+    bundle_text = ""
+    for d, _, files in os.walk(os.path.join(tmp, "blackbox")):
+        for name in files:
+            with open(os.path.join(d, name), errors="replace") as f:
+                bundle_text += f.read()
+    log_text = "\n".join(r.getMessage() for r in logged)
+    leaks = [where for where, text in (
+        ("ledger", ledger_text), ("http", b"".join(bodies).decode()),
+        ("bundle", bundle_text), ("log", log_text),
+        ("timeline", trace_text)) if token in text]
+    if leaks:
+        fail(f"phase 20 (c): the auth token appears in {leaks}")
+    logging.getLogger("horovod_tpu_torch").removeHandler(keep)
+    epoch = confbus.epoch()
+    del model, opt
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    blackbox.reset()
+    signal.signal(signal.SIGTERM, hooks[0])
+    signal.signal(signal.SIGABRT, hooks[1])
+    sys.excepthook = hooks[2]
+    faulthandler.disable()
+    for k in list(env) + ["HOROVOD_STALL_CHECK_TIME_SECONDS",
+                          "HOROVOD_METRICS_INTERVAL"]:
+        if before_env.get(k) is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = before_env[k]
+    config.refresh()
+    confbus.reset()
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 20 (a): POST /config without the token: 401 twice; with "
+        f"it, HOROVOD_STALL_CHECK_TIME_SECONDS {old_timeout:g} -> "
+        f"{CONFBUS_STALL_TIMEOUT_S:g} s applied live, and a held step was "
+        f"reported once after {held_s:.2f} s ({n} steps, marker pending_s "
+        f"{stall_marks[0]['pending_s']}); HOROVOD_FUSION_THRESHOLD refused "
+        f"shape_affecting with {buckets[0]} buckets a step before and "
+        f"after (phase 3's plan); an invalid value rejected, the env and "
+        f"the watchdog kept at {CONFBUS_STALL_TIMEOUT_S:g} s; on {card}")
+    log(f"phase 20 (b): losses phase 3's bit for bit, launches a step "
+        f"{info['launches']}, {launches} in the phase's "
+        f"{len(ms)} steps; on {card}")
+    log(f"phase 20 (c): one env change + hvd.init() + refresh(): one WARN, "
+        f"config_epoch {epoch} for "
+        f"{len(applied)} applied mutations; ledger, GET /config, CONFIG "
+        f"markers and the bundle's config records all {want_trail}; the "
+        f"token in none of ledger, HTTP bodies, bundle, log, timeline")
+    log(f"phase 20 (d): {phase_s:.1f} s; step {bus_ms:.2f} ms median "
+        f"(steps 1-4, host clock after synchronize) with the bus live, "
+        f"against phase 3's {main_path['step_ms_median']:.2f}; on {card}")
+    return {"losses": losses, "step_ms": ms, "bus_ms_median": bus_ms,
+            "phase3_step_ms_median": main_path["step_ms_median"],
+            "held_s": held_s, "held_steps": n,
+            "stall_pending_s": stall_marks[0]["pending_s"],
+            "buckets_per_step": buckets[0], "trail": want_trail,
+            "config_epoch": epoch, "phase_s": phase_s,
+            "launches": launches}
+
+
 def _gauge_value(snap, name, **labels):
     for s in snap["gauges"].get(name, []):
         if all(str(s["labels"].get(k)) == str(v) for k, v in labels.items()):
@@ -7124,10 +7436,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19",
+                            "19,20",
                     help="comma-separated phases to run (default "
-                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19; "
-                         "6, 7 and 8 need 3)")
+                         "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,"
+                         "20; 6, 7 and 8 need 3)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     if phases & {6, 7, 8} and 3 not in phases:
@@ -7229,6 +7541,10 @@ def main(argv=None) -> int:
         box = phase_blackbox(card, main_path if 3 in phases else None)
         launches["gpt2_medium_blackbox"] = box.pop("launches")
         print(json.dumps({"phase19": box}, default=str), flush=True)
+    if 20 in phases:
+        bus = phase_confbus(card, main_path if 3 in phases else None)
+        launches["gpt2_medium_confbus"] = bus.pop("launches")
+        print(json.dumps({"phase20": bus}, default=str), flush=True)
     for name, row in report.items():
         row["launches_per_path"] = {p: n.get(name, 0)
                                     for p, n in launches.items()}

@@ -37,7 +37,13 @@ bounded capture a stall under ``HOROVOD_PROFILE_ON_STALL``), and
 ``doctor()`` ranks what looks sick; ``blackbox`` is the flight recorder
 (``HOROVOD_BLACKBOX``): a stall, a fault-plan kill, SIGTERM or
 ``dump_postmortem()`` publishes a bundle that ``postmortem_report``
-(``tools/torch_postmortem.py``) ranks the root cause of. The allreduce algorithm axis
+(``tools/torch_postmortem.py``) ranks the root cause of; ``confbus`` is
+the config bus: ``set_config`` changes a runtime-mutable knob (refusing
+shape-affecting ones with a typed reason), and every change, by the bus or
+by an env change that ``config.refresh()`` sees, is audited once (a
+``config_epoch``, a ledger line under ``HOROVOD_CONFIG_LEDGER``, a
+``CONFIG`` timeline marker, a flight-recorder record; ``GET /config``
+shows it). The allreduce algorithm axis
 (``overlap.py``: ``algorithm=`` ``psum``, ``rs_ag``, ``chunked_rs_ag``,
 their ``_int8`` / ``_fp8`` quantized forms, the ``_2d`` forms over
 ``topology()``, ``swing``, or ``auto``; ``wire=`` and ``overlap_chunks=``;
@@ -116,6 +122,12 @@ from horovod_tpu_torch.profiler import doctor, profile  # noqa: E402,F401
 from horovod_tpu_torch import blackbox  # noqa: E402,F401
 from horovod_tpu_torch.blackbox import (  # noqa: E402,F401
     dump_postmortem, postmortem_report)
+# The config bus (hvd.confbus): the typed knob registry over config.py,
+# hvd.set_config() with its audit ledger and config_epoch, measured-effect
+# windows with revert-on-regression, and GET / POST /config on
+# hvd.metrics_http().
+from horovod_tpu_torch import confbus  # noqa: E402,F401
+from horovod_tpu_torch.confbus import set_config  # noqa: E402,F401
 # Fault tolerance: elastic states and the run decorator (hvd.elastic), async
 # sharded checkpoints (hvd.checkpoint_sharded), full-state checkpoints
 # (hvd.checkpoint) and the fault plan (hvd.faults).
@@ -162,5 +174,5 @@ __all__ = [
     "sharded_adamw", "parallel", "mesh2d", "mesh_spec", "dp_size",
     "mp_size", "dp_rank", "mp_rank", "merge_timelines", "metrics_http",
     "timeseries", "profiler", "doctor", "profile", "blackbox",
-    "dump_postmortem", "postmortem_report",
+    "dump_postmortem", "postmortem_report", "confbus", "set_config",
 ]

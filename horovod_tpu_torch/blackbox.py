@@ -38,9 +38,11 @@ Three pieces:
   and emit a ranked root-cause report ("rank 0 kill; last event FAULT
   kill@rank=0,step=3").
 
-``note_fleet``, ``note_config``, ``on_alert`` and ``on_engine_death`` are
-whole and have no caller in the port yet: the health and config planes
-(ROADMAP.md section A item 9c-ii) and serving (item 10) bring them.
+``note_config`` records the config bus's mutations and experiment
+verdicts (``confbus.py``). ``note_fleet``, ``on_alert`` and
+``on_engine_death`` are whole and have no caller in the port yet: the
+health plane (ROADMAP.md section A item 9c-ii-b) and serving (item 10)
+bring them.
 
 Signal-safety contract: ``dump()`` must complete even while another
 thread holds the metrics registry lock (a Python signal handler runs on

@@ -480,8 +480,11 @@ def build_info() -> dict:
     """The build and runtime flags in one dict: ``nccl_built()``,
     ``gloo_built()``, the CUDA version, whether a card is there, whether
     the kernels are built, the backend ``init`` chose (None before it),
-    and the profiler's knobs (``profile_on_stall``, ``profile_dir``,
-    ``profiler_cost``: None, True or False)."""
+    the profiler's knobs (``profile_on_stall``, ``profile_dir``,
+    ``profiler_cost``: None, True or False), and the config bus's
+    ``config_epoch`` and ``config``: the resolved value of every knob of
+    its registry by env name, the auth token as a boolean only."""
+    from horovod_tpu_torch import confbus
     from horovod_tpu_torch.ops import _build
     cfg = _config.get_config()
     return {
@@ -494,4 +497,6 @@ def build_info() -> dict:
         "profile_on_stall": cfg.profile_on_stall,
         "profile_dir": cfg.profile_dir,
         "profiler_cost": cfg.profiler_cost,
+        "config_epoch": confbus.epoch(),
+        "config": confbus.resolved_values(),
     }

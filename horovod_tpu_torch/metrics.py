@@ -32,9 +32,10 @@ Public surface (also ``hvd.metrics()`` / ``hvd.reset_metrics``):
   ``/metrics.json``, ``/trace``, ``/healthz``, ``/config`` and
   ``POST /config`` (gated by ``HOROVOD_SERVE_AUTH_TOKEN``). Its threads
   read the registry only. Nothing starts it but a call: not ``init()``.
-  Where the module behind a route is not ported yet (``serving.reqtrace``,
-  ``health``, ``confbus``) the route gives the reference's own fallback;
-  ``/doctor`` serves ``profiler.doctor()``.
+  ``/config`` is the config bus's (``confbus.py``). Where the module behind
+  a route is not ported yet (``serving.reqtrace``, ``health``) the route
+  gives the reference's own fallback; ``/doctor`` serves
+  ``profiler.doctor()``.
 
 A snapshot copies the series maps under the registry's lock and reads
 the values outside it, each histogram in one acquisition of its own lock,
@@ -942,14 +943,19 @@ class MetricsHTTPServer:
     as a Chrome-trace document (empty ``traceEvents`` until request
     tracing is ported, ROADMAP.md section A item 10). ``GET /healthz``
     answers 200/503 from the health plane's alerts (``{"status": "ok",
-    "ok": true, "alerts": []}`` until it is ported, item 9c-ii). ``GET
-    /config`` serves the config bus's view (``{"epoch": 0, "values": {}}``
-    until then); ``POST /config`` applies one ``confbus.set_config``
-    mutation, gated on ``HOROVOD_SERVE_AUTH_TOKEN`` (403 with no token
-    configured, 401 on a mismatch, 400 on a malformed body, 500 while the
-    config bus is absent -- the token is never echoed). ``GET /doctor``
-    serves the health plane's last windowed report, or while that plane
-    is not ported (item 9c-ii) a one-shot ``profiler.doctor()``. Unknown
+    "ok": true, "alerts": []}`` until it is ported, item 9c-ii-b). ``GET
+    /config`` serves ``confbus.config_view()`` (the epoch, the resolved
+    values with the auth token as a boolean, the overrides, the mutable and
+    shape-affecting knobs, open experiments and the ledger's tail; ``{"epoch":
+    0, "values": {}}`` should the bus fail to import); ``POST /config``
+    applies one ``confbus.set_config`` mutation (``{"name", "value",
+    "reason"}``, origin ``http``), gated on ``HOROVOD_SERVE_AUTH_TOKEN``:
+    403 with no token configured, 401 on a mismatch, 400 on a malformed
+    body, 200 with the typed result for an applied, refused, rejected or
+    unknown knob, 500 should the bus raise. The token is never echoed.
+    ``GET /doctor`` serves the health plane's last windowed report, or
+    while that plane is not ported (item 9c-ii-b) a one-shot
+    ``profiler.doctor()``. Unknown
     paths 404. Requests are
     not logged. Serves on daemon threads that read the registry only;
     :meth:`stop` shuts it down."""

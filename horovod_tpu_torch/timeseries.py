@@ -23,7 +23,7 @@ answers windowed queries --
   data (``profiler.doctor_window``).
 
 Peers land in the same store under extra labels (``{replica, attempt}``,
-the reference's ``health.FleetCollector``, item 9c-ii), so a restarted
+the reference's ``health.FleetCollector``, item 9c-ii-b), so a restarted
 replica mints *new* series and fleet-wide rates stay monotone across
 restarts; stale series age out via :meth:`TimeSeriesStore.expire`.
 
@@ -413,7 +413,7 @@ class LocalSampler:
     """Background thread appending the process-local registry snapshot
     into a :class:`TimeSeriesStore` every ``interval_s`` (the local half
     of the reference's health plane; peers arrive there via
-    ``health.FleetCollector``, ROADMAP.md section A item 9c-ii)."""
+    ``health.FleetCollector``, ROADMAP.md section A item 9c-ii-b)."""
 
     def __init__(self, store: TimeSeriesStore, interval_s: float = 2.0,
                  labels: Optional[Dict[str, Any]] = None,

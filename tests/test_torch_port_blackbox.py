@@ -33,11 +33,13 @@ import types
 import pytest
 
 from horovod_tpu import blackbox as RB
+from horovod_tpu import confbus as RBUS
 from horovod_tpu import config as RC
 from horovod_tpu import metrics as RM
 from horovod_tpu import profiler as RP
 from horovod_tpu import timeline as RT
 from horovod_tpu_torch import blackbox as PB
+from horovod_tpu_torch import confbus as PBUS
 from horovod_tpu_torch import config as PC
 from horovod_tpu_torch import metrics as PM
 from horovod_tpu_torch import profiler as PP
@@ -46,9 +48,10 @@ from horovod_tpu_torch import timeline as PT
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = {
     "port": types.SimpleNamespace(blackbox=PB, config=PC, metrics=PM,
-                                  profiler=PP, timeline=PT),
+                                  profiler=PP, timeline=PT, confbus=PBUS),
     "reference": types.SimpleNamespace(blackbox=RB, config=RC, metrics=RM,
-                                       profiler=RP, timeline=RT),
+                                       profiler=RP, timeline=RT,
+                                       confbus=RBUS),
 }
 
 
@@ -64,6 +67,7 @@ def _reset_all():
     for p in PKGS.values():
         p.blackbox.reset()
         p.config.refresh()
+        p.confbus.reset()   # both buses count their epochs from 0
         p.metrics.reset_metrics()
 
 
@@ -463,16 +467,14 @@ def test_same_feeds_give_the_same_bundles(twin_bundles):
         {k: v for k, v in mr.items() if k not in varying}
 
     def events(b):
-        # The reference's config bus notes each knob an env refresh
-        # mutates ("config" records); the port's bus is ROADMAP.md section
-        # A item 9c-ii, so the port has none yet.
+        # Each config bus notes each knob an env refresh mutates ("config"
+        # records: arming the recorder sets two).
         recs = [json.loads(x) for x in _read(b, "events.jsonl").splitlines()]
-        return _without([r for r in recs if r["type"] != "config"]), \
-            sum(r["type"] == "config" for r in recs)
+        return _without(recs), sum(r["type"] == "config" for r in recs)
 
     (ep, np_), (er, nr) = events(port), events(ref)
-    assert ep == er and np_ == 0
-    assert mp_["events"] == mr["events"] - nr == len(ep)
+    assert ep == er and np_ == nr == 2
+    assert mp_["events"] == mr["events"] == len(ep)
     assert _read(port, "alerts.tail.jsonl").splitlines() != []
     assert _without([json.loads(x) for x in _read(
         port, "alerts.tail.jsonl").splitlines()]) == _without(
@@ -615,8 +617,14 @@ def test_a_watchdog_fire_publishes_one_stall_bundle(tmp_path):
     assert len(bundles) == 1
     manifest = json.loads(_read(bundles[0], "manifest.json"))
     assert manifest["trigger"] == "stall" and "stuck0" in manifest["note"]
-    stalls = [json.loads(x) for x in _read(bundles[0], "events.jsonl")
+    events = [json.loads(x) for x in _read(bundles[0], "events.jsonl")
               .splitlines()]
+    # arming the recorder by env and refresh() is audited by the config
+    # bus: one "config" record for each of the two knobs it set
+    assert [(e["type"], e.get("knob")) for e in events
+            if e["type"] != "stall"] == [
+        ("config", "HOROVOD_BLACKBOX"), ("config", "HOROVOD_BLACKBOX_DIR")]
+    stalls = [e for e in events if e["type"] == "stall"]
     assert [e["tensor"] for e in stalls] == ["stuck0"]
     report = PB.postmortem_report(bundles[0])
     assert report["findings"][0]["category"] == "stall"

@@ -5,21 +5,24 @@ Every route of the reference's ``MetricsHTTPServer``
 server, started beside the port's with both registries holding the same
 series: the same status, Content-Type and body for ``/metrics`` and ``/``,
 ``/metrics.json`` (but its timestamp), ``/trace``, ``/healthz`` and
-``/config``, an unknown path, and each ``POST /config`` case. Where the
-module behind a route (``serving.reqtrace``, ``health``, ``confbus``) is
-not ported, the reference is made to miss it too, so both take their
-fallback branches. ``/doctor`` serves ``hvd.doctor()``, the reference's
+``/config`` (both config buses at epoch 0 over the same environment), an
+unknown path, and each ``POST /config`` case, an applied mutation
+included. Where the module behind a route (``serving.reqtrace``,
+``health``) is not ported, the reference is made to miss it too, so both
+take their fallback branches; with the port's ``confbus`` hidden as well,
+``/config`` gives that fallback and ``POST /config`` its 500. ``/doctor`` serves ``hvd.doctor()``, the reference's
 report but the suggestion texts the port rewrites (ROADMAP.md section C);
 unknown paths 404 without a log line. ``POST /config`` is gated by
 ``HOROVOD_SERVE_AUTH_TOKEN`` (403 with none configured, 401 on a
-mismatch, 400 on a malformed body, 500 while the config bus is absent)
-and never echoes the token. ``fallback_ports`` retries the next ports.
+mismatch, 400 on a malformed body, 200 with the bus's typed result, 500
+while the config bus is absent) and never echoes the token. ``fallback_ports`` retries the next ports.
 Scrapes taken while a tiny gloo training loop writes the registry parse,
 and no counter goes backwards between them.
 """
 
 import importlib.abc
 import json
+import os
 import re
 import socket
 import sys
@@ -31,8 +34,10 @@ import urllib.request
 import pytest
 import torch
 
+from horovod_tpu import confbus as RBUS
 from horovod_tpu import config as RC
 from horovod_tpu import metrics as RM
+from horovod_tpu_torch import confbus as PBUS
 from horovod_tpu_torch import config
 from horovod_tpu_torch import metrics as PM
 
@@ -93,8 +98,10 @@ def token(monkeypatch):
 # The reference's modules that the port has not ported yet. The reference
 # must miss them as the port does, so that its routes take the same
 # fallback branches.
-UNPORTED = ("horovod_tpu.serving.reqtrace", "horovod_tpu.health",
-            "horovod_tpu.confbus")
+UNPORTED = ("horovod_tpu.serving.reqtrace", "horovod_tpu.health")
+# Both packages' config buses, hidden where a test takes the branches a
+# missing bus takes.
+CONFBUSES = ("horovod_tpu.confbus", "horovod_tpu_torch.confbus")
 
 
 class _Unfindable(importlib.abc.MetaPathFinder):
@@ -111,17 +118,49 @@ class _Unfindable(importlib.abc.MetaPathFinder):
         return None
 
 
+def _hide(monkeypatch, names):
+    """``names`` gone for one test: out of ``sys.modules``, off their
+    package, unfindable."""
+    for name in names:
+        parent, _, child = name.rpartition(".")
+        monkeypatch.delitem(sys.modules, name, raising=False)
+        if parent in sys.modules:
+            monkeypatch.delattr(sys.modules[parent], child, raising=False)
+    monkeypatch.setattr(sys, "meta_path",
+                        [_Unfindable(names)] + sys.meta_path)
+
+
 @pytest.fixture
 def unported(monkeypatch):
     """For one test, the reference's copies of the modules the port lacks
-    are gone: out of ``sys.modules``, off their package, unfindable."""
-    for name in UNPORTED:
-        parent, _, child = name.rpartition(".")
-        monkeypatch.delitem(sys.modules, name, raising=False)
-        monkeypatch.delattr(sys.modules[parent], child, raising=False)
-    monkeypatch.setattr(sys, "meta_path",
-                        [_Unfindable(UNPORTED)] + sys.meta_path)
+    are gone."""
+    _hide(monkeypatch, UNPORTED)
     yield
+
+
+@pytest.fixture
+def no_confbus(monkeypatch):
+    """For one test, neither package has a config bus (nor the modules
+    ``unported`` hides)."""
+    _hide(monkeypatch, UNPORTED + CONFBUSES)
+    yield
+
+
+@pytest.fixture
+def same_buses():
+    """Both configs read from one environment, both buses at epoch 0; the
+    environment, both configs and both buses as they were afterwards
+    (``POST /config`` writes the environment)."""
+    env = dict(os.environ)
+    _refresh()
+    for bus in (PBUS, RBUS):
+        bus.reset()
+    yield
+    os.environ.clear()
+    os.environ.update(env)
+    _refresh()
+    for bus in (PBUS, RBUS):
+        bus.reset()
 
 
 def _seed(m=PM):
@@ -160,7 +199,7 @@ GET_ROUTES = ["/metrics", "/", "/metrics?name=x", "/trace", "/healthz",
 
 @pytest.mark.parametrize("path", GET_ROUTES)
 def test_get_routes_answer_as_the_reference(server, ref_server, unported,
-                                            same_series, path):
+                                            same_series, same_buses, path):
     port, ref = _both(server, ref_server, path)
     assert port[:2] == ref[:2]
     assert port[2] == ref[2]
@@ -216,7 +255,8 @@ FALLBACKS = {
 
 
 @pytest.mark.parametrize("path", sorted(FALLBACKS))
-def test_unported_modules_give_the_references_fallback(server, path):
+def test_unported_modules_give_the_references_fallback(server, no_confbus,
+                                                       path):
     code, ctype, body = _get(server.url + path)
     assert (code, json.loads(body)) == FALLBACKS[path]
     assert ctype == "application/json"
@@ -364,7 +404,7 @@ def test_post_config_malformed_body_is_400(server, ref_server, unported,
 
 
 def test_post_config_is_500_while_confbus_is_absent(server, ref_server,
-                                                    unported, token):
+                                                    no_confbus, token):
     code, _, body = _post(server, ref_server, tok=token)
     assert code == 500
     doc = json.loads(body)
@@ -373,6 +413,37 @@ def test_post_config_is_500_while_confbus_is_absent(server, ref_server,
     assert doc["error"].startswith("set_config: ImportError(")
     assert "confbus" in doc["error"]
     assert TOKEN.encode() not in body
+
+
+@pytest.mark.parametrize("body", [
+    b'{"name": "HOROVOD_SERVE_HEDGE_MS", "value": 25, "reason": "http"}',
+    b'{"name": "serve_max_retries", "value": 7}',
+    b'{"name": "HOROVOD_SERVE_RPC_TIMEOUT", "value": -1}',
+    b'{"name": "HOROVOD_SERVE_AUTH_TOKEN", "value": "another-token"}',
+    b'{"name": "HOROVOD_TIMELINE", "value": "/x"}',
+    b'{"name": "HOROVOD_NO_SUCH_KNOB", "value": 1}',
+    b'{}'])
+def test_post_config_applies_as_the_reference(server, ref_server, unported,
+                                              token, same_buses, body):
+    """With the token, the port's bus and the reference's give the same
+    typed reply (applied, refused, rejected or unknown), and ``GET
+    /config`` then shows the same view but the ledger's times."""
+    code, ctype, reply = _post(server, ref_server, body=body, tok=token)
+    assert (code, ctype) == (200, "application/json")
+    doc = json.loads(reply)
+    assert doc["outcome"] in ("applied", "refused", "rejected", "unknown")
+    assert TOKEN.encode() not in reply
+    port, ref = _both(server, ref_server, "/config")
+    got, want = json.loads(port[2]), json.loads(ref[2])
+    for view in (got, want):
+        for rec in view["ledger_tail"]:
+            assert rec.pop("ts") > 0
+        for e in view["pending_experiments"]:
+            e.pop("t0")
+    assert got == want
+    assert got["epoch"] == int(doc["outcome"] == "applied")
+    assert [r["origin"] for r in got["ledger_tail"]] == ["http"]
+    assert TOKEN.encode() not in port[2]
 
 
 def test_short_token_refused_and_never_echoed(monkeypatch):
